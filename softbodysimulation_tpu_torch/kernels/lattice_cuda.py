@@ -1,0 +1,278 @@
+"""The hand-written CUDA lattice kernel (``csrc/lattice_xpbd.cu``) and its
+runners.
+
+Counterpart of ``softbodysimulation_tpu/kernels/lattice_pallas.py``:
+``make_cuda_substep_runner`` stands for both ``make_pallas_substep_runner``
+and ``make_pallas_substep_runner_streamed`` (one kernel covers both, the
+resident kernel's joint g + ext ``max_force`` clamp included), and
+``make_cuda_step`` for ``make_pallas_step``.
+
+Device dispatch, with no fallback: a state on a CUDA device launches the
+kernel (or raises); a state on the CPU runs the kernel's plain version,
+``solvers.lattice.run_substeps_plain`` — the only path a host without a card
+can take.  The library is built with ``nvcc`` on the first CUDA call
+(``kernels/_build.py``), never at import.
+
+``launches`` counts the CUDA kernels this module has launched; callers may
+reset it to 0 to count one run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..core.config import (DampingMode, FloorMode, LambdaMode, SolveMode,
+                           SolverConfig)
+from ..core.state import SimState
+from ..solvers import lattice as _lat
+from ..topology.lattice import LatticeSpec
+from . import _build
+
+LIB_NAME = "lattice_xpbd"
+SOURCES = ("lattice_xpbd.cu",)
+MAX_FAM = 16
+MAX_SPHERES = 16
+
+launches = 0   # CUDA kernels launched by this module (plain int)
+
+
+class LatticeParams(ctypes.Structure):
+    """Mirror of ``struct LatticeParams`` in ``csrc/lattice_xpbd.cu`` (every
+    field 4 bytes wide, same order)."""
+
+    _fields_ = [
+        ("res", ctypes.c_int), ("n", ctypes.c_int), ("nfam", ctypes.c_int),
+        ("iterations", ctypes.c_int), ("colored", ctypes.c_int),
+        ("lambda_mode", ctypes.c_int), ("fast_math", ctypes.c_int),
+        ("gravity_acc", ctypes.c_int), ("floor_mode", ctypes.c_int),
+        ("reference_bounds", ctypes.c_int), ("n_spheres", ctypes.c_int),
+        ("fam", (ctypes.c_int * 4) * MAX_FAM),
+        ("dt", ctypes.c_float), ("gravity", ctypes.c_float * 3),
+        ("max_force", ctypes.c_float), ("damp_factor", ctypes.c_float),
+        ("max_velocity", ctypes.c_float), ("world_bounds", ctypes.c_float),
+        ("lambda_decay", ctypes.c_float), ("warm_fraction", ctypes.c_float),
+        ("relax", ctypes.c_float), ("max_dlambda", ctypes.c_float),
+        ("lambda_clamp", ctypes.c_float), ("eps_length", ctypes.c_float),
+        ("eps_denominator", ctypes.c_float), ("static_eps", ctypes.c_float),
+        ("ground_height", ctypes.c_float), ("floor_alpha", ctypes.c_float),
+        ("friction", ctypes.c_float), ("sphere_dt_fr", ctypes.c_float),
+        ("floor_rest", ctypes.c_float), ("restitution", ctypes.c_float),
+        ("penetration_kick", ctypes.c_float),
+        ("normal_force_scale", ctypes.c_float),
+        ("floor_friction_coeff", ctypes.c_float),
+        ("rest", ctypes.c_float * MAX_FAM),
+        ("alpha", ctypes.c_float * MAX_FAM),
+        ("dl_rel", ctypes.c_float * MAX_FAM),
+        ("warm_lim", ctypes.c_float * MAX_FAM),
+        ("spheres", (ctypes.c_float * 4) * MAX_SPHERES),
+    ]
+
+
+_LAMBDA_MODE = {LambdaMode.RESET: 0, LambdaMode.DECAY: 1,
+                LambdaMode.WARM_START: 2}
+_FLOOR_MODE = {FloorMode.NONE: 0, FloorMode.XPBD_INEQUALITY: 1,
+               FloorMode.VELOCITY_REFLECT: 2}
+
+
+def _check_supported(cfg: SolverConfig, spec: LatticeSpec,
+                     approx_math: bool = False, n_bodies: int = 1):
+    """Build-time refusals: the plain engine's, plus the kernel's options
+    that are not ported and its fixed table sizes."""
+    _lat.check_supported(cfg, spec)
+    if approx_math:
+        raise NotImplementedError(
+            "lattice kernel: approx_math (rsqrt / approximate reciprocal) "
+            "is not ported")
+    if n_bodies != 1:
+        raise NotImplementedError(
+            "lattice kernel: lane-folded ensembles (n_bodies > 1) are not "
+            "ported")
+    if spec.n_families > MAX_FAM:
+        raise NotImplementedError(
+            f"lattice kernel: at most {MAX_FAM} offset families")
+    if len(cfg.sphere_colliders) > MAX_SPHERES:
+        raise NotImplementedError(
+            f"lattice kernel: at most {MAX_SPHERES} sphere colliders")
+
+
+def make_params(spec: LatticeSpec, cfg: SolverConfig,
+                dt: float) -> LatticeParams:
+    """The kernel's constants, each rounded to float32 from the same double
+    expression the plain engine (and the JAX engine) evaluates."""
+    p = LatticeParams()
+    p.res = spec.res
+    p.n = spec.n_particles
+    p.nfam = spec.n_families
+    p.iterations = cfg.iterations
+    p.colored = int(cfg.solve_mode == SolveMode.COLORED)
+    p.lambda_mode = _LAMBDA_MODE[cfg.lambda_mode]
+    p.fast_math = int(cfg.fast_math)
+    p.gravity_acc = int(cfg.gravity_is_acceleration)
+    p.floor_mode = _FLOOR_MODE[cfg.floor_mode]
+    p.reference_bounds = int(spec.reference_bounds)
+    p.n_spheres = len(cfg.sphere_colliders)
+    p.dt = dt
+    p.gravity[:] = cfg.gravity
+    p.max_force = cfg.max_force
+    if cfg.damping_mode == DampingMode.PER_STEP:
+        p.damp_factor = 1.0 - min(max(cfg.damping, 0.0), 1.0)
+    else:
+        p.damp_factor = 1.0 - cfg.damping * dt
+    p.max_velocity = cfg.max_velocity
+    p.world_bounds = cfg.world_bounds
+    p.lambda_decay = cfg.lambda_decay
+    p.warm_fraction = cfg.warm_start_fraction
+    p.relax = 0.5 * (cfg.omega if cfg.omega > 0 else 1.0)
+    p.max_dlambda = cfg.max_dlambda
+    p.lambda_clamp = cfg.lambda_clamp
+    p.eps_length = cfg.eps_length
+    p.eps_denominator = cfg.eps_denominator
+    p.static_eps = cfg.static_inv_mass_eps
+    p.ground_height = cfg.ground_height
+    p.floor_alpha = cfg.collision_compliance / (dt * dt)
+    fr = min(max(cfg.friction, 0.0), 1.0)
+    p.friction = fr
+    p.sphere_dt_fr = dt * fr
+    p.floor_rest = cfg.ground_height + cfg.floor_offset
+    p.restitution = cfg.restitution
+    p.penetration_kick = cfg.penetration_kick
+    p.normal_force_scale = cfg.normal_force_scale
+    p.floor_friction_coeff = cfg.floor_friction_coeff
+    for fi, fam in enumerate(spec.families):
+        p.fam[fi][:] = fam
+        rest = spec.rest_lengths[fi]
+        alpha = spec.compliances[fi] / (dt * dt)
+        if cfg.min_alpha_tilde > 0:
+            alpha = max(alpha, cfg.min_alpha_tilde)
+        p.rest[fi] = rest
+        p.alpha[fi] = alpha
+        p.dl_rel[fi] = (cfg.max_dlambda_rel * rest
+                        if cfg.max_dlambda_rel > 0 else 0.0)
+        p.warm_lim[fi] = (cfg.warm_start_clamp * rest
+                          if cfg.warm_start_clamp > 0 else 0.0)
+    for si, sphere in enumerate(cfg.sphere_colliders):
+        p.spheres[si][:] = sphere
+    return p
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """Build on first use, load, and declare every entry point's types."""
+    lib = _build.load_library(LIB_NAME, SOURCES)
+    lib.lattice_xpbd_params_size.argtypes = []
+    lib.lattice_xpbd_params_size.restype = ctypes.c_int
+    lib.lattice_xpbd_error_string.argtypes = [ctypes.c_int]
+    lib.lattice_xpbd_error_string.restype = ctypes.c_char_p
+    vp = ctypes.c_void_p
+    lib.lattice_xpbd_run.argtypes = [
+        ctypes.POINTER(LatticeParams), ctypes.c_int, vp, vp, vp, vp,
+        ctypes.c_int, vp, vp, vp, vp, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_longlong), vp]
+    lib.lattice_xpbd_run.restype = ctypes.c_int
+    if lib.lattice_xpbd_params_size() != ctypes.sizeof(LatticeParams):
+        raise RuntimeError("LatticeParams layout differs between "
+                           "lattice_cuda.py and lattice_xpbd.cu")
+    return lib
+
+
+def _ptr(name: str, t: torch.Tensor, shape, device) -> ctypes.c_void_p:
+    if t.device != device or t.dtype != torch.float32:
+        raise ValueError(f"lattice kernel: {name} must be float32 on "
+                         f"{device}, got {t.dtype} on {t.device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"lattice kernel: {name} has shape "
+                         f"{tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"lattice kernel: {name} must be contiguous")
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def run_substeps_cuda(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
+                      dt_sub: float, n_substeps: int,
+                      with_ext: bool = False) -> SimState:
+    """Launch the kernel for ``n_substeps`` substeps of a CUDA state; the
+    semantics of ``solvers.lattice.run_substeps_plain``.  No host sync."""
+    global launches
+    _check_supported(cfg, spec)
+    _lat.check_state(state)
+    dev = state.device
+    if dev.type != "cuda":
+        raise ValueError(f"lattice kernel: state on {dev}, not CUDA")
+    n, nfam = spec.n_particles, spec.n_families
+    # (N, 3) -> (3, N) structure of arrays, once per call (as _to_grid)
+    x = state.positions.t().contiguous()
+    v = state.velocities.t().contiguous()
+    w = state.inv_mass
+    f = state.ext_force.t().contiguous()
+    lam = state.lambda_dist.clone()
+    lam_scratch = torch.empty_like(lam)
+    pred_a = torch.empty((3, n), dtype=torch.float32, device=dev)
+    pred_b = torch.empty_like(pred_a)
+    args = [_ptr("positions", x, (3, n), dev),
+            _ptr("velocities", v, (3, n), dev),
+            _ptr("inv_mass", w, (n,), dev),
+            _ptr("ext_force", f, (3, n), dev),
+            ctypes.c_int(int(with_ext)),
+            _ptr("lambda_dist", lam, (nfam * n,), dev),
+            _ptr("lambda scratch", lam_scratch, (nfam * n,), dev),
+            _ptr("pred", pred_a, (3, n), dev),
+            _ptr("pred", pred_b, (3, n), dev)]
+    params = make_params(spec, cfg, dt_sub)
+    lib = _library()
+    count = ctypes.c_longlong(0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.lattice_xpbd_run(ctypes.byref(params), dev.index, *args,
+                              n_substeps, ctypes.byref(count),
+                              ctypes.c_void_p(stream))
+    launches += count.value
+    if rc != 0:
+        msg = lib.lattice_xpbd_error_string(rc).decode()
+        raise RuntimeError(f"lattice kernel launch failed: {msg} ({rc})")
+    out = state.replace(positions=x.t().contiguous(),
+                        velocities=v.t().contiguous(), lambda_dist=lam)
+    if with_ext:
+        out = out.replace(ext_force=torch.zeros_like(state.ext_force))
+    return out
+
+
+def advance(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
+            dt_sub: float, n_substeps: int, with_ext: bool) -> SimState:
+    """A CUDA state launches the kernel; a CPU state runs the plain engine;
+    any other device raises."""
+    if state.device.type == "cuda":
+        return run_substeps_cuda(state, spec, cfg, dt_sub, n_substeps,
+                                 with_ext)
+    if state.device.type == "cpu":
+        return _lat.run_substeps_plain(state, spec, cfg, dt_sub, n_substeps,
+                                       with_ext)
+    raise NotImplementedError(
+        f"lattice kernel: no path for a state on {state.device}")
+
+
+def make_cuda_substep_runner(spec: LatticeSpec, cfg: SolverConfig,
+                             dt_sub: float, n_substeps: int,
+                             with_ext: bool = False,
+                             approx_math: bool = False, n_bodies: int = 1):
+    """``SimState -> SimState`` advancing ``n_substeps`` raw substeps.
+    ``with_ext=False``: external forces are neither applied nor cleared
+    (rollout semantics); ``with_ext=True``: ``state.ext_force`` is consumed
+    on the first substep and zeroed.  ``approx_math`` and ``n_bodies > 1``
+    are not ported and raise ``NotImplementedError`` here, at build time."""
+    _check_supported(cfg, spec, approx_math=approx_math, n_bodies=n_bodies)
+
+    def fn(state: SimState) -> SimState:
+        return advance(state, spec, cfg, dt_sub, n_substeps, with_ext)
+
+    return fn
+
+
+def make_cuda_step(spec: LatticeSpec, cfg: SolverConfig, dt: float,
+                   n_steps: int = 1):
+    """Full step semantics: ``n_steps`` frames of ``cfg.substeps`` substeps,
+    ``state.ext_force`` consumed on the first substep and zeroed after
+    (drop-in for ``solvers.lattice.make_step``)."""
+    return make_cuda_substep_runner(spec, cfg, dt / cfg.substeps,
+                                    n_steps * cfg.substeps, with_ext=True)

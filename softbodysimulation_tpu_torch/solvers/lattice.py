@@ -1,0 +1,438 @@
+"""Stencil XPBD engine for res^3 lattices: the plain PyTorch version.
+
+Counterpart of ``softbodysimulation_tpu/solvers/lattice.py``.  A regular
+lattice's constraint graph is a fixed set of offset families
+(``topology/lattice.py``), so each constraint pass is shifted-array
+arithmetic on the component-major ``(3, res, res*res)`` layout:
+
+  * gather  -> ``torch.roll`` by the family offset (wrap-around killed by a
+    boundary mask),
+  * scatter -> the inverse roll of the correction field,
+  * graph colouring -> a parity split along the family's leading axis.
+
+This module is the plain version of the hand-written CUDA lattice kernel
+(``kernels/lattice_cuda.py``): the CPU tests hold it against the JAX
+engine, and on the card the kernel is held against it.  ``make_step`` and
+``make_substep_runner`` dispatch on the state's device: a CPU state runs
+this engine, a CUDA state launches the kernel (or raises).  The plain loop
+on any device is ``run_substeps_plain`` (and ``step_fn`` /
+``multi_step_fn``).
+
+The slice covers the lattice main path; self-collision, per-cell tets, box
+colliders, kinematic ColliderSets and lane-folded ensembles raise
+``NotImplementedError`` (``check_supported``).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..core.config import FloorMode, LambdaMode, SolveMode, SolverConfig
+from ..core.state import SimState
+from ..topology.lattice import LatticeSpec, lattice_points
+
+
+def n_lambda(spec: LatticeSpec) -> int:
+    return spec.n_families * spec.res ** 3
+
+
+def make_lattice_state(spec: LatticeSpec, center=(0.0, 0.0, 0.0),
+                       mass: float = 1.0, dtype=torch.float32,
+                       device="cpu") -> SimState:
+    pos = lattice_points(spec.res, spec.size, center)
+    n = pos.shape[0]
+    inv = 0.0 if mass <= 1e-4 else 1.0 / mass
+    return SimState(
+        positions=torch.as_tensor(pos, dtype=dtype, device=device),
+        velocities=torch.zeros((n, 3), dtype=dtype, device=device),
+        inv_mass=torch.full((n,), inv, dtype=dtype, device=device),
+        ext_force=torch.zeros((n, 3), dtype=dtype, device=device),
+        lambda_dist=torch.zeros((n_lambda(spec),), dtype=dtype,
+                                device=device),
+        lambda_bend=torch.zeros((0,), dtype=dtype, device=device),
+        lambda_volume=torch.zeros((), dtype=dtype, device=device),
+    )
+
+
+def check_supported(cfg: SolverConfig, spec: LatticeSpec):
+    """Refuse, at build time, what this slice of the port does not carry."""
+    if cfg.enable_self_collision:
+        raise NotImplementedError(
+            "lattice port: self-collision (hybrid contact) is not ported")
+    if cfg.enable_tet_volume:
+        raise NotImplementedError(
+            "lattice port: per-cell tet volume is not ported")
+    if cfg.box_colliders:
+        raise NotImplementedError(
+            "lattice port: box SDF colliders are not ported")
+
+
+def check_state(state: SimState):
+    """Refuse, at call time, a state the slice does not carry."""
+    if state.colliders is not None:
+        raise NotImplementedError(
+            "lattice port: kinematic ColliderSets are not ported")
+
+
+@functools.lru_cache(maxsize=64)
+def _family_masks(spec: LatticeSpec) -> Tuple[np.ndarray, ...]:
+    """Per-family (valid, parity0) boolean masks in (res, res*res) layout.
+
+    valid: anchor a has a partner a+d in bounds (with the reference's
+    shear/bend anchor quirk when spec.reference_bounds).  parity0: anchor's
+    leading-offset-axis coordinate is even."""
+    res = spec.res
+    xx, yy, zz = np.meshgrid(np.arange(res), np.arange(res), np.arange(res),
+                             indexing="ij")
+    out = []
+    for fam in spec.families:
+        dx, dy, dz, kind = fam
+        if spec.reference_bounds and kind != 0:
+            valid = (xx < res - 1) & (yy < res - 1) & (zz < res - 1)
+        else:
+            valid = np.ones((res, res, res), bool)
+            for coord, d in ((xx, dx), (yy, dy), (zz, dz)):
+                if d > 0:
+                    valid &= coord < res - d
+                elif d < 0:
+                    valid &= coord >= -d
+        lead = xx if dx else (yy if dy else zz)
+        parity0 = (lead % 2) == 0
+        out.append((valid.reshape(res, res * res),
+                    parity0.reshape(res, res * res)))
+    return tuple(out)
+
+
+def _masks_dev(spec: LatticeSpec, device):
+    return tuple((torch.as_tensor(vv, device=device),
+                  torch.as_tensor(pp, device=device))
+                 for (vv, pp) in _family_masks(spec))
+
+
+def _roll_fwd(a, fam, res):
+    """partner view a[x+dx, y+dy, z+dz] in (..., res, res*res) layout."""
+    dx, dy, dz, _ = fam
+    if dx:
+        a = torch.roll(a, -dx, dims=a.ndim - 2)
+    k = dy * res + dz
+    if k:
+        a = torch.roll(a, -k, dims=a.ndim - 1)
+    return a
+
+
+def _roll_bwd(a, fam, res):
+    dx, dy, dz, _ = fam
+    k = dy * res + dz
+    if k:
+        a = torch.roll(a, k, dims=a.ndim - 1)
+    if dx:
+        a = torch.roll(a, dx, dims=a.ndim - 2)
+    return a
+
+
+def _family_pass(pred, w, wb, lam_f, fam, mask, rest, comp, dt,
+                 cfg: SolverConfig, res, relax=None):
+    """One constraint pass on (3,res,res^2) pred.  ``mask`` folds validity
+    and (for GS) parity; relax=None => exact GS, float => Jacobi scaling."""
+    pb = _roll_fwd(pred, fam, res)
+    d = pb - pred
+    len_sq = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    length = torch.sqrt(torch.clamp(len_sq, min=1e-24))
+    c = length - rest
+    alpha = comp / (dt * dt)
+    if cfg.min_alpha_tilde > 0:
+        alpha = max(alpha, cfg.min_alpha_tilde)
+    denom = w + wb + alpha
+    dl = (-c - alpha * lam_f) / torch.clamp(denom, min=1e-30)
+    if cfg.max_dlambda > 0:
+        dl = torch.clamp(dl, -cfg.max_dlambda, cfg.max_dlambda)
+    if cfg.max_dlambda_rel > 0:
+        m = cfg.max_dlambda_rel * rest
+        dl = torch.clamp(dl, -m, m)
+    if cfg.fast_math:
+        # static masks only (see SolverConfig.fast_math); mask is a float
+        # multiplier here
+        scale = mask if relax is None else mask * relax
+        dl = dl * scale
+    else:
+        active = (
+            mask
+            & (length >= cfg.eps_length)
+            & (torch.abs(denom) >= cfg.eps_denominator)
+            & ((w >= cfg.static_inv_mass_eps)
+               | (wb >= cfg.static_inv_mass_eps))
+        )
+        dl = torch.where(active, dl if relax is None else dl * relax, 0.0)
+    lam_f = lam_f + dl
+    if cfg.lambda_clamp > 0:
+        lam_f = torch.clamp(lam_f, -cfg.lambda_clamp, cfg.lambda_clamp)
+    dp = d * (dl / length)[None]
+    pred = pred - w[None] * dp
+    pred = pred + _roll_bwd(wb[None] * dp, fam, res)
+    return pred, lam_f
+
+
+def _warm_apply_family(pred, w, wb, lam_f, fam, valid, res, rest,
+                       cfg: SolverConfig):
+    """Pre-apply a family's carried impulses along current edge directions,
+    the carried multiplier clamped so the correction never exceeds
+    ``warm_start_clamp * rest`` per particle.  Returns (pred, clamped lam)."""
+    if cfg.warm_start_fraction != 1.0:
+        lam_f = lam_f * cfg.warm_start_fraction  # SOR pre-application
+    if cfg.warm_start_clamp > 0:
+        wmax = torch.clamp(torch.maximum(w, wb), min=1e-12)
+        lim = cfg.warm_start_clamp * rest / wmax
+        lam_f = torch.clamp(lam_f, -lim, lim)
+    pb = _roll_fwd(pred, fam, res)
+    d = pb - pred
+    len_sq = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    length = torch.sqrt(torch.clamp(len_sq, min=1e-24))
+    dl = torch.where(valid, lam_f, 0.0)
+    dp = d * (dl / length)[None]
+    pred = pred - w[None] * dp
+    pred = pred + _roll_bwd(wb[None] * dp, fam, res)
+    return pred, lam_f
+
+
+def _floor_xpbd(pred, x, w, dt, cfg: SolverConfig):
+    """XPBD inequality floor + positional friction, componentwise on
+    (3,res,res^2) (semantics of ops/collision.floor_project_xpbd)."""
+    gh = cfg.ground_height
+    pen = gh - pred[1]
+    alpha_c = cfg.collision_compliance / (dt * dt)
+    denom = w + alpha_c
+    dl = pen / torch.clamp(denom, min=1e-30)
+    hit = ((pen > 0) & (w >= cfg.static_inv_mass_eps)
+           & (torch.abs(denom) >= cfg.eps_denominator))
+    p1 = pred[1] + torch.where(hit, w * dl, 0.0)
+    fr = min(max(cfg.friction, 0.0), 1.0)
+    p0 = pred[0] - torch.where(hit, (pred[0] - x[0]) * fr, 0.0)
+    p2 = pred[2] - torch.where(hit, (pred[2] - x[2]) * fr, 0.0)
+    return torch.stack([p0, p1, p2])
+
+
+def _spheres(pred, x, w, dt, cfg: SolverConfig):
+    """Static sphere SDF projection with positional friction."""
+    fr = min(max(cfg.friction, 0.0), 1.0)
+    for cx, cy, cz, radius in cfg.sphere_colliders:
+        center = torch.tensor([cx, cy, cz], dtype=x.dtype,
+                              device=x.device).reshape(3, 1, 1)
+        dvec = pred - center
+        dist = torch.sqrt(torch.clamp(
+            dvec[0] * dvec[0] + dvec[1] * dvec[1] + dvec[2] * dvec[2],
+            min=1e-24))
+        nrm = dvec / dist[None]
+        penet = radius - dist
+        act = (penet > 0) & (w >= cfg.static_inv_mass_eps)
+        pred = pred + torch.where(act[None], nrm * penet[None], 0.0)
+        vel = (pred - x) / dt
+        vn = (vel[0] * nrm[0] + vel[1] * nrm[1]
+              + vel[2] * nrm[2])[None] * nrm
+        vt = vel - vn
+        pred = pred - torch.where(act[None], vt * (dt * fr), 0.0)
+    return pred
+
+
+def _substep(x, v, w, f, lam, spec: LatticeSpec, cfg: SolverConfig, dt,
+             apply_ext: bool, masks_dev):
+    """One substep in (3,res,res^2) layout.  x,v,f: (3,res,r2); w: (res,r2);
+    lam: (nfam,res,r2).  Returns (x, v, lam)."""
+    res = spec.res
+
+    if cfg.lambda_mode == LambdaMode.RESET:
+        lam = torch.zeros_like(lam)
+    else:
+        lam = lam * cfg.lambda_decay
+
+    # predict (reference gravity is a force: v += dt*w*(g + f_ext);
+    # gravity_is_acceleration applies g mass-independently)
+    g = torch.tensor(cfg.gravity, dtype=x.dtype,
+                     device=x.device).reshape(3, 1, 1)
+    ext = f if apply_ext else torch.zeros_like(f)
+    if cfg.gravity_is_acceleration:
+        if cfg.max_force > 0:
+            ext = torch.clamp(ext, -cfg.max_force, cfg.max_force)
+        active = (w > 0)[None]
+        v = v + dt * (torch.where(active, g, 0.0) + w[None] * ext)
+    else:
+        force = g + ext
+        if cfg.max_force > 0:
+            force = torch.clamp(force, -cfg.max_force, cfg.max_force)
+        v = v + dt * w[None] * force
+    if cfg.damping_mode.value == "per_step":
+        v = v * (1.0 - min(max(cfg.damping, 0.0), 1.0))
+    else:
+        v = v * (1.0 - cfg.damping * dt)
+    if cfg.max_velocity > 0:
+        v = torch.clamp(v, -cfg.max_velocity, cfg.max_velocity)
+    pred = x + dt * v
+    if cfg.world_bounds > 0:
+        pred = torch.clamp(pred, -cfg.world_bounds, cfg.world_bounds)
+
+    wb_per_fam = [_roll_fwd(w, fam, res) for fam in spec.families]
+
+    if cfg.lambda_mode == LambdaMode.WARM_START:
+        lam_parts = []
+        for fi, fam in enumerate(spec.families):
+            pred, lam_f = _warm_apply_family(
+                pred, w, wb_per_fam[fi], lam[fi], fam, masks_dev[fi][0],
+                res, spec.rest_lengths[fi], cfg)
+            lam_parts.append(lam_f)
+        lam = torch.stack(lam_parts)
+
+    for _ in range(cfg.iterations):
+        lam_parts = []
+        for fi, fam in enumerate(spec.families):
+            valid, parity0 = masks_dev[fi]
+            m_even = valid & parity0
+            m_odd = valid & ~parity0
+            m_all = valid
+            if cfg.fast_math:
+                # float multipliers; see SolverConfig.fast_math
+                m_even = m_even.to(pred.dtype)
+                m_odd = m_odd.to(pred.dtype)
+                m_all = m_all.to(pred.dtype)
+            lam_f = lam[fi]
+            rest = spec.rest_lengths[fi]
+            comp = spec.compliances[fi]
+            wb = wb_per_fam[fi]
+            if cfg.solve_mode == SolveMode.COLORED:
+                pred, lam_f = _family_pass(
+                    pred, w, wb, lam_f, fam, m_even, rest, comp, dt, cfg,
+                    res)
+                pred, lam_f = _family_pass(
+                    pred, w, wb, lam_f, fam, m_odd, rest, comp, dt, cfg,
+                    res)
+            else:
+                pred, lam_f = _family_pass(
+                    pred, w, wb, lam_f, fam, m_all, rest, comp, dt, cfg,
+                    # intra-family conflict degree is 2, hence omega/2
+                    res, relax=0.5 * (cfg.omega if cfg.omega > 0 else 1.0))
+            lam_parts.append(lam_f)
+        lam = torch.stack(lam_parts)
+
+        if cfg.floor_mode == FloorMode.XPBD_INEQUALITY:
+            pred = _floor_xpbd(pred, x, w, dt, cfg)
+        if cfg.sphere_colliders:
+            pred = _spheres(pred, x, w, dt, cfg)
+
+    # finalize
+    pinned = (w == 0.0)[None]
+    v = torch.where(pinned, 0.0, (pred - x) / dt)
+    x = torch.where(pinned, x, pred)
+
+    if cfg.floor_mode == FloorMode.VELOCITY_REFLECT:
+        # flagship-style velocity-level floor (ops/collision semantics)
+        gh = cfg.ground_height
+        pen = gh - x[1]
+        hit = (pen > 0) & (w > 0)
+        x1 = torch.where(hit, gh + cfg.floor_offset, x[1])
+        falling = hit & (v[1] < 0)
+        vy = torch.abs(v[1]) * cfg.restitution + pen * cfg.penetration_kick
+        v1 = torch.where(falling, vy, v[1])
+        normal_force = torch.abs(v1) + pen * cfg.normal_force_scale
+        h_speed = torch.sqrt(torch.clamp(v[0] * v[0] + v[2] * v[2],
+                                         min=1e-24))
+        moving = h_speed > 1e-3
+        fmag = torch.minimum(h_speed,
+                             normal_force * cfg.floor_friction_coeff * dt)
+        scalef = torch.where(falling & moving, fmag / h_speed, 0.0)
+        v0 = v[0] - v[0] * scalef
+        v2 = v[2] - v[2] * scalef
+        x = torch.stack([x[0], x1, x[2]])
+        v = torch.stack([v0, v1, v2])
+
+    return x, v, lam
+
+
+def _to_grid(state: SimState, spec: LatticeSpec):
+    res = spec.res
+    r2 = res * res
+    return (state.positions.T.reshape(3, res, r2),
+            state.velocities.T.reshape(3, res, r2),
+            state.inv_mass.reshape(res, r2),
+            state.ext_force.T.reshape(3, res, r2),
+            state.lambda_dist.reshape(spec.n_families, res, r2))
+
+
+def _from_grid(state: SimState, x, v, lam, zero_ext: bool) -> SimState:
+    out = state.replace(
+        positions=x.reshape(3, -1).T.contiguous(),
+        velocities=v.reshape(3, -1).T.contiguous(),
+        lambda_dist=lam.reshape(-1),
+    )
+    if zero_ext:
+        out = out.replace(ext_force=torch.zeros_like(state.ext_force))
+    return out
+
+
+def run_substeps_plain(state: SimState, spec: LatticeSpec,
+                       cfg: SolverConfig, dt_sub: float, n_substeps: int,
+                       with_ext: bool = False) -> SimState:
+    """The plain engine's substep loop on any device: ``n_substeps`` raw
+    substeps.  ``with_ext=True`` consumes ``state.ext_force`` on the first
+    substep and zeroes it; ``with_ext=False`` neither applies nor clears it
+    (the semantics of the JAX package's fused runners)."""
+    check_supported(cfg, spec)
+    check_state(state)
+    masks = _masks_dev(spec, state.device)
+    x, v, w, f, lam = _to_grid(state, spec)
+    for i in range(n_substeps):
+        x, v, lam = _substep(x, v, w, f, lam, spec, cfg, dt_sub,
+                             with_ext and i == 0, masks)
+    return _from_grid(state, x, v, lam, zero_ext=with_ext)
+
+
+def step_fn(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
+            dt: float) -> SimState:
+    """One physics step = cfg.substeps substeps; external forces consumed on
+    the first substep (SoftBodyParticleCPU force lifecycle).  Plain engine,
+    on any device."""
+    return run_substeps_plain(state, spec, cfg, dt / cfg.substeps,
+                              cfg.substeps, with_ext=True)
+
+
+def multi_step_fn(state, spec, cfg, dt, n_steps: int) -> SimState:
+    for _ in range(n_steps):
+        state = step_fn(state, spec, cfg, dt)
+    return state
+
+
+def make_step(spec: LatticeSpec, cfg: SolverConfig, dt: float,
+              n_steps: int = 1):
+    """``SimState -> SimState`` advancing ``n_steps`` frames of
+    ``cfg.substeps`` substeps, ``state.ext_force`` consumed on the first
+    substep and zeroed after.  Since the accumulator is zero after the
+    first substep, the frames run as one substep loop.  Dispatches on the
+    state's device through the kernel wrapper (CUDA: the kernel; CPU: this
+    engine)."""
+    from ..kernels import lattice_cuda
+
+    return lattice_cuda.make_cuda_step(spec, cfg, dt, n_steps)
+
+
+def make_batched_step(spec: LatticeSpec, cfg: SolverConfig, dt: float,
+                      n_bodies: int, n_steps: int = 1):
+    """Lane-folded ensemble stepping: not ported (raises)."""
+    raise NotImplementedError(
+        "lattice port: lane-folded ensembles are not ported")
+
+
+def make_substep_runner(spec: LatticeSpec, cfg: SolverConfig, dt_sub: float,
+                        n_substeps: int):
+    """Flat loop over raw substeps (no ext forces; ``ext_force`` reads back
+    zero) — used by benchmarks.  Dispatches on the state's device like
+    ``make_step``."""
+    from ..kernels import lattice_cuda
+
+    run = lattice_cuda.make_cuda_substep_runner(spec, cfg, dt_sub,
+                                                n_substeps)
+
+    def fn(state: SimState) -> SimState:
+        return run(state).replace(ext_force=torch.zeros_like(state.ext_force))
+
+    return fn

@@ -1,0 +1,167 @@
+"""The port's CUDA lattice kernel wrapper (``kernels/lattice_cuda.py``).
+
+On the CPU the wrapper runs the kernel's plain version, so its runner and
+step are held against the JAX package's fused streamed Pallas kernel, run
+in interpret mode as ``tests/test_pallas_kernel.py`` runs it (res 6, 12
+substeps; tolerances max |dx| < 1e-5, max |dlambda| < 1e-6).  The build-time
+refusals are checked here too.  The kernel itself runs only on the card:
+``tests/test_torch_kernel_on_card.py`` (marked ``gpu``, no jax) holds it
+against the plain version there and skips on a host without CUDA.
+"""
+
+import ctypes
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from jax.experimental.pallas import tpu as pltpu
+
+from softbodysimulation_tpu import SolverConfig
+from softbodysimulation_tpu.kernels import lattice_pallas as lp
+
+from softbodysimulation_tpu_torch.kernels import _build
+from softbodysimulation_tpu_torch.kernels import lattice_cuda as lc
+from softbodysimulation_tpu_torch.solvers import lattice as plat
+from softbodysimulation_tpu_torch.topology import lattice as ptop
+
+from test_torch_lattice_engine import CASES
+from test_torch_state import (jax_lattice_state, max_diffs, port_config,
+                              to_port)
+
+torch.set_num_threads(1)
+
+DX_TOL = 1e-5
+DLAM_TOL = 1e-6
+DT_SUB = 1 / 480
+
+
+def test_cuda_runner_on_cpu_matches_streamed_pallas():
+    """``make_cuda_substep_runner`` on a CPU state (the bench config) vs
+    ``make_pallas_substep_runner_streamed`` — the kernel this port's CUDA
+    kernel replaces — in interpret mode."""
+    cfg, state_kw, n = CASES["bench"]
+    spec, js = jax_lattice_state(6, **state_kw)
+    with pltpu.force_tpu_interpret_mode():
+        jfn = lp.make_pallas_substep_runner_streamed(spec, cfg, DT_SUB, n)
+        jout = jfn(js)
+    before = lc.launches
+    pout = lc.make_cuda_substep_runner(ptop.lattice_spec(6, braced=True),
+                                       port_config(cfg), DT_SUB, n)(
+        to_port(js))
+    assert lc.launches == before     # the plain version launches nothing
+    d = max_diffs(jout, pout)
+    assert d["dx"] < DX_TOL and d["dlam"] < DLAM_TOL, d
+
+
+def test_cuda_step_on_cpu_matches_pallas_step():
+    """``make_cuda_step`` (ext force consumed on the first substep, zeroed
+    after) vs ``make_pallas_step`` on the entry config (WARM_START)."""
+    cfg, state_kw, _ = CASES["entry"]
+    spec, js = jax_lattice_state(6, ext_patch=(30, (40.0, 25.0, 0.0)),
+                                 **state_kw)
+    with pltpu.force_tpu_interpret_mode():
+        jout = lp.make_pallas_step(spec, cfg, 1 / 60, n_steps=3)(js)
+    pout = lc.make_cuda_step(ptop.lattice_spec(6, braced=True),
+                             port_config(cfg), 1 / 60, n_steps=3)(to_port(js))
+    d = max_diffs(jout, pout)
+    assert d["dx"] < DX_TOL and d["dlam"] < DLAM_TOL, d
+    assert float(pout.ext_force.abs().max()) == 0.0
+
+
+def test_runner_without_ext_keeps_the_accumulator():
+    """``with_ext=False`` neither applies nor clears ``ext_force``, as the
+    fused Pallas runners do; the solver-level runner clears it, as the
+    stencil engine's does."""
+    cfg, state_kw, _ = CASES["entry"]
+    _, js = jax_lattice_state(4, ext_patch=(5, (1.0, 0.0, 0.0)), **state_kw)
+    spec, pcfg, ps = ptop.lattice_spec(4, braced=True), port_config(cfg), \
+        to_port(js)
+    raw = lc.make_cuda_substep_runner(spec, pcfg, DT_SUB, 4)(ps)
+    np.testing.assert_array_equal(raw.ext_force.numpy(), ps.ext_force.numpy())
+    ref = plat.run_substeps_plain(ps.replace(ext_force=0 * ps.ext_force),
+                                  spec, pcfg, DT_SUB, 4)
+    np.testing.assert_array_equal(raw.positions.numpy(),
+                                  ref.positions.numpy())
+    solver = plat.make_substep_runner(spec, pcfg, DT_SUB, 4)(ps)
+    assert float(solver.ext_force.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("what", ["self_collision", "tet_volume",
+                                  "box_colliders", "approx_math",
+                                  "ensemble_runner", "batched_step",
+                                  "solver_step", "too_many_spheres"])
+def test_unsupported_features_refused_at_build(what):
+    spec = ptop.lattice_spec(4, braced=True)
+    cfg = port_config(SolverConfig(substeps=2, iterations=1))
+    kw = {}
+    build = lc.make_cuda_substep_runner
+    if what == "self_collision":
+        cfg = cfg.replace(enable_self_collision=True,
+                          self_collision_every=2)
+    elif what == "tet_volume":
+        cfg = cfg.replace(enable_tet_volume=True)
+    elif what == "box_colliders":
+        cfg = cfg.replace(box_colliders=((0.0, 0.3, 0.0, 0.5, 0.3, 0.5),))
+    elif what == "approx_math":
+        kw = dict(approx_math=True)
+    elif what == "ensemble_runner":
+        kw = dict(n_bodies=2)
+    elif what == "too_many_spheres":
+        cfg = cfg.replace(sphere_colliders=((0.0, 0.0, 0.0, 0.1),)
+                          * (lc.MAX_SPHERES + 1))
+    with pytest.raises(NotImplementedError):
+        if what == "batched_step":
+            plat.make_batched_step(spec, cfg, 1 / 60, n_bodies=2)
+        elif what == "solver_step":
+            plat.make_step(spec, cfg.replace(enable_tet_volume=True), 1 / 60)
+        else:
+            build(spec, cfg, DT_SUB, 4, **kw)
+
+
+def test_state_with_colliders_refused_at_call():
+    spec = ptop.lattice_spec(3, braced=True)
+    cfg = port_config(SolverConfig(substeps=2, iterations=1))
+    state = plat.make_lattice_state(spec).replace(colliders=object())
+    for fn in (lc.make_cuda_substep_runner(spec, cfg, DT_SUB, 2),
+               lc.make_cuda_step(spec, cfg, 1 / 60),
+               plat.make_step(spec, cfg, 1 / 60)):
+        with pytest.raises(NotImplementedError):
+            fn(state)
+
+
+def test_params_mirror_the_cuda_struct():
+    """The ctypes ``LatticeParams`` lists the fields of the C struct in
+    ``csrc/lattice_xpbd.cu`` in the same order with the same widths, and
+    ``make_params`` rounds each constant from the config's double."""
+    src = (_build.CSRC_DIR / "lattice_xpbd.cu").read_text()
+    body = re.search(r"struct LatticeParams \{(.*?)\n\};", src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    consts = {"LX_MAX_FAM": lc.MAX_FAM, "LX_MAX_SPHERES": lc.MAX_SPHERES}
+    c_fields = []
+    for decl in body.split(";"):
+        m = re.match(r"\s*(int|float)\s+(\w+)((?:\[\w+\])*)\s*$", decl)
+        if m:
+            dims = [int(consts.get(d, d)) for d in
+                    re.findall(r"\[(\w+)\]", m.group(3))]
+            c_fields.append((m.group(2), m.group(1), dims))
+    assert [f[0] for f in c_fields] == [f[0] for f in lc.LatticeParams._fields_]
+    size = sum(4 * int(np.prod(dims)) for _, _, dims in c_fields)
+    assert ctypes.sizeof(lc.LatticeParams) == size
+
+    cfg, _, _ = CASES["flagship"]
+    spec = ptop.lattice_spec(6)
+    p = lc.make_params(spec, port_config(cfg), 1 / 240)
+    assert p.n == 216 and p.nfam == 7 and p.colored == 1
+    assert p.lambda_mode == 1 and p.floor_mode == 2 and p.reference_bounds
+    assert p.alpha[0] == np.float32(1e-4 * 240 * 240)
+    assert p.dl_rel[3] == np.float32(0.1 * spec.rest_lengths[3])
+    assert p.damp_factor == np.float32(1.0 - 0.01 / 240)
+
+
+def test_nvcc_missing_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc_path()
