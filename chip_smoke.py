@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's lattice main path through the entry points a user calls
-and fails (nonzero exit) if any phase fails:
+Drives the port's lattice and mesh main paths through the entry points a
+user calls and fails (nonzero exit) if any phase fails:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch / CUDA
    versions;
 2. the CUDA lattice kernel built from ``softbodysimulation_tpu_torch/csrc``
-   with ``nvcc`` (sm_90a), and the build time;
+   with ``nvcc`` (sm_90a), and the build time (both kernels' ``nvcc`` runs
+   are started together);
 3. kernel vs its plain PyTorch version on the card, at res 6 over 12-18
    substeps, for each configuration the CPU tests hold against the JAX
    package (``tests/test_torch_cases.py``): max |dx| < 1e-5,
@@ -28,20 +29,44 @@ and fails (nonzero exit) if any phase fails:
    of ``make_cuda_step`` vs the plain ``multi_step_fn`` at the same gates;
 6. particle-substeps/s of the kernel and of the plain version at res 40,
    timed with CUDA events over windows of at least a second, two windows
-   each, taken in turns; the best window and the range are printed.
+   each, taken in turns; the best window and the range are printed;
+7. the CUDA mesh kernel built from the same directory, its build time and
+   ``-Xptxas -v`` registers and spills;
+8. mesh kernel vs plain on the card for every case the CPU tests hold
+   against the JAX package (``tests/test_torch_mesh_cases.py``): max |dx| <
+   2e-5 (JACOBI) / 1e-5 (COLORED), max |dlambda_dist| < 1e-6, max
+   |dlambda_bend| < 5e-6, both multipliers within 1 % of their largest,
+   and the number of hinges whose bending-band masks differ between the
+   two results;
+9. the mesh main path at full size: the ``cloth_xl`` scene (res 129,
+   16,641 particles, 49,408 edges, 48,896 hinges; JACOBI x 2 iterations,
+   4 substeps, WARM_START, bending, floor, top row pinned) through
+   ``make_mesh_cuda_step`` for 240 frames with a poke at frame 60 that has
+   a z component: finite, the pinned row bit-identical to its start, ymin
+   > -1e-2, ``ext_force`` reads back 0, the poke moves the centre of mass
+   against an unpoked run, launches > 0; from the frame-120 state, 16
+   substeps of kernel vs plain at the phase-8 gates; and the whole
+   240-frame rollout against the plain engine from the same start (drift
+   gate 1e-3; where the scene proves chaotic, 3x the spread between the
+   plain engine on the card and on the CPU, at least 1e-4, and the smoke
+   says so);
+10. particle-substeps/s of the mesh kernel and of the plain engine at
+   ``cloth_xl``, as phase 6 times the lattice.
 
 Prints one JSON line of kernels, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it
 exits nonzero and prints no result.  ``--profile`` adds a torch.profiler
-breakdown of 200 main-path substeps (device time by kernel, host time per
-launch, device idle share).
+breakdown of 200 substeps of each main path (device time by kernel, host
+time per launch, device idle share).
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 RES_MAIN = 40
@@ -52,6 +77,7 @@ DLAM_TOL = 1e-6
 # would pass any output; so they must also agree to 1 % of their largest
 LAM_REL = 1e-2
 DRIFT_TOL = 1e-3
+MESH_FRAMES = 240
 
 
 def smi_line() -> str:
@@ -134,6 +160,81 @@ def profile_main_path(torch, run, state):
           f"{1 - busy / span:.4f}, of the wall {1 - busy / wall_us:.4f}")
 
 
+def timed_build(build, name, sources, extra=()):
+    """Build one library; returns (path, compiler output, seconds)."""
+    t0 = time.perf_counter()
+    path, log = build.build_library(name, sources, extra)
+    return path, log, time.perf_counter() - t0
+
+
+def print_build(built):
+    path, log, secs = built
+    print(f"# build: {os.path.relpath(path, HERE)} in {secs:.2f} s")
+    for ln in log.splitlines():
+        if "registers" in ln or "spill" in ln or "Compiling" in ln:
+            print(f"#   {ln.strip()}")
+
+
+def mask_flips(torch, out, ref, topo, cfg):
+    """Hinges whose bending-band masks (sin >= skip, sin < soften) differ
+    between two results, evaluated at their final positions."""
+    from softbodysimulation_tpu_torch.ops.bending import hinge_masks
+
+    if not (cfg.enable_bending and topo.n_hinges):
+        return 0
+    hinges = topo.hinges.to(out.positions.device)
+    a = hinge_masks(out.positions, hinges, cfg)
+    b = hinge_masks(ref.positions, hinges, cfg)
+    return int(((a[0] != b[0]) | (a[1] != b[1])).sum())
+
+
+def mesh_compare(torch, name, out, ref, start, topo, cfg, n_sub, gates,
+                 is_finite):
+    """Hold a mesh kernel result against the plain engine's from the same
+    start: positions at the case's gate, both multipliers at theirs and
+    within LAM_REL of their largest magnitude; prints the mask-flip count.
+    Raises when it disagrees.  Returns max |dx|."""
+    torch.cuda.synchronize()
+    dx_gate, dlam_gate, dbend_gate = gates
+    dx = float((out.positions - ref.positions).abs().max())
+    d, lam = {}, {}
+    for k in ("lambda_dist", "lambda_bend"):
+        r = getattr(ref, k)
+        d[k] = float((getattr(out, k) - r).abs().max()) if r.numel() else 0.0
+        lam[k] = float(r.abs().max()) if r.numel() else 0.0
+    flips = mask_flips(torch, out, ref, topo, cfg)
+    moved = float((out.positions - start.positions).abs().max())
+    print(f"# mesh parity {name}: max|dx|={dx:.3e} "
+          f"max|dlam|={d['lambda_dist']:.3e} (max|lam|="
+          f"{lam['lambda_dist']:.3e}) max|dlam_bend|="
+          f"{d['lambda_bend']:.3e} (max|lam_bend|={lam['lambda_bend']:.3e})"
+          f" mask flips={flips} (moved {moved:.3e}) over {n_sub} substeps")
+    ok = (dx < dx_gate and d["lambda_dist"] < dlam_gate
+          and d["lambda_bend"] < dbend_gate and is_finite(out)
+          and all(d[k] <= LAM_REL * lam[k] for k in d))
+    if not ok:
+        raise RuntimeError(f"mesh kernel disagrees with plain on {name}: "
+                           f"dx={dx} {d} {lam}")
+    return dx
+
+
+def timed_windows(torch, runs, min_s=1.0):
+    """ms per substep of each named runner, two CUDA-event windows of at
+    least ``min_s`` each, taken in turns (a, b, b, a).  ``runs`` maps a name
+    to (fn, substeps per call); each window's call count comes from a
+    timed trial call."""
+    reps = {}
+    for key, (fn, _) in runs.items():
+        t = cuda_ms(torch, fn, 1)
+        reps[key] = max(1, math.ceil(1.2 * min_s * 1e3 / t))
+    times = {key: [] for key in runs}
+    a, b = list(runs)
+    for key in (a, b, b, a):
+        fn, per_call = runs[key]
+        times[key].append(cuda_ms(torch, fn, reps[key]) / per_call)
+    return times, reps
+
+
 def main() -> int:
     import torch
 
@@ -146,12 +247,15 @@ def main() -> int:
 
     sys.path.insert(0, os.path.join(HERE, "tests"))
     import test_torch_cases as lattice_cases
+    import test_torch_mesh_cases as mesh_cases
 
     from softbodysimulation_tpu_torch.core import config as C
     from softbodysimulation_tpu_torch.core import scenes
     from softbodysimulation_tpu_torch.interact import forces
     from softbodysimulation_tpu_torch.kernels import _build
     from softbodysimulation_tpu_torch.kernels import lattice_cuda as lc
+    from softbodysimulation_tpu_torch.kernels import mesh_cuda as mc
+    from softbodysimulation_tpu_torch.solvers import general
     from softbodysimulation_tpu_torch.solvers import lattice as lat
     from softbodysimulation_tpu_torch.topology import lattice as top
     from softbodysimulation_tpu_torch import is_finite, state_from_numpy
@@ -163,14 +267,15 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} device(s)")
 
-    # 2. build
-    t0 = time.perf_counter()
-    path, log = _build.build_library(lc.LIB_NAME, lc.SOURCES)
-    build_s = time.perf_counter() - t0
-    print(f"# build: {os.path.relpath(path, HERE)} in {build_s:.2f} s")
-    for ln in log.splitlines():
-        if "registers" in ln or "spill" in ln or "Compiling" in ln:
-            print(f"#   {ln.strip()}")
+    # 2. build: one nvcc per source, started together
+    with ThreadPoolExecutor(2) as pool:
+        lattice_build = pool.submit(timed_build, _build, lc.LIB_NAME,
+                                    lc.SOURCES)
+        mesh_build = pool.submit(timed_build, _build, mc.LIB_NAME,
+                                 mc.SOURCES, mc.NVCC_EXTRA)
+        lattice_build, mesh_build = (lattice_build.result(),
+                                     mesh_build.result())
+    print_build(lattice_build)
 
     # 3. kernel vs plain on the card, res 6
     max_err = 0.0
@@ -299,10 +404,138 @@ def main() -> int:
               f"{n / hi * 1e3:.4e}-{n / lo * 1e3:.4e} particle-substeps/s "
               f"(windows in turn order: {times[key]})")
 
+    # 7. the mesh kernel's build (started with the lattice kernel's)
+    print_build(mesh_build)
+
+    # 8. mesh kernel vs plain on the card, every case of the CPU tests
+    mesh_err = 0.0
+    for name, (mcfg, kind, kw, frames) in mesh_cases.mesh_cases().items():
+        mtopo, fields = mesh_cases.case_inputs(kind, **kw)
+        st = state_from_numpy(fields, device="cuda")
+        gates = (mesh_cases.dx_gate(mcfg), mesh_cases.DLAM_DIST,
+                 mesh_cases.DLAM_BEND)
+        mesh_err = max(mesh_err, mesh_compare(
+            torch, name,
+            mc.make_mesh_cuda_step(mtopo, mcfg, 1 / 60, n_steps=frames)(st),
+            general.multi_step_fn(st, mtopo, mcfg, 1 / 60, frames), st,
+            mtopo, mcfg, frames * mcfg.substeps, gates, is_finite))
+
+    # 9. the mesh main path at full size: cloth_xl, a poke at frame 60
+    t0 = time.perf_counter()
+    cstate, cstep, cinfo = scenes.cloth_xl(device="cuda")
+    ctopo, ccfg, cdt = cinfo["topology"], cinfo["config"], cinfo["dt"]
+    cdt_sub = cdt / ccfg.substeps
+    pins = torch.as_tensor(cinfo["pinned"], device="cuda")
+    print(f"# mesh main path: cloth_xl built in "
+          f"{time.perf_counter() - t0:.2f} s: {ctopo.n_particles} "
+          f"particles, {ctopo.n_edges} edges, {ctopo.n_hinges} hinges, "
+          f"{len(cinfo['pinned'])} pinned")
+
+    def poke(st):
+        return forces.add_force(st, (0.0, 100.0, 600.0),
+                                st.positions.mean(0).tolist(), radius=0.4)
+
+    def rollout(st, step, control=None):
+        """MESH_FRAMES frames, poked at frame 60; returns the end state,
+        the frame-120 state and, with an unpoked ``control`` run stepped
+        alongside, the largest shift of the centre of mass between the two
+        (read after frames 60 and 70 and at the end)."""
+        at120, shifts = None, []
+        for frame in range(MESH_FRAMES):
+            if frame == 60:
+                st = poke(st)
+            if frame == 120:
+                at120 = st
+            st = step(st)
+            if control is not None:
+                control = step(control)
+                if frame in (60, 70, MESH_FRAMES - 1):
+                    shifts.append(float((st.positions.mean(0)
+                                         - control.positions.mean(0))
+                                        .abs().max()))
+            if frame == 60 and float(st.ext_force.abs().max()) != 0.0:
+                raise RuntimeError("ext_force not consumed by the step")
+        return st, at120, max(shifts, default=0.0)
+
+    torch.cuda.synchronize()
+    mc.launches = 0
+    t0 = time.perf_counter()
+    poked, at120, shift = rollout(cstate, cstep, control=cstate)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    mesh_launches = mc.launches
+    p = poked.positions
+    ymin = float(p[:, 1].min())
+    pins_ok = torch.equal(p[pins], cstate.positions[pins])
+    ok_mesh = is_finite(poked)
+    print(f"# mesh main path: 2 x {MESH_FRAMES} frames x {ccfg.substeps} "
+          f"substeps in {mesh_s:.3f} s wall, {mesh_launches} kernel "
+          f"launches; finite={ok_mesh} ymin={ymin:.6f} pinned row "
+          f"unmoved={pins_ok} ext_force={float(poked.ext_force.abs().max())}"
+          f", the poke moved the COM by up to {shift:.4f} vs the unpoked "
+          f"run")
+    if not (ok_mesh and pins_ok and ymin > ccfg.ground_height - 1e-2
+            and float(poked.ext_force.abs().max()) == 0.0 and shift > 1e-3
+            and mesh_launches > 0):
+        raise RuntimeError("mesh main path failed its health gates")
+    gates = (mesh_cases.DX_JACOBI, mesh_cases.DLAM_DIST,
+             mesh_cases.DLAM_BEND)
+    mesh_err = max(mesh_err, mesh_compare(
+        torch, "cloth_xl from frame 120",
+        mc.make_mesh_cuda_substep_runner(ctopo, ccfg, cdt_sub, 16)(at120),
+        general.run_substeps_plain(at120, ctopo, ccfg, cdt_sub, 16), at120,
+        ctopo, ccfg, 16, gates, is_finite))
+
+    def plain_step(st):
+        return general.step_fn(st, ctopo, ccfg, cdt)
+
+    plain, _, _ = rollout(cstate, plain_step)
+    drift = float((p - plain.positions).abs().max())
+    gate, why = DRIFT_TOL, "the fixed gate"
+    if not drift < DRIFT_TOL:
+        # chaotic scene: gate on the spread between two plain formulations
+        # (the plain engine on the card and on the CPU) at the same horizon
+        cpu, _, _ = rollout(cstate.to("cpu"), plain_step)
+        spread = float((plain.positions.cpu() - cpu.positions).abs().max())
+        gate = max(3.0 * spread, 1e-4)
+        why = (f"self-calibrating: 3 x the plain card-vs-CPU spread "
+               f"{spread:.3e}, at least 1e-4, because the fixed gate "
+               f"{DRIFT_TOL} failed")
+    print(f"# mesh drift vs plain, {MESH_FRAMES} frames from the same start"
+          f" with the same poke: {drift:.3e} (gate {gate:.3e}, {why}); "
+          f"mask flips at the end: "
+          f"{mask_flips(torch, poked, plain, ctopo, ccfg)}")
+    if not drift < gate:
+        raise RuntimeError(f"mesh kernel drifts from the plain engine: "
+                           f"{drift}")
+
+    # 10. throughput at cloth_xl (CUDA events), plain and kernel in turns
+    n_k, n_p = 500, 20
+    k_mesh = mc.make_mesh_cuda_substep_runner(ctopo, ccfg, cdt_sub, n_k)
+    mtimes, mreps = timed_windows(torch, {
+        "plain": (lambda: general.run_substeps_plain(
+            cstate, ctopo, ccfg, cdt_sub, n_p), n_p),
+        "kernel": (lambda: k_mesh(cstate), n_k)})
+    ms_mk, ms_mp = min(mtimes["kernel"]), min(mtimes["plain"])
+    nm = ctopo.n_particles
+    print(f"# throughput cloth_xl ({smi}), best of two windows: kernel "
+          f"{ms_mk:.5f} ms/substep = {nm / ms_mk * 1e3:.4e} "
+          f"particle-substeps/s over {mreps['kernel'] * n_k} substeps; "
+          f"plain {ms_mp:.5f} ms/substep = {nm / ms_mp * 1e3:.4e} "
+          f"particle-substeps/s over {mreps['plain'] * n_p} substeps")
+    for key in ("kernel", "plain"):
+        lo, hi = min(mtimes[key]), max(mtimes[key])
+        print(f"# throughput range {key}: {lo:.5f}-{hi:.5f} ms/substep = "
+              f"{nm / hi * 1e3:.4e}-{nm / lo * 1e3:.4e} particle-substeps/s "
+              f"(windows in turn order: {mtimes[key]})")
+
     if "--profile" in sys.argv[1:]:
         profile_main_path(
             torch, lc.make_cuda_substep_runner(spec, cfg, dt_sub, 200),
             state)
+        profile_main_path(
+            torch, mc.make_mesh_cuda_substep_runner(ctopo, ccfg, cdt_sub,
+                                                    200), cstate)
 
     print(json.dumps({"kernels": [{
         "name": "lattice_xpbd",
@@ -313,6 +546,15 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": ms_k,
         "plain_ms": ms_p,
+    }, {
+        "name": "mesh_xpbd",
+        "route": "cuda",
+        "source": "softbodysimulation_tpu_torch/csrc/mesh_xpbd.cu",
+        "replaces": "softbodysimulation_tpu/kernels/mesh_pallas.py:789",
+        "launches": mesh_launches,
+        "max_abs_err": mesh_err,
+        "ms": ms_mk,
+        "plain_ms": ms_mp,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

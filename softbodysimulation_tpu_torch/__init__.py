@@ -1,10 +1,18 @@
 """softbodysimulation_tpu_torch — the PyTorch / CUDA port of
 softbodysimulation_tpu, for NVIDIA Hopper (H100).
 
-This slice carries the res^3 braced-lattice XPBD main path: the plain
-PyTorch stencil engine (``solvers/lattice.py``) and the hand-written CUDA
-lattice kernel that replaces the JAX package's fused Pallas lattice
-kernels (``csrc/lattice_xpbd.cu``, bound in ``kernels/lattice_cuda.py``).
+The package carries two paths, each a plain PyTorch engine beside a
+hand-written CUDA kernel that replaces a fused Pallas kernel of the JAX
+package:
+
+* the res^3 braced-lattice XPBD path: the stencil engine
+  (``solvers/lattice.py``) and ``csrc/lattice_xpbd.cu`` (bound in
+  ``kernels/lattice_cuda.py``);
+* the general-mesh XPBD path (cloth and surface meshes: distance and
+  dihedral bending constraints): the topology builders (``topology/``),
+  the general engine (``solvers/general.py``) and ``csrc/mesh_xpbd.cu``
+  (bound in ``kernels/mesh_cuda.py``).
+
 It imports torch and numpy, never jax.
 """
 
@@ -17,11 +25,15 @@ from .core.config import (
 )
 from .core.state import (
     SimState,
+    Topology,
     is_finite,
+    make_state,
     restore,
     snapshot,
     state_from_numpy,
+    state_from_topology,
     state_to_numpy,
+    topology_from_numpy,
 )
 
 __version__ = "0.1.0"
@@ -33,6 +45,10 @@ __all__ = [
     "DampingMode",
     "FloorMode",
     "SimState",
+    "Topology",
+    "make_state",
+    "state_from_topology",
+    "topology_from_numpy",
     "is_finite",
     "snapshot",
     "restore",

@@ -1,14 +1,19 @@
-"""SimState: the dynamic simulation state as a frozen dataclass of tensors.
+"""SimState and Topology as frozen dataclasses of tensors.
 
 Counterpart of ``softbodysimulation_tpu/core/state.py`` (``SimState``,
-``is_finite``, ``snapshot``, ``restore``) with the same field names and
-shapes, so a state crosses between the two packages field by field as
-numpy arrays (``state_from_numpy`` / ``state_to_numpy``).  Positions are
-``(N, 3)`` float32, x-major for lattices (index = (x*res + y)*res + z).
+``Topology``, ``make_state``, ``state_from_topology``, ``is_finite``,
+``snapshot``, ``restore``) with the same field names, dtypes and shapes, so
+a state or a topology crosses between the two packages field by field as
+numpy arrays (``state_from_numpy`` / ``state_to_numpy``,
+``topology_from_numpy``).  Positions are ``(N, 3)`` float32, x-major for
+lattices (index = (x*res + y)*res + z).
 
 Tensors are never mutated in place by the solvers: every step returns a
 new ``SimState`` (``replace``), as the JAX package does.  Kinematic
-collider sets are not ported yet, so ``colliders`` stays ``None``.
+collider sets are not ported yet, so ``colliders`` stays ``None``.  The
+topology carries no one-hot window matrices (``windows``, ``bend_windows``,
+``tet_windows``): they are a layout for the TPU's matrix unit, and the
+port's engines gather by index instead.
 """
 
 from __future__ import annotations
@@ -86,6 +91,152 @@ def state_to_numpy(state: SimState) -> Dict[str, Optional[np.ndarray]]:
         t = getattr(state, k)
         out[k] = None if t is None else t.detach().cpu().numpy().copy()
     return out
+
+
+# eq=False: a topology hashes by identity, so runners can cache what they
+# derive from it (per-edge constants, device copies)
+@dataclasses.dataclass(frozen=True, eq=False)
+class Topology:
+    """Static constraint topology (see the JAX package's ``Topology`` for the
+    mapping of each field to the reference).
+
+    edges / rest_lengths / compliance — distance constraints; colors and the
+    padded per-color buckets ``col_*`` for the COLORED solve mode; hinges
+    ([A, B, C, D], hinge edge A-B, tips C and D) with rest dihedral angles,
+    compliances and their own colour buckets; surface triangles and the rest
+    volume; per-particle constraint degrees; and the incidence lists of the
+    scatter-free Jacobi accumulation (row i: indices of particle i's
+    contributions in the stacked (2E,) edge or (4H,) hinge corrections,
+    padded with 2E or 4H).
+    """
+
+    edges: torch.Tensor            # (E, 2) i32
+    rest_lengths: torch.Tensor     # (E,)   f32
+    compliance: torch.Tensor       # (E,)   f32
+    colors: torch.Tensor           # (E,)   i32
+    col_edge_ids: torch.Tensor     # (C, M) i32 — indices into edges
+    col_valid: torch.Tensor        # (C, M) f32 — 1.0 valid / 0.0 padding
+    hinges: torch.Tensor           # (H, 4) i32
+    rest_angles: torch.Tensor      # (H,)   f32
+    bend_compliance: torch.Tensor  # (H,)   f32
+    bend_colors: torch.Tensor      # (H,)   i32
+    bcol_hinge_ids: torch.Tensor   # (Cb, Mb) i32
+    bcol_valid: torch.Tensor       # (Cb, Mb) f32
+    triangles: torch.Tensor        # (T, 3) i32
+    rest_volume: torch.Tensor      # ()     f32
+    degree: torch.Tensor           # (N,)   f32
+    bend_degree: torch.Tensor      # (N,)   f32
+    incidence: torch.Tensor        # (N, Dd) i32 into 2E contributions
+    bend_incidence: torch.Tensor   # (N, Db) i32 into 4H contributions
+    num_colors: int
+    num_bend_colors: int
+    n_particles: int
+    tets: Optional[torch.Tensor] = None              # (T, 4) i32
+    rest_tet_volumes: Optional[torch.Tensor] = None  # (T,) f32, 6 x V0
+    tet_compliance: Optional[torch.Tensor] = None    # (T,) f32
+    tcol_tet_ids: Optional[torch.Tensor] = None      # (Ct, Mt) i32
+    tcol_valid: Optional[torch.Tensor] = None        # (Ct, Mt) f32
+    tet_degree: Optional[torch.Tensor] = None        # (N,) f32
+    tet_incidence: Optional[torch.Tensor] = None     # (N, Dt) i32
+    num_tet_colors: int = 0
+
+    @property
+    def n_edges(self) -> int:
+        return self.edges.shape[0]
+
+    @property
+    def n_hinges(self) -> int:
+        return self.hinges.shape[0]
+
+    @property
+    def n_tets(self) -> int:
+        return 0 if self.tets is None else self.tets.shape[0]
+
+    def replace(self, **kw) -> "Topology":
+        return dataclasses.replace(self, **kw)
+
+    def to(self, device) -> "Topology":
+        """The topology with every tensor on ``device``."""
+        return self.replace(**{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
+
+_TOPO_INT = {f.name for f in dataclasses.fields(Topology)
+             if f.type == "int"}
+_TOPO_I32 = ("edges", "colors", "col_edge_ids", "hinges", "bend_colors",
+             "bcol_hinge_ids", "triangles", "incidence", "bend_incidence",
+             "tets", "tcol_tet_ids", "tet_incidence")
+# the JAX topology's one-hot window matrices, which the port does not carry
+_TOPO_WINDOW_FIELDS = ("windows", "bend_windows", "tet_windows",
+                       "tet_window_perm")
+
+
+def topology_from_numpy(fields: Dict[str, Any], device="cpu") -> Topology:
+    """Build a topology from a mapping of field name -> array-like or int,
+    for example ``{f.name: getattr(jax_topo, f.name) for f in
+    dataclasses.fields(jax_topo)}``.  Integer tables become int32, the rest
+    float32; the window fields are dropped; an absent tet field stays
+    None."""
+    kw = {}
+    for f in dataclasses.fields(Topology):
+        a = fields.get(f.name)
+        if a is None and f.default is dataclasses.MISSING:
+            raise ValueError(f"topology_from_numpy: field {f.name!r} missing")
+        if f.name in _TOPO_INT:
+            kw[f.name] = int(f.default if a is None else a)
+        elif a is not None:
+            dt = np.int32 if f.name in _TOPO_I32 else np.float32
+            kw[f.name] = torch.as_tensor(np.array(a, dt), device=device)
+    unknown = (set(fields) - {f.name for f in dataclasses.fields(Topology)}
+               - set(_TOPO_WINDOW_FIELDS))
+    if unknown:
+        raise ValueError(f"topology_from_numpy: unknown fields "
+                         f"{sorted(unknown)}")
+    return Topology(**kw)
+
+
+def make_state(positions, inv_mass=None, velocities=None,
+               n_edges: Optional[int] = None, n_hinges: int = 0,
+               n_tets: int = 0, mass: float = 1.0, dtype=torch.float32,
+               device="cpu") -> SimState:
+    """An initial state: uniform particle mass, inv_mass = 1/mass, with mass
+    <= 1e-4 meaning pinned (``SoftBodyParticleCPU.cs:14-23``); zero
+    velocities, force accumulator and multipliers."""
+    positions = torch.as_tensor(np.asarray(positions), dtype=dtype,
+                                device=device)
+    n = positions.shape[0]
+    if velocities is None:
+        velocities = torch.zeros_like(positions)
+    else:
+        velocities = torch.as_tensor(np.asarray(velocities), dtype=dtype,
+                                     device=device)
+    if inv_mass is None:
+        inv = 0.0 if mass <= 1e-4 else 1.0 / mass
+        inv_mass = torch.full((n,), inv, dtype=dtype, device=device)
+    else:
+        inv_mass = torch.as_tensor(np.asarray(inv_mass), dtype=dtype,
+                                   device=device)
+    if n_edges is None:
+        raise ValueError("n_edges required (pass topology.n_edges)")
+    return SimState(
+        positions=positions,
+        velocities=velocities,
+        inv_mass=inv_mass,
+        ext_force=torch.zeros_like(positions),
+        lambda_dist=torch.zeros((n_edges,), dtype=dtype, device=device),
+        lambda_bend=torch.zeros((n_hinges,), dtype=dtype, device=device),
+        lambda_volume=torch.zeros((), dtype=dtype, device=device),
+        lambda_tet=(torch.zeros((n_tets,), dtype=dtype, device=device)
+                    if n_tets else None),
+    )
+
+
+def state_from_topology(topology: Topology, positions, **kw) -> SimState:
+    return make_state(positions, n_edges=topology.n_edges,
+                      n_hinges=topology.n_hinges, n_tets=topology.n_tets,
+                      **kw)
 
 
 def is_finite(state: SimState) -> bool:

@@ -1,1 +1,1 @@
-from . import lattice_cuda
+from . import lattice_cuda, mesh_cuda

@@ -38,24 +38,27 @@ def nvcc_path() -> str:
                        "the CUDA toolkit is installed")
 
 
-def library_path(name: str, sources: Sequence[str]) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(name: str, sources: Sequence[str],
+                 extra_flags: Sequence[str] = ()) -> Path:
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *extra_flags)).encode())
     for src in sources:
         h.update(src.encode())
         h.update((CSRC_DIR / src).read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build_library(name: str, sources: Sequence[str]) -> Tuple[Path, str]:
-    """Compile ``csrc/<sources>`` into the hashed library unless it exists.
-    Returns (path, the compiler's output; empty when nothing was built)."""
-    path = library_path(name, sources)
+def build_library(name: str, sources: Sequence[str],
+                  extra_flags: Sequence[str] = ()) -> Tuple[Path, str]:
+    """Compile ``csrc/<sources>`` (with ``NVCC_FLAGS`` and the library's own
+    ``extra_flags``) into the hashed library unless it exists.  Returns
+    (path, the compiler's output; empty when nothing was built)."""
+    path = library_path(name, sources, extra_flags)
     if path.exists():
         return path, ""
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+    cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
            *(str(CSRC_DIR / s) for s in sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -65,7 +68,8 @@ def build_library(name: str, sources: Sequence[str]) -> Tuple[Path, str]:
     return path, proc.stdout + proc.stderr
 
 
-def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
+def load_library(name: str, sources: Sequence[str],
+                 extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
     """Build (if needed) and load the library."""
-    path, _ = build_library(name, sources)
+    path, _ = build_library(name, sources, extra_flags)
     return ctypes.CDLL(str(path))

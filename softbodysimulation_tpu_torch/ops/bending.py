@@ -1,0 +1,118 @@
+"""XPBD dihedral (bending) constraint math, batched and branchless, on
+tensors.
+
+Counterpart of ``softbodysimulation_tpu/ops/bending.py``
+(``CPUBendingConstraint.Solve``, ``CPUBendingConstraint.cs:40-166``, with
+the reference's control-flow bug fixed and its gradients replaced by the
+autodiff-verified ones), forward only.  The sinTheta degeneracy guards are
+masks: hard skip below ``bend_skip_sin_eps``, compliance softened by
+``bend_soften_factor`` below ``bend_soften_sin_eps``.  Cross products are
+taken component by component and dot products summed x + y + z, in the JAX
+version's order, so that the CUDA mesh kernel can repeat the arithmetic.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.config import SolverConfig
+from .distance import dot3
+
+
+def cross3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Row-wise cross product of (..., 3) tensors (``jnp.cross``'s terms)."""
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], dim=-1)
+
+
+def bending_delta_lambda(pa, pb, pc, pd, wa, wb, wc, wd, rest_angle,
+                         compliance, lam, dt, cfg: SolverConfig):
+    """Returns (dlambda (K,), grad_a, grad_b, grad_c, grad_d each (K,3)).
+
+    Hinge edge a-b, opposite tips c, d.  C = acos(n1.n2) - rest_angle with
+    n1 = normalize((b-a) x (c-a)), n2 = normalize((d-a) x (b-a)).
+    """
+    return bending_delta_lambda_rel(
+        pb - pa, pc - pa, pd - pa, wa, wb, wc, wd, rest_angle,
+        compliance, lam, dt, cfg)
+
+
+def _dihedral(e0, e1, e2):
+    """(|n1|^2, |n2|^2, |n1|, |n2|, n1 / |n1|, n2 / |n2|, clipped cos)
+    of the hinge normals n1 = e0 x e1, n2 = e2 x e0."""
+    n1 = cross3(e0, e1)
+    n2 = cross3(e2, e0)
+    l1sq = dot3(n1, n1)
+    l2sq = dot3(n2, n2)
+    l1 = torch.sqrt(torch.clamp(l1sq, min=1e-24))
+    l2 = torch.sqrt(torch.clamp(l2sq, min=1e-24))
+    n1n = n1 / l1[..., None]
+    n2n = n2 / l2[..., None]
+    cos = torch.clamp(dot3(n1n, n2n), -1.0, 1.0)
+    return l1sq, l2sq, l1, l2, n1n, n2n, cos
+
+
+def bending_delta_lambda_rel(e0, e1, e2, wa, wb, wc, wd, rest_angle,
+                             compliance, lam, dt, cfg: SolverConfig):
+    """Same math in hinge-relative coordinates: e0 = pB-pA, e1 = pC-pA,
+    e2 = pD-pA."""
+    l1sq, l2sq, l1, l2, n1n, n2n, cos = _dihedral(e0, e1, e2)
+    geom_ok = (l1sq >= 1e-9) & (l2sq >= 1e-9)
+    # forward only: the JAX version's arccos with a clamped derivative at
+    # |x| = 1 becomes a torch.autograd.Function when the backward is ported
+    angle = torch.acos(cos)
+    c = angle - rest_angle
+    sin = torch.sin(angle)
+
+    sin_ok = torch.abs(sin) >= cfg.bend_skip_sin_eps
+    soften = torch.abs(sin) < cfg.bend_soften_sin_eps
+    alpha = compliance * (1.0 / (dt * dt))
+    alpha = torch.where(soften, alpha * cfg.bend_soften_factor, alpha)
+
+    inv_sin = 1.0 / torch.where(sin_ok, sin, 1.0)
+
+    # gradients of C = acos(n1.n2) - rest by the chain rule through the
+    # normalized cross products (ops/bending.py of the JAX package):
+    #   grad_b d = e1 x A + B x e2;  grad_c d = A x e0;  grad_d d = e0 x B
+    #   grad C = -grad d / sin(theta)
+    cos_b = cos[..., None]
+    a_vec = (n2n - cos_b * n1n) / l1[..., None]
+    b_vec = (n1n - cos_b * n2n) / l2[..., None]
+    scale = (-inv_sin)[..., None]
+    grad_b = scale * (cross3(e1, a_vec) + cross3(b_vec, e2))
+    grad_c = scale * cross3(a_vec, e0)
+    grad_d = scale * cross3(e0, b_vec)
+    grad_a = -grad_b - grad_c - grad_d
+
+    s = (wa * dot3(grad_a, grad_a) + wb * dot3(grad_b, grad_b)
+         + wc * dot3(grad_c, grad_c) + wd * dot3(grad_d, grad_d))
+    denom = s + alpha
+
+    eps = cfg.static_inv_mass_eps
+    any_dynamic = (wa >= eps) | (wb >= eps) | (wc >= eps) | (wd >= eps)
+    valid = geom_ok & sin_ok & (denom >= 1e-9) & any_dynamic
+    dl = (-c - alpha * lam) / torch.where(valid, denom, 1.0)
+    if cfg.max_dlambda > 0:
+        dl = torch.clamp(dl, -cfg.max_dlambda, cfg.max_dlambda)
+    dl = torch.where(valid, dl, 0.0)
+    vmask = valid[..., None]
+    return (dl,
+            torch.where(vmask, grad_a, 0.0),
+            torch.where(vmask, grad_b, 0.0),
+            torch.where(vmask, grad_c, 0.0),
+            torch.where(vmask, grad_d, 0.0))
+
+
+def hinge_masks(positions, hinges, cfg: SolverConfig):
+    """Per hinge, the two masks of the sin(theta) bands at ``positions``:
+    (sin >= bend_skip_sin_eps, sin < bend_soften_sin_eps).  Two runs that
+    disagree on a mask took different branches of the bending update."""
+    h = hinges.long()
+    pa = positions[h[:, 0]]
+    _, _, _, _, _, _, cos = _dihedral(positions[h[:, 1]] - pa,
+                                      positions[h[:, 2]] - pa,
+                                      positions[h[:, 3]] - pa)
+    sin = torch.abs(torch.sin(torch.acos(cos)))
+    return sin >= cfg.bend_skip_sin_eps, sin < cfg.bend_soften_sin_eps

@@ -1,1 +1,1 @@
-from . import lattice
+from . import general, lattice

@@ -1,0 +1,355 @@
+"""General-topology XPBD engine (arbitrary meshes): the plain PyTorch
+version of the CUDA mesh kernel.
+
+Counterpart of ``softbodysimulation_tpu/solvers/general.py``, on ``(N, 3)``
+tensors, for the distance and dihedral-bending families:
+
+* COLORED — exact parallel Gauss-Seidel: one gather -> project -> scatter
+  per colour of the host-side colouring (no particle repeats within a
+  colour, so the batched update equals the sequential sweep).
+* JACOBI — every constraint projected at once with the per-constraint
+  ``omega / max(degree)`` relaxation; corrections summed per particle
+  through the incidence lists (a padded gather and a row sum, no
+  scatter), optionally Chebyshev-accelerated.
+
+The JAX engine's ``distance_backend`` / ``bending_backend`` "windowed" and
+"auto" spell the Jacobi sweep as one-hot matrix products; their result
+equals the gather spelling to float32 rounding (``general.py:116-129`` of
+the JAX package), so every backend runs the gather semantics here.
+
+The CPU tests hold this engine against the JAX engine, and on the card the
+kernel (``kernels/mesh_cuda.py``) is held against it.  ``make_step``
+dispatches on the state's device through the kernel wrapper (a CUDA state
+launches the kernel, a CPU state runs this engine); the plain loop on any
+device is ``run_substeps_plain`` (and ``step_fn`` / ``multi_step_fn``).
+Volume, tet volume, box colliders, self-collision and kinematic
+ColliderSets raise ``NotImplementedError`` (``check_supported``,
+``check_state``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from ..core.config import FloorMode, LambdaMode, SolveMode, SolverConfig
+from ..core.state import SimState, Topology
+from ..ops import bending as _bending
+from ..ops import collision as _collision
+from ..ops import distance as _distance
+from ..ops import integrate as _integrate
+
+
+def check_supported(cfg: SolverConfig):
+    """Refuse, at build time, what this slice of the port does not carry."""
+    for flag, what in ((cfg.enable_volume, "the global volume constraint"),
+                       (cfg.enable_tet_volume, "per-tet volume"),
+                       (cfg.box_colliders, "box SDF colliders"),
+                       (cfg.enable_self_collision, "self-collision")):
+        if flag:
+            raise NotImplementedError(f"mesh port: {what} is not ported")
+
+
+def check_state(state: SimState):
+    """Refuse, at call time, a state the slice does not carry."""
+    if state.colliders is not None:
+        raise NotImplementedError(
+            "mesh port: kinematic ColliderSets are not ported")
+
+
+def chebyshev_omegas(cfg: SolverConfig) -> List[float]:
+    """The Chebyshev weight of each Jacobi iteration (the recurrence of
+    ``general.py:644-647`` of the JAX package), in float32 arithmetic as
+    the JAX engine evaluates it on the device."""
+    rho2 = np.float32(cfg.jacobi_rho ** 2)
+    om = np.float32(1.0)
+    out = []
+    for k in range(cfg.iterations):
+        if k < cfg.jacobi_cheby_delay:
+            om = np.float32(1.0)
+        elif k == cfg.jacobi_cheby_delay:
+            om = np.float32(2.0 / (2.0 - cfg.jacobi_rho ** 2))
+        else:
+            om = np.float32(4.0) / (np.float32(4.0) - rho2 * om)
+        out.append(float(om))
+    return out
+
+
+def accelerated(cfg: SolverConfig) -> bool:
+    return (cfg.solve_mode == SolveMode.JACOBI and cfg.jacobi_rho > 0
+            and cfg.iterations > cfg.jacobi_cheby_delay)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Tables:
+    """A topology's index tables on one device, int64, and the per-edge /
+    per-hinge relaxation scales rounded as the JAX engine computes them."""
+
+    ea: torch.Tensor
+    eb: torch.Tensor
+    hinge: Tuple[torch.Tensor, ...]       # ia, ib, ic, id
+    incidence: torch.Tensor
+    bend_incidence: torch.Tensor
+    colors: Tuple[torch.Tensor, ...]      # valid edge ids per colour
+    bend_colors: Tuple[torch.Tensor, ...]
+    edge_scale: torch.Tensor              # omega / max(deg_a, deg_b, 1)
+    hinge_scale: torch.Tensor             # omega / max(bend degree, 1)
+    warm_scale: torch.Tensor              # fraction / max(deg_a, deg_b, 1)
+    topo: Topology                        # on the device
+
+
+def relax_scales(topo: Topology, cfg: SolverConfig):
+    """(edge_scale, hinge_scale, warm_scale) as float32 numpy arrays."""
+    edges = topo.edges.cpu().numpy().astype(np.int64)
+    hinges = topo.hinges.cpu().numpy().astype(np.int64)
+    deg = topo.degree.cpu().numpy()
+    bdeg = topo.bend_degree.cpu().numpy()
+    one = np.float32(1.0)
+    omega = np.float32(cfg.omega if cfg.omega > 0 else 1.0)
+    maxdeg = np.maximum(np.maximum(deg[edges[:, 0]], deg[edges[:, 1]]), one)
+    bmax = np.maximum(
+        np.maximum(np.maximum(bdeg[hinges[:, 0]], bdeg[hinges[:, 1]]),
+                   np.maximum(bdeg[hinges[:, 2]], bdeg[hinges[:, 3]])), one)
+    warm = one / maxdeg
+    if cfg.warm_start_fraction != 1.0:
+        warm = warm * np.float32(cfg.warm_start_fraction)
+    return omega / maxdeg, omega / bmax, warm
+
+
+@functools.lru_cache(maxsize=16)
+def _tables(topo: Topology, cfg: SolverConfig, device: str) -> _Tables:
+    t = topo.to(device)
+    edges = t.edges.long()
+    hinges = t.hinges.long()
+
+    def buckets(ids, valid):
+        return tuple(ids[c][valid[c] > 0].long() for c in range(ids.shape[0]))
+
+    es, hs, ws = (torch.as_tensor(a, device=device)
+                  for a in relax_scales(topo, cfg))
+    return _Tables(
+        ea=edges[:, 0], eb=edges[:, 1],
+        hinge=tuple(hinges[:, k] for k in range(4)),
+        incidence=t.incidence.long(), bend_incidence=t.bend_incidence.long(),
+        colors=buckets(t.col_edge_ids, t.col_valid),
+        bend_colors=buckets(t.bcol_hinge_ids, t.bcol_valid),
+        edge_scale=es, hinge_scale=hs, warm_scale=ws, topo=t)
+
+
+def gather_sum(contrib: torch.Tensor, incidence: torch.Tensor):
+    """Row i: the sum of ``contrib[incidence[i, k]]`` over k, in column
+    order (the pad index points one past the end, at an appended zero
+    row)."""
+    full = torch.cat([contrib, contrib.new_zeros((1, 3))])
+    g = full[incidence]                              # (N, D, 3)
+    delta = g[:, 0]
+    for k in range(1, incidence.shape[1]):
+        delta = delta + g[:, k]
+    return delta
+
+
+# --------------------------------------------------------------- distance
+def _solve_distance_colored(pred, lam, inv_mass, T: _Tables,
+                            cfg: SolverConfig, dt):
+    topo = T.topo
+    for ids in T.colors:
+        ea, eb = T.ea[ids], T.eb[ids]
+        wa, wb = inv_mass[ea], inv_mass[eb]
+        dl, n = _distance.distance_delta_lambda(
+            pred[ea], pred[eb], wa, wb, topo.rest_lengths[ids],
+            topo.compliance[ids], lam[ids], dt, cfg)
+        lam = lam.index_add(0, ids, dl)
+        if cfg.lambda_clamp > 0:
+            lam = torch.clamp(lam, -cfg.lambda_clamp, cfg.lambda_clamp)
+        dp = dl[:, None] * n
+        pred = pred.index_add(0, ea, -wa[:, None] * dp)
+        pred = pred.index_add(0, eb, wb[:, None] * dp)
+    return pred, lam
+
+
+def _solve_distance_jacobi(pred, lam, inv_mass, T: _Tables,
+                           cfg: SolverConfig, dt):
+    topo = T.topo
+    wa, wb = inv_mass[T.ea], inv_mass[T.eb]
+    dl, n = _distance.distance_delta_lambda(
+        pred[T.ea], pred[T.eb], wa, wb, topo.rest_lengths, topo.compliance,
+        lam, dt, cfg)
+    # the relaxation scales delta-lambda before both the multiplier update
+    # and the position correction (general.py:97-103 of the JAX package)
+    dl = dl * T.edge_scale
+    lam = _distance.accumulate_lambda(lam, dl, cfg)
+    dp = dl[:, None] * n
+    contrib = torch.cat([-wa[:, None] * dp, wb[:, None] * dp])
+    return pred + gather_sum(contrib, T.incidence), lam
+
+
+# ---------------------------------------------------------------- bending
+def _hinge_gather(pred, inv_mass, idx):
+    return [pred[i] for i in idx], [inv_mass[i] for i in idx]
+
+
+def _solve_bending_colored(pred, lam, inv_mass, T: _Tables,
+                           cfg: SolverConfig, dt):
+    topo = T.topo
+    for ids in T.bend_colors:
+        idx = [h[ids] for h in T.hinge]
+        p, w = _hinge_gather(pred, inv_mass, idx)
+        dl, *grads = _bending.bending_delta_lambda(
+            *p, *w, topo.rest_angles[ids], topo.bend_compliance[ids],
+            lam[ids], dt, cfg)
+        lam = lam.index_add(0, ids, dl)
+        dlb = dl[:, None]
+        for i, wi, g in zip(idx, w, grads):
+            pred = pred.index_add(0, i, wi[:, None] * dlb * g)
+    return pred, lam
+
+
+def _solve_bending_jacobi(pred, lam, inv_mass, T: _Tables,
+                          cfg: SolverConfig, dt):
+    topo = T.topo
+    p, w = _hinge_gather(pred, inv_mass, T.hinge)
+    dl, *grads = _bending.bending_delta_lambda(
+        *p, *w, topo.rest_angles, topo.bend_compliance, lam, dt, cfg)
+    dl = dl * T.hinge_scale
+    lam = lam + dl
+    dlb = dl[:, None]
+    contrib = torch.cat([wi[:, None] * dlb * g for wi, g in zip(w, grads)])
+    return pred + gather_sum(contrib, T.bend_incidence), lam
+
+
+# ---------------------------------------------------------------- substep
+def _warm_apply_distance(pred, lam, inv_mass, T: _Tables, cfg: SolverConfig):
+    """Pre-apply carried distance impulses along current edge directions,
+    with the Jacobi pass's per-edge 1/max-degree relaxation (times
+    ``warm_start_fraction``), the carried multiplier scaled identically and
+    clamped so the correction never exceeds ``warm_start_clamp * rest``
+    per particle.  Returns (pred, lam)."""
+    wa, wb = inv_mass[T.ea], inv_mass[T.eb]
+    lam = lam * T.warm_scale
+    if cfg.warm_start_clamp > 0:
+        wmax = torch.clamp(torch.maximum(wa, wb), min=1e-12)
+        lim = cfg.warm_start_clamp * T.topo.rest_lengths / wmax
+        lam = torch.clamp(lam, -lim, lim)
+    d = pred[T.eb] - pred[T.ea]
+    length = torch.sqrt(torch.clamp(_distance.dot3(d, d), min=1e-24))
+    dp = lam[:, None] * (d / length[:, None])
+    contrib = torch.cat([-wa[:, None] * dp, wb[:, None] * dp])
+    return pred + gather_sum(contrib, T.incidence), lam
+
+
+def _substep(x, v, w, f, lam_d, lam_b, T: _Tables, cfg: SolverConfig, dt,
+             apply_ext: bool):
+    """One substep on (N, 3) tensors.  Returns (x, v, lam_d, lam_b)."""
+    # lambda lifecycle: WARM_START carries only distance impulses (they are
+    # pre-applied); bending restarts fresh except in DECAY
+    if cfg.lambda_mode == LambdaMode.RESET:
+        lam_d = torch.zeros_like(lam_d)
+    else:
+        lam_d = lam_d * cfg.lambda_decay
+    if cfg.lambda_mode == LambdaMode.DECAY:
+        lam_b = lam_b * cfg.lambda_decay
+    else:
+        lam_b = torch.zeros_like(lam_b)
+
+    pred, v = _integrate.predict(x, v, w, f, dt, cfg, apply_ext=apply_ext)
+    if cfg.lambda_mode == LambdaMode.WARM_START:
+        pred, lam_d = _warm_apply_distance(pred, lam_d, w, T, cfg)
+
+    colored = cfg.solve_mode == SolveMode.COLORED
+    has_bending = cfg.enable_bending and T.topo.n_hinges > 0
+    has_contacts = (cfg.floor_mode == FloorMode.XPBD_INEQUALITY
+                    or bool(cfg.sphere_colliders))
+
+    def project_contacts(pred):
+        if cfg.floor_mode == FloorMode.XPBD_INEQUALITY:
+            pred = _collision.floor_project_xpbd(pred, x, w, dt, cfg)
+        if cfg.sphere_colliders:
+            pred = _collision.sphere_sdf_project(pred, x, w, dt, cfg)
+        return pred
+
+    def project_all(pred, lam_d, lam_b):
+        if colored:
+            pred, lam_d = _solve_distance_colored(pred, lam_d, w, T, cfg, dt)
+        else:
+            pred, lam_d = _solve_distance_jacobi(pred, lam_d, w, T, cfg, dt)
+        if has_bending:
+            solve = (_solve_bending_colored if colored
+                     else _solve_bending_jacobi)
+            pred, lam_b = solve(pred, lam_b, w, T, cfg, dt)
+        return project_contacts(pred), lam_d, lam_b
+
+    if accelerated(cfg):
+        # Chebyshev semi-iterative acceleration; the momentum step can
+        # re-penetrate contacts the sweep resolved, so they are projected
+        # once more after it
+        prev = pred
+        for om in chebyshev_omegas(cfg):
+            new, lam_d, lam_b = project_all(pred, lam_d, lam_b)
+            acc = om * (cfg.jacobi_gamma * (new - pred) + pred - prev) + prev
+            if has_contacts:
+                acc = project_contacts(acc)
+            prev, pred = pred, acc
+    else:
+        for _ in range(cfg.iterations):
+            pred, lam_d, lam_b = project_all(pred, lam_d, lam_b)
+
+    x, v = _integrate.finalize(x, pred, w, dt)
+    if cfg.floor_mode == FloorMode.VELOCITY_REFLECT:
+        x, v = _collision.floor_velocity_reflect(x, v, w, dt, cfg)
+    return x, v, lam_d, lam_b
+
+
+def run_substeps_plain(state: SimState, topo: Topology, cfg: SolverConfig,
+                       dt_sub: float, n_substeps: int,
+                       with_ext: bool = False) -> SimState:
+    """The plain engine's substep loop on any device: ``n_substeps`` raw
+    substeps.  ``with_ext=True`` consumes ``state.ext_force`` on the first
+    substep and zeroes it; ``with_ext=False`` neither applies nor clears it
+    (the semantics of the JAX package's fused runners)."""
+    check_supported(cfg)
+    check_state(state)
+    T = _tables(topo, cfg, str(state.device))
+    x, v, lam_d, lam_b = (state.positions, state.velocities,
+                          state.lambda_dist, state.lambda_bend)
+    for i in range(n_substeps):
+        x, v, lam_d, lam_b = _substep(x, v, state.inv_mass, state.ext_force,
+                                      lam_d, lam_b, T, cfg, dt_sub,
+                                      with_ext and i == 0)
+    out = state.replace(positions=x, velocities=v, lambda_dist=lam_d,
+                        lambda_bend=lam_b)
+    if with_ext:
+        out = out.replace(ext_force=torch.zeros_like(state.ext_force))
+    return out
+
+
+def step_fn(state: SimState, topo: Topology, cfg: SolverConfig,
+            dt: float) -> SimState:
+    """One physics step = ``cfg.substeps`` substeps; external forces are
+    consumed on the first substep and zeroed after
+    (``SoftBodyParticleCPU.cs:25-33``).  Plain engine, on any device."""
+    return run_substeps_plain(state, topo, cfg, dt / cfg.substeps,
+                              cfg.substeps, with_ext=True)
+
+
+def multi_step_fn(state: SimState, topo: Topology, cfg: SolverConfig,
+                  dt: float, n_steps: int) -> SimState:
+    for _ in range(n_steps):
+        state = step_fn(state, topo, cfg, dt)
+    return state
+
+
+def make_step(topo: Topology, cfg: SolverConfig, dt: float,
+              n_steps: int = 1):
+    """``SimState -> SimState`` advancing ``n_steps`` frames of
+    ``cfg.substeps`` substeps, ``state.ext_force`` consumed on the first
+    substep and zeroed after.  Since the accumulator is zero after the
+    first substep, the frames run as one substep loop.  Dispatches on the
+    state's device through the kernel wrapper (CUDA: the kernel; CPU: this
+    engine)."""
+    from ..kernels import mesh_cuda
+
+    return mesh_cuda.make_mesh_cuda_step(topo, cfg, dt, n_steps)

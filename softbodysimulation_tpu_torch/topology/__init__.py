@@ -1,1 +1,1 @@
-from . import lattice
+from . import build, coloring, edges, lattice, mesh, native, objloader, windows

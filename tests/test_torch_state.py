@@ -181,7 +181,10 @@ def test_port_imports_without_jax():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 12, mods\n"
+        "assert len(mods) >= 27, mods\n"
+        "assert {p.__name__ + '.' + m for m in ('solvers.general', "
+        "'kernels.mesh_cuda', 'topology.build', 'ops.bending')} <= "
+        "set(mods), mods\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib', 'softbodysimulation_tpu.')))\n"
         "assert not bad, bad\n"
