@@ -51,15 +51,52 @@ user calls and fails (nonzero exit) if any phase fails:
    plain engine on the card and on the CPU, at least 1e-4, and the smoke
    says so);
 10. particle-substeps/s of the mesh kernel and of the plain engine at
-   ``cloth_xl``, as phase 6 times the lattice.
+   ``cloth_xl``, as phase 6 times the lattice;
+11. the contact kernel's build (``csrc/contact_xpbd.cu``, TPU kernel B-4;
+   the mesh library links it too), registers and spills;
+12. the B-4 pass (the passes the mesh loop runs, then an unsort-apply)
+   vs the plain blocked pass on the card, on the seeded clouds of
+   ``tests/test_torch_contact_cases.py`` and on the 20,243-particle states
+   of phase 14 (frames 30, 60 and 90): max |dx| < 1e-5, the library's
+   curve order and candidate blocks equal to the plain ones, and the count
+   of pairs the two classify differently;
+13. the mesh kernel vs the plain engine for every tet case (|dx| < 2e-5,
+   |dlambda_tet| < 1e-5) and contact case (|dx| < 2e-4) of
+   ``tests/test_torch_contact_cases.py``, every multiplier within 1 % of
+   its largest;
+14. the contact path at full size: the ball-on-cloth of
+   ``scripts/bench_multibody_scale.py`` (20,243 particles, 1,280 tets,
+   blocked contact every 3rd substep, B = 128, M = 32) through
+   ``make_mesh_cuda_step`` for 30 frames: 0 dropped pairs at the warm state
+   and at the end, finite, the rim bit-identical, ymin > -1e-2, the ball
+   above the floor and the cloth deflected under it, launches of both
+   libraries; 16 substeps kernel vs plain from the warm state (2e-4, and
+   the multipliers within 1 %); a 30-frame drift kernel vs plain, gated at
+   3x the spread between two exact plain runs with (B, M) = (128, 32) and
+   (256, 18), at least 1e-4; then 16 substeps of parity from that
+   in-contact state, and 30 more frames of the kernel path into
+   contact-rich rest (health, 0 dropped pairs), where the B-4 pass is
+   timed against its bound (operations counted from this state's
+   candidate and touching pairs) and the plain engine's host-side hub
+   sums are timed;
+15. the catalogued ``ball_on_cloth`` (619 particles, dense contact every
+   substep) through ``make_mesh_cuda_step`` for 120 frames: the ball rests
+   on the cloth (ball > 0.55, cloth centre < 0.99, rim within 1e-4 of 1),
+   and without contact it falls through (< 0.25);
+16. particle-substeps/s of the kernel path and of the plain engine for
+   phases 14 and 15, from their in-contact states (frame 90 of phase 14,
+   frame 120 of phase 15), as phase 6 times them, and launches per
+   substep.
 
-Prints one JSON line of kernels, the card's name and power limit, and as
-its last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it
-exits nonzero and prints no result.  ``--profile`` adds a torch.profiler
-breakdown of 200 substeps of each main path (device time by kernel, host
-time per launch, device idle share).
+Prints one JSON line of kernels (with each kernel's bound, the least time
+the card could take for the same work, from ``bound_ms``), the card's name
+and power limit, and as its last line ``{"ok": true, "device": {...}}``.
+Without a CUDA device it exits nonzero and prints no result.
+``--profile`` adds a torch.profiler breakdown of each main path (device
+time by kernel, host time per launch, device idle share).
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -235,6 +272,377 @@ def timed_windows(torch, runs, min_s=1.0):
     return times, reps
 
 
+# published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
+# HBM bytes/s and float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+CONTACT_WARM_FRAMES = 30
+CONTACT_DRIFT_FRAMES = 30
+# frames the kernel path runs on after the drift, into contact-rich rest
+CONTACT_REST_FRAMES = 30
+# float32 operations of one candidate pair of the B-4 pass that does not
+# touch (the Gram d2: 3 products, 2 sums, 3 for sq_i + sq_j - 2g; one
+# compare with the diameter) and the further ones of a touching pair
+# (sqrt, overlap, wsum, two max, product, division, the m sum, 3 fused
+# m x_j sums of 2 each)
+PAIR_OPS = 9
+TOUCH_OPS = 14
+CATALOG_FRAMES = 120
+
+
+def bound_ms(nbytes, ops):
+    """The least time the card could take for work of ``nbytes`` bytes
+    (each input read once, each output written once) and ``ops`` float32
+    operations: (ms, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def lattice_work(spec, cfg):
+    """(bytes, operations) of one lattice substep: positions and velocities
+    read and written, inverse masses read, every family's multipliers read
+    and written; ~30 operations per constraint projection (difference,
+    length, the XPBD update, two corrections) per iteration."""
+    n, fam = spec.n_particles, spec.n_families
+    return n * (24 * 2 + 4 + 8 * fam), 30 * n * fam * cfg.iterations
+
+
+def mesh_work(topo, cfg):
+    """(bytes, operations) of one mesh substep: the state read and written,
+    the per-constraint tables and CSR incidence rows read once, the
+    multipliers read and written; per iteration ~30 operations per edge,
+    ~150 per hinge (normals, acos, sin, four gradients), ~120 per tet, ~10
+    per particle (the sums and contacts)."""
+    n, e, h, t = topo.n_particles, topo.n_edges, topo.n_hinges, topo.n_tets
+    nbytes = (n * (24 * 2 + 4) + e * (8 + 16 + 8) + h * (16 + 12 + 8)
+              + t * (16 + 12 + 8)
+              + 4 * (n + 1 + 2 * e) + 4 * (n + 1 + 4 * h)       # CSR rows
+              + (4 * (n + 1 + 4 * t) + 4 * n if t else 0))
+    ops = cfg.iterations * (30 * e + 150 * h + 120 * t + 10 * n)
+    return nbytes, ops
+
+
+def contact_phases(torch, np, built, K, cc, mc, general, scenes, is_finite,
+                   state_from_numpy, smi, mask_flips):
+    """Phases 11-16, the multi-body contact path.  Returns the contact
+    kernel's JSON numbers and the runners to profile."""
+    from softbodysimulation_tpu_torch.diag.diagnostics import (
+        blocked_dropped_pairs)
+    from softbodysimulation_tpu_torch.ops import spatial_hash as sh
+
+    # 11. the contact kernel's build (started with the others)
+    print_build(built)
+    mods = K.modules()
+    dt = 1 / 60
+
+    # 14. the contact path at full size, through the user's entry point
+    t0 = time.perf_counter()
+    topo, fields, cfg, nc = K.scaled_ball_on_cloth(mods)
+    plain_cfg = cfg.replace(self_collision_backend="blocked")
+    dt_sub = dt / cfg.substeps
+    print(f"# contact main path: scaled ball_on_cloth built in "
+          f"{time.perf_counter() - t0:.2f} s: {topo.n_particles} particles "
+          f"({nc} cloth), {topo.n_edges} edges, {topo.n_hinges} hinges, "
+          f"{topo.n_tets} tets; incidence widths {topo.incidence.shape[1]} "
+          f"(edges), {topo.tet_incidence.shape[1]} (tets); blocked "
+          f"B={cfg.collision_block_size} M={cfg.block_neighbors} every "
+          f"{cfg.self_collision_every}")
+    start = state_from_numpy(fields, device="cuda")
+    rim = torch.as_tensor(np.flatnonzero(fields["inv_mass"] == 0),
+                          device="cuda")
+    step = mc.make_mesh_cuda_step(topo, cfg, dt, device="cuda")
+    torch.cuda.synchronize()
+    mc.launches = cc.launches = 0
+    t0 = time.perf_counter()
+    warm = start
+    for _ in range(CONTACT_WARM_FRAMES):
+        warm = step(warm)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    main_mesh, main_contact = mc.launches, cc.launches
+    print(f"# contact main path: {CONTACT_WARM_FRAMES} frames x "
+          f"{cfg.substeps} substeps in {warm_s:.3f} s wall, {main_mesh} mesh "
+          f"and {main_contact} contact kernel launches")
+    if not (main_mesh > 0 and main_contact > 0):
+        raise RuntimeError("the contact path did not launch both libraries")
+
+    # 12. B-4 vs plain on the card: the seeded clouds here, the 20k states
+    # (warm, and in contact after the drift) with phase 14
+    def b4_vs_plain(name, pred, inv, ccfg):
+        """One B-4 pass and its plain version; the library's order and
+        candidates against the plain ones; raises when they disagree.
+        Returns (max |dx|, the order, the candidates' ok mask, the count of
+        touching pairs)."""
+        order = sh.morton_order(pred, ccfg)
+        same_order = torch.equal(cc.curve_order_cuda(pred, ccfg).long(),
+                                 order)
+        *_, touch, d2ab, _, _, nb = sh._blocked_layout(pred, inv, order, ccfg)
+        nbr, ok = sh.select_candidates(touch, d2ab,
+                                       min(ccfg.block_neighbors, nb))
+        knbr, kok = cc.candidates_cuda(pred, inv, order, ccfg)
+        same_sel = torch.equal(knbr.long(), nbr) and torch.equal(kok, ok)
+        out = cc.self_collision_project_blocked_cuda(pred, inv, order, ccfg)
+        ref = sh.self_collision_project_blocked(pred, inv, order, ccfg)
+        flips = int((cc.touching_pairs_cuda(pred, inv, order, ccfg)
+                     != sh.blocked_touching_pairs(pred, inv, order,
+                                                  ccfg)).sum())
+        touching = int(sh.blocked_touching_pairs(pred, inv, order,
+                                                 ccfg).sum())
+        dx = float((out - ref).abs().max())
+        moved = float((ref - pred).abs().max())
+        print(f"# B-4 vs plain, {name} ({pred.shape[0]} particles, "
+              f"B={ccfg.collision_block_size} M={ccfg.block_neighbors}): "
+              f"max|dx|={dx:.3e} (moved {moved:.3e}), curve order equal="
+              f"{same_order}, candidates equal={same_sel}, {touching} "
+              f"touching pairs, {flips} classified differently")
+        if not (dx < K.DX_PASS and same_order and same_sel):
+            raise RuntimeError(f"B-4 kernel disagrees with plain on {name}")
+        return dx, order, ok, touching
+
+    b4_err = 0.0
+    for name in K.CLOUDS:
+        x, w = K.cloud(name)
+        b4_err = max(b4_err, b4_vs_plain(
+            name, torch.as_tensor(x, device="cuda"),
+            torch.as_tensor(w, device="cuda"),
+            K.cloud_config(name, "blocked_pallas"))[0])
+    b4_err = max(b4_err, b4_vs_plain("warm 20k", warm.positions,
+                                     warm.inv_mass, cfg)[0])
+
+    # 13. every tet and contact case, kernel vs plain
+    lam_keys = ("lambda_dist", "lambda_bend", "lambda_tet")
+
+    def lam_report(out, ref):
+        d = {}
+        for k in lam_keys:
+            r = getattr(ref, k)
+            if r is not None and r.numel():
+                d[k] = (float((getattr(out, k) - r).abs().max()),
+                        float(r.abs().max()))
+        return d
+
+    def lam_ok(d):
+        return all(dk <= 1e-2 * mk for dk, mk in d.values())
+
+    for name, (tcfg, kind, kw, frames) in K.tet_cases().items():
+        ttopo, tf = K.tet_inputs(kind, mods, **kw)
+        st = state_from_numpy(tf, device="cuda")
+        out = mc.make_mesh_cuda_step(ttopo, tcfg, dt, n_steps=frames)(st)
+        ref = general.multi_step_fn(st, ttopo, tcfg, dt, frames)
+        dx = float((out.positions - ref.positions).abs().max())
+        d = lam_report(out, ref)
+        print(f"# tet case {name}: max|dx|={dx:.3e} "
+              + " ".join(f"max|d{k}|={v[0]:.3e} (max {v[1]:.3e})"
+                         for k, v in d.items()))
+        if not (dx < K.DX_TET and d["lambda_tet"][0] < K.DLAM_TET
+                and lam_ok(d) and is_finite(out)):
+            raise RuntimeError(f"mesh kernel disagrees with plain on {name}")
+    ctopo, cf, _ = K.contact_scene(mods)
+    for name, (kcfg, frames) in K.contact_cases().items():
+        backends = ((kcfg.self_collision_backend, "blocked_pallas")
+                    if kcfg.self_collision_backend == "blocked"
+                    else (kcfg.self_collision_backend,))
+        for backend in backends:
+            kc = kcfg.replace(self_collision_backend=backend)
+            st = state_from_numpy(cf, device="cuda")
+            out = mc.make_mesh_cuda_step(ctopo, kc, dt, n_steps=frames)(st)
+            ref = general.multi_step_fn(st, ctopo, kcfg, dt, frames)
+            dx = float((out.positions - ref.positions).abs().max())
+            d = lam_report(out, ref)
+            print(f"# contact case {name} ({backend}): max|dx|={dx:.3e} "
+                  + " ".join(f"max|d{k}|={v[0]:.3e} (max {v[1]:.3e})"
+                             for k, v in d.items()))
+            if not (dx < K.DX_CONTACT and lam_ok(d) and is_finite(out)):
+                raise RuntimeError(f"mesh kernel disagrees with plain on "
+                                   f"{name} ({backend})")
+
+    # 14, continued: exactness, health, parity and drift
+    p = warm.positions
+    ymin = float(p[:, 1].min())
+    ball_min, cloth_min = float(p[nc:, 1].min()), float(p[:nc, 1].min())
+    rim_ok = torch.equal(p[rim], start.positions[rim])
+    dropped_warm = blocked_dropped_pairs(warm, cfg)
+    print(f"# contact health after {CONTACT_WARM_FRAMES} frames: finite="
+          f"{is_finite(warm)} ymin={ymin:.6f} ball min y={ball_min:.6f} "
+          f"cloth min y={cloth_min:.6f} rim unmoved={rim_ok} dropped pairs="
+          f"{dropped_warm}")
+    if not (is_finite(warm) and rim_ok and ymin > -1e-2 and ball_min > 0.05
+            and cloth_min < 0.99 and dropped_warm == 0):
+        raise RuntimeError("contact main path failed its health gates")
+    out = mc.make_mesh_cuda_substep_runner(topo, cfg, dt_sub, 16)(warm)
+    ref = general.run_substeps_plain(warm, topo, plain_cfg, dt_sub, 16)
+    dx = float((out.positions - ref.positions).abs().max())
+    d = lam_report(out, ref)
+    print(f"# contact parity from the warm state, 16 substeps: max|dx|="
+          f"{dx:.3e} " + " ".join(f"max|d{k}|={v[0]:.3e} (max {v[1]:.3e})"
+                                  for k, v in d.items()))
+    if not (dx < K.DX_CONTACT and lam_ok(d)):
+        raise RuntimeError("contact path disagrees with plain at 20k")
+    alt_cfg = plain_cfg.replace(collision_block_size=256, block_neighbors=18)
+    if blocked_dropped_pairs(warm, alt_cfg) != 0:
+        raise RuntimeError("the (256, 18) plain run is not exact")
+    kern, plain, alt = warm, warm, warm
+    for _ in range(CONTACT_DRIFT_FRAMES):
+        kern = step(kern)
+        plain = general.step_fn(plain, topo, plain_cfg, dt)
+        alt = general.step_fn(alt, topo, alt_cfg, dt)
+    drift = float((kern.positions - plain.positions).abs().max())
+    spread = float((plain.positions - alt.positions).abs().max())
+    gate = max(3.0 * spread, 1e-4)
+    dropped_end = blocked_dropped_pairs(kern, cfg)
+    print(f"# contact drift vs plain, {CONTACT_DRIFT_FRAMES} frames from "
+          f"the warm state: {drift:.3e} (gate {gate:.3e} = max(3 x the "
+          f"spread {spread:.3e} between plain runs at (B, M) = (128, 32) and "
+          f"(256, 18), 1e-4)); dropped pairs at the end {dropped_end} "
+          f"(plain (256, 18): {blocked_dropped_pairs(alt, alt_cfg)})")
+    if not (drift < gate and dropped_end == 0 and is_finite(kern)):
+        raise RuntimeError(f"contact path drifts from plain: {drift}")
+    # the ball is in the cloth now: the pass and 16 substeps once more
+    dx_end = b4_vs_plain(
+        f"20k after {CONTACT_WARM_FRAMES + CONTACT_DRIFT_FRAMES} frames",
+        kern.positions, kern.inv_mass, cfg)[0]
+    b4_err = max(b4_err, dx_end)
+    # contact passes round differently from the plain ones (the pair sums'
+    # order), and the sagging cloth's near-flat hinges turn an ulp into a
+    # flipped bending mask: lambda_bend is reported with its flips and held
+    # to the position gate only
+    out = mc.make_mesh_cuda_substep_runner(topo, cfg, dt_sub, 16)(kern)
+    ref = general.run_substeps_plain(kern, topo, plain_cfg, dt_sub, 16)
+    dx = float((out.positions - ref.positions).abs().max())
+    d = lam_report(out, ref)
+    print(f"# contact parity from the in-contact state, 16 substeps: "
+          f"max|dx|={dx:.3e} " + " ".join(
+              f"max|d{k}|={v[0]:.3e} (max {v[1]:.3e})" for k, v in d.items())
+          + f"; bending-mask flips {mask_flips(torch, out, ref, topo, cfg)}")
+    if not (dx < K.DX_CONTACT
+            and lam_ok({k: v for k, v in d.items() if k != "lambda_bend"})):
+        raise RuntimeError("contact path disagrees with plain in contact")
+    # on into contact-rich rest on the kernel path, where the B-4 pass
+    # and the throughput of phase 16 are timed
+    rest = kern
+    for _ in range(CONTACT_REST_FRAMES):
+        rest = step(rest)
+    frame = CONTACT_WARM_FRAMES + CONTACT_DRIFT_FRAMES + CONTACT_REST_FRAMES
+    p = rest.positions
+    dropped_rest = blocked_dropped_pairs(rest, cfg)
+    print(f"# contact health at frame {frame}: finite={is_finite(rest)} "
+          f"ymin={float(p[:, 1].min()):.6f} ball min y="
+          f"{float(p[nc:, 1].min()):.6f} cloth min y="
+          f"{float(p[:nc, 1].min()):.6f} rim unmoved="
+          f"{torch.equal(p[rim], start.positions[rim])} dropped pairs="
+          f"{dropped_rest}")
+    if not (is_finite(rest) and torch.equal(p[rim], start.positions[rim])
+            and float(p[:, 1].min()) > -1e-2 and dropped_rest == 0):
+        raise RuntimeError(f"contact main path failed its health gates at "
+                           f"frame {frame}")
+    dx_rest, order, ok, touching = b4_vs_plain(
+        f"20k at frame {frame}", rest.positions, rest.inv_mass, cfg)
+    b4_err = max(b4_err, dx_rest)
+    # the pass's time there: the passes the mesh loop runs (stats, layout,
+    # AABBs, top-M, pairs) and the unsort-apply
+    pred, inv = rest.positions, rest.inv_mass
+    reps = 50
+    ms_b4 = cuda_ms(torch, lambda: cc.self_collision_project_blocked_cuda(
+        pred, inv, order, cfg), reps)
+    ms_b4_plain = cuda_ms(torch, lambda: sh.self_collision_project_blocked(
+        pred, inv, order, cfg), reps)
+    pairs = int(ok.sum()) * cfg.collision_block_size ** 2
+    b4_bound = bound_ms(pred.shape[0] * (12 + 4 + 4 + 12),
+                        PAIR_OPS * pairs + TOUCH_OPS * touching)
+    print(f"# B-4 pass at frame {frame} ({smi}): kernel {ms_b4:.4f} ms, "
+          f"plain {ms_b4_plain:.4f} ms per pass over {reps} passes; {pairs} "
+          f"candidate pair tests, {touching} touching; bound "
+          f"{b4_bound[0]:.5f} ms ({b4_bound[1]}: {PAIR_OPS} operations per "
+          f"candidate pair, {TOUCH_OPS} more per touching pair)")
+    # what the plain engine's column-order hub sums (general.gather_sum,
+    # the hub rows on the host) cost it per substep at this scene
+    hub_ms = 0.0
+    for table, width in ((topo.tet_incidence, 4 * topo.n_tets),
+                         (topo.incidence, 2 * topo.n_edges)):
+        inc = general.Incidence.of(table.to("cuda"), width)
+        bare = dataclasses.replace(inc, hub_rows=inc.hub_rows[:0],
+                                   hub=inc.hub[:0])
+        contrib = torch.randn((width, 3), device="cuda",
+                              generator=torch.Generator(device="cuda").manual_seed(0))
+        hub_ms += (cuda_ms(torch, lambda: general.gather_sum(contrib, inc), 20)
+                   - cuda_ms(torch, lambda: general.gather_sum(contrib, bare),
+                             20))
+    print(f"# plain engine's hub rows (summed on the host, a device sync "
+          f"each): {hub_ms * cfg.iterations:.4f} ms per substep "
+          f"({cfg.iterations} iterations x {hub_ms:.4f} ms for the tet and "
+          f"edge hubs)")
+
+    # 15. the catalogued ball_on_cloth: resting on the cloth, and falling
+    # through without contact
+    bstate, bstep, binfo = scenes.ball_on_cloth(device="cuda")
+    bnc = binfo["n_cloth"]
+    off_cfg = binfo["config"].replace(enable_self_collision=False)
+    bstep_off = mc.make_mesh_cuda_step(binfo["topology"], off_cfg, dt)
+    on, off = bstate, bstate
+    torch.cuda.synchronize()
+    mc.launches = 0
+    for _ in range(CATALOG_FRAMES):
+        on = bstep(on)
+    torch.cuda.synchronize()
+    cat_launches = mc.launches
+    for _ in range(CATALOG_FRAMES):
+        off = bstep_off(off)
+    po, pf = on.positions, off.positions
+    ball_on = float(po[bnc:, 1].min())
+    cloth_on = float(po[:bnc, 1].min())
+    rim_on = float(po[:bnc, 1].max())
+    ball_off = float(pf[bnc:, 1].min())
+    print(f"# catalogued ball_on_cloth ({binfo['topology'].n_particles} "
+          f"particles, dense contact) after {CATALOG_FRAMES} frames: ball "
+          f"min y={ball_on:.4f} cloth min y={cloth_on:.4f} rim y={rim_on:.6f}"
+          f" ({cat_launches} launches); without contact ball min y="
+          f"{ball_off:.4f}")
+    if not (is_finite(on) and ball_on > 0.55 and cloth_on < 0.99
+            and abs(rim_on - 1.0) < 1e-4 and ball_off < 0.25
+            and cat_launches > 0):
+        raise RuntimeError("catalogued ball_on_cloth failed its physics")
+
+    # 16. throughput, kernel path and plain engine, in turns
+    cat_topo, cat_cfg = binfo["topology"], binfo["config"]
+    cat_sub = dt / cat_cfg.substeps
+    rows = (("scaled ball_on_cloth", topo, cfg, plain_cfg, dt_sub, rest, 60,
+             6),
+            ("catalogued ball_on_cloth", cat_topo, cat_cfg, cat_cfg, cat_sub,
+             on, 600, 12))
+    profile = []
+    for name, tp, kc, pc, ds, st, n_k, n_p in rows:
+        krun = mc.make_mesh_cuda_substep_runner(tp, kc, ds, n_k)
+        before = (mc.launches, cc.launches)
+        krun(st)
+        torch.cuda.synchronize()
+        per_sub = ((mc.launches - before[0]) / n_k,
+                   (cc.launches - before[1]) / n_k)
+        times, reps = timed_windows(torch, {
+            "plain": (lambda: general.run_substeps_plain(st, tp, pc, ds, n_p),
+                      n_p),
+            "kernel": (lambda: krun(st), n_k)})
+        nn = tp.n_particles
+        ms_k, ms_p = min(times["kernel"]), min(times["plain"])
+        print(f"# throughput {name} ({smi}), best of two windows: kernel "
+              f"{ms_k:.5f} ms/substep = {nn / ms_k * 1e3:.4e} "
+              f"particle-substeps/s over {reps['kernel'] * n_k} substeps; "
+              f"plain {ms_p:.5f} ms/substep = {nn / ms_p * 1e3:.4e} "
+              f"particle-substeps/s over {reps['plain'] * n_p} substeps; "
+              f"{per_sub[0]:.2f} mesh + {per_sub[1]:.2f} contact launches "
+              f"per substep")
+        for key in ("kernel", "plain"):
+            lo, hi = min(times[key]), max(times[key])
+            print(f"# throughput range {key}: {lo:.5f}-{hi:.5f} ms/substep "
+                  f"(windows in turn order: {times[key]})")
+        bnd = bound_ms(*mesh_work(tp, kc))
+        print(f"# bound of one {name} substep without its contact passes: "
+              f"{bnd[0]:.5f} ms ({bnd[1]})")
+        profile.append((mc.make_mesh_cuda_substep_runner(tp, kc, ds, 6), st))
+    return dict(launches=main_contact, max_abs_err=b4_err, ms=ms_b4,
+                plain_ms=ms_b4_plain, bound=b4_bound, profile=profile)
+
+
 def main() -> int:
     import torch
 
@@ -247,12 +655,14 @@ def main() -> int:
 
     sys.path.insert(0, os.path.join(HERE, "tests"))
     import test_torch_cases as lattice_cases
+    import test_torch_contact_cases as contact_cases
     import test_torch_mesh_cases as mesh_cases
 
     from softbodysimulation_tpu_torch.core import config as C
     from softbodysimulation_tpu_torch.core import scenes
     from softbodysimulation_tpu_torch.interact import forces
     from softbodysimulation_tpu_torch.kernels import _build
+    from softbodysimulation_tpu_torch.kernels import contact_cuda as cc
     from softbodysimulation_tpu_torch.kernels import lattice_cuda as lc
     from softbodysimulation_tpu_torch.kernels import mesh_cuda as mc
     from softbodysimulation_tpu_torch.solvers import general
@@ -267,14 +677,17 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} device(s)")
 
-    # 2. build: one nvcc per source, started together
-    with ThreadPoolExecutor(2) as pool:
+    # 2. build: one nvcc per library, started together
+    with ThreadPoolExecutor(3) as pool:
         lattice_build = pool.submit(timed_build, _build, lc.LIB_NAME,
                                     lc.SOURCES)
         mesh_build = pool.submit(timed_build, _build, mc.LIB_NAME,
                                  mc.SOURCES, mc.NVCC_EXTRA)
-        lattice_build, mesh_build = (lattice_build.result(),
-                                     mesh_build.result())
+        contact_build = pool.submit(timed_build, _build, cc.LIB_NAME,
+                                    cc.SOURCES, cc.NVCC_EXTRA)
+        lattice_build, mesh_build, contact_build = (
+            lattice_build.result(), mesh_build.result(),
+            contact_build.result())
     print_build(lattice_build)
 
     # 3. kernel vs plain on the card, res 6
@@ -529,6 +942,11 @@ def main() -> int:
               f"{nm / hi * 1e3:.4e}-{nm / lo * 1e3:.4e} particle-substeps/s "
               f"(windows in turn order: {mtimes[key]})")
 
+    # 11-16. the multi-body contact path
+    contact = contact_phases(torch, np, contact_build, contact_cases, cc, mc,
+                             general, scenes, is_finite, state_from_numpy,
+                             smi, mask_flips)
+
     if "--profile" in sys.argv[1:]:
         profile_main_path(
             torch, lc.make_cuda_substep_runner(spec, cfg, dt_sub, 200),
@@ -536,7 +954,11 @@ def main() -> int:
         profile_main_path(
             torch, mc.make_mesh_cuda_substep_runner(ctopo, ccfg, cdt_sub,
                                                     200), cstate)
+        for run, st in contact["profile"]:
+            profile_main_path(torch, run, st)
 
+    lat_bound = bound_ms(*lattice_work(spec, cfg))
+    mesh_bound = bound_ms(*mesh_work(ctopo, ccfg))
     print(json.dumps({"kernels": [{
         "name": "lattice_xpbd",
         "route": "cuda",
@@ -546,6 +968,9 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": ms_k,
         "plain_ms": ms_p,
+        "bound_ms": lat_bound[0],
+        "bound_by": lat_bound[1],
+        "library_ms": None,
     }, {
         "name": "mesh_xpbd",
         "route": "cuda",
@@ -555,6 +980,21 @@ def main() -> int:
         "max_abs_err": mesh_err,
         "ms": ms_mk,
         "plain_ms": ms_mp,
+        "bound_ms": mesh_bound[0],
+        "bound_by": mesh_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "contact_xpbd",
+        "route": "cuda",
+        "source": "softbodysimulation_tpu_torch/csrc/contact_xpbd.cu",
+        "replaces": "softbodysimulation_tpu/kernels/contact_pallas.py:132",
+        "launches": contact["launches"],
+        "max_abs_err": contact["max_abs_err"],
+        "ms": contact["ms"],
+        "plain_ms": contact["plain_ms"],
+        "bound_ms": contact["bound"][0],
+        "bound_by": contact["bound"][1],
+        "library_ms": None,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

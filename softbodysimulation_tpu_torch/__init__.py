@@ -1,19 +1,27 @@
 """softbodysimulation_tpu_torch — the PyTorch / CUDA port of
 softbodysimulation_tpu, for NVIDIA Hopper (H100).
 
-The package carries two paths, each a plain PyTorch engine beside a
-hand-written CUDA kernel that replaces a fused Pallas kernel of the JAX
+The package carries three paths, each a plain PyTorch engine beside
+hand-written CUDA kernels that replace fused Pallas kernels of the JAX
 package:
 
 * the res^3 braced-lattice XPBD path: the stencil engine
   (``solvers/lattice.py``) and ``csrc/lattice_xpbd.cu`` (bound in
   ``kernels/lattice_cuda.py``);
-* the general-mesh XPBD path (cloth and surface meshes: distance and
-  dihedral bending constraints): the topology builders (``topology/``),
-  the general engine (``solvers/general.py``) and ``csrc/mesh_xpbd.cu``
-  (bound in ``kernels/mesh_cuda.py``).
+* the general-mesh XPBD path (cloth, surface meshes and tet solids:
+  distance, dihedral bending and per-tet volume constraints): the topology
+  builders (``topology/``), the general engine (``solvers/general.py``)
+  and ``csrc/mesh_xpbd.cu`` (bound in ``kernels/mesh_cuda.py``);
+* the multi-body contact path (bodies merged by
+  ``topology.build.merge_topologies``, self-collision in
+  ``ops/spatial_hash.py``): the blocked contact kernel
+  ``csrc/contact_xpbd.cu`` (bound in ``kernels/contact_cuda.py``), which
+  the mesh kernel's substep loop runs too, and the mesh kernel's dense
+  contact pass; ``diag/diagnostics.py`` checks the blocked pass's
+  exactness.
 
-It imports torch and numpy, never jax.
+Scenes (``core/scenes.py``) run on the card unless the caller asks for
+the CPU.  It imports torch and numpy, never jax.
 """
 
 from .core.config import (

@@ -2,53 +2,82 @@
 //
 // Replaces the TPU kernel softbodysimulation_tpu/kernels/mesh_pallas.py
 // make_mesh_substep_runner (:789, kernel body :990, pallas_call :1794) for
-// the distance + dihedral-bending family: predict, the lambda lifecycle
-// (RESET, DECAY, WARM_START with its pre-apply pass), JACOBI sweeps with
-// the per-constraint omega / max(degree) relaxation and optional Chebyshev
-// acceleration, or COLORED exact Gauss-Seidel sweeps, the XPBD floor and
-// static spheres, finalize and the VELOCITY_REFLECT floor.  It ports WHAT
-// that kernel computes -- the semantics of solvers/general.py::_substep --
-// and none of its TPU machinery: no signed one-hot gather/scatter matrices,
-// no bf16 split compensation, no window bases, no VMEM budget, and acosf in
-// place of the polynomial Mosaic needed.  Volume, per-tet volume, box and
-// kinematic colliders, dense self-contact, ensembles and traced materials
-// are refused by the wrapper (kernels/mesh_cuda.py).
+// the distance, dihedral-bending and per-tet volume families with contact:
+// predict, the lambda lifecycle (RESET, DECAY, WARM_START with its
+// pre-apply pass), JACOBI sweeps (distance and bending with the
+// per-constraint omega / max(degree) relaxation, tets at full strength with
+// mass splitting) with optional Chebyshev acceleration, or COLORED exact
+// Gauss-Seidel sweeps of all three families, self-collision (the in-kernel
+// dense all-pairs pass of mesh_pallas.py:1390-1494, or the blocked pass of
+// TPU kernel B-4, contact_xpbd.cu, linked into this library), the XPBD
+// floor and static spheres, finalize and the VELOCITY_REFLECT floor.  It
+// ports WHAT that kernel computes -- the semantics of
+// solvers/general.py::_substep -- and none of its TPU machinery: no signed
+// one-hot gather/scatter matrices, no bf16 split compensation, no window
+// bases, no VMEM budget, and acosf in place of the polynomial Mosaic
+// needed.  The global volume constraint, box and kinematic colliders,
+// ensembles and traced materials are refused by the wrapper
+// (kernels/mesh_cuda.py).
 //
 // Layout: x, v, pred (and the Chebyshev planes cur, prev) are (3, N)
-// float32 structure-of-arrays planes; lambda_dist (E), lambda_bend (H); the
-// topology's int32 tables and per-constraint constants are uploaded once
-// per device by the wrapper.
+// float32 structure-of-arrays planes; lambda_dist (E), lambda_bend (H),
+// lambda_tet (T); the topology's int32 tables and per-constraint constants
+// are uploaded once per device by the wrapper, the incidence tables as CSR
+// rows (the topology's padded rows without their pads, in the same column
+// order, so the sums are unchanged).
 //
 // One launch per pass on the caller's stream, no host sync in the loop:
-//   predict (+ the lambda lifecycle of both families);
+//   predict (+ the lambda lifecycle of all three families);
 //   WARM_START: an edge pass and a particle pass;
-//   per iteration, JACOBI: an edge pass writing the two contributions
-//     -w_a dp and +w_b dp of each edge into a (2E, 3) buffer, a particle
-//     pass adding the particle's incidence row of it (the gather-and-sum of
-//     general.py:109-113, in column order, no atomics); then the same for
-//     hinges with a (4H, 3) buffer; the last particle pass also projects
-//     the contacts, takes the Chebyshev step and, after the last iteration,
-//     finalizes;
-//   per iteration, COLORED: one launch per edge colour and per hinge colour
-//     (a thread updates its constraint's lambda and endpoints in place; a
-//     colour shares no particle, so this is exact), then one particle pass
-//     for contacts (and finalize).
+//   on a contact substep with the blocked backend, the curve order (stats,
+//     Hilbert codes, a radix sort), once, after the warm start;
+//   per iteration, JACOBI: for each family, a constraint pass writing each
+//     endpoint's contribution into a (2E | 4H | 4T, 3) buffer and a
+//     particle pass adding the particle's incidence row of it (the
+//     gather-and-sum of general.py:109-113, in column order, no atomics;
+//     tets divide it by max(tet degree, 1));
+//   per iteration, COLORED: one launch per colour of each family (a thread
+//     updates its constraint's lambda and endpoints in place; a colour
+//     shares no particle, so this is exact);
+//   then the contacts: without self-collision the last particle pass also
+//     projects floor and spheres, takes the Chebyshev step and, after the
+//     last iteration, finalizes; on a contact substep (i % every == 0) the
+//     self-collision pass comes first -- dense: a mean pass and an
+//     all-pairs pass writing a correction plane; blocked: the B-4 pass --
+//     and a particle pass applies omega * correction, then floor and
+//     spheres; accelerated, the Chebyshev step is followed by a second
+//     self-collision pass and apply (general.py:654-655).
 //
 // What bounds it on the card: at cloth_xl (16,641 particles, 49,408 edges,
 // 48,896 hinges) the state, the contribution buffers and the tables are a
 // few MB and live in the 50 MB L2, and a pass is a few hundred flops per
 // constraint, so with about 11-14 launches of small grids per substep the
-// launch overhead, not HBM or the ALUs, should set the pace.  The design
-// does nothing about that yet, by choice: fusing passes, CUDA graphs or a
-// shared-memory design come later.
+// launch overhead, not HBM or the ALUs, should set the pace.  In the
+// 20,243-particle ball-on-cloth (6 substeps x 4 iterations, bending, tets,
+// blocked contact every 3rd substep) a contact-free substep takes 25
+// launches and a contact substep about 80 (8 self-collision passes of 5
+// launches, 8 applies, the order); the pair passes (up to 8.3e7 pair tests
+// each, contact_xpbd.cu) and the particle passes are the heavy ones, the
+// latter because the ball's hub (the centroid of the tet fan: 642 spoke
+// edges, 1,280 tets) sums its long row in one thread; the rows are CSR, so
+// no other particle walks the hub's width.  The dense pass gives each row
+// one thread that walks every particle, a chain of N dependent sums, so at
+// a few hundred particles its time is that chain's latency.  The design
+// does nothing more yet, by choice: fusing passes, CUDA graphs, splitting
+// the hub's and the dense rows' sums across threads come later.
 //
 // Floats: built without --use_fast_math and with -fmad=false, so every
 // product and sum is rounded as written, in the operation order of the plain
 // PyTorch engine (cross products component by component, dot products
 // x + y + z); near-flat hinges turn one ulp of cos into ~3e-4 rad of angle,
-// and the sin masks of the bending bands must see the same bits.
+// and the sin masks of the bending bands must see the same bits.  The
+// self-collision passes take their two matrix-product sums with explicit
+// fused multiply-adds, as contact_xpbd.cu explains.
 
 #include <cuda_runtime.h>
+#include <math.h>
+
+#include "contact_xpbd.cuh"
 
 #define MX_MAX_SPHERES 16
 #define MX_THREADS 256
@@ -58,8 +87,6 @@ struct MeshParams {
   int n;               // particles
   int n_edges;
   int n_hinges;
-  int inc_width;       // columns of incidence (pad index 2E)
-  int binc_width;      // columns of bend_incidence (pad index 4H)
   int iterations;
   int colored;         // SolveMode.COLORED (else JACOBI)
   int lambda_mode;     // 0 RESET, 1 DECAY, 2 WARM_START
@@ -72,6 +99,12 @@ struct MeshParams {
   int col_width;
   int n_bend_colors;
   int bcol_width;
+  int n_tets;          // tets carried by the state (lambda_tet), else 0
+  int tets_on;         // per-tet volume sweep active
+  int n_tet_colors;
+  int tcol_width;
+  int sc_mode;         // self-collision: 0 off, 1 dense, 2 blocked
+  int sc_every;        // contact on substep i iff i % sc_every == 0
   float dt;
   float gravity[3];
   float max_force;
@@ -98,6 +131,10 @@ struct MeshParams {
   float normal_force_scale;
   float floor_friction_coeff;
   float gamma;         // jacobi_gamma
+  float omega;         // omega (0 => 1): the tets' Jacobi scale
+  float tet_pressure;
+  float sc_omega;      // self_collision_omega
+  float sc_diam;       // 2 * particle_radius
   float spheres[MX_MAX_SPHERES][4];
 };
 
@@ -119,16 +156,30 @@ struct MeshBuffers {
   const float* alpha;  // (E) compliance / dt^2, floored at min_alpha_tilde
   const float* relax;  // (E) omega / max(deg_a, deg_b, 1)
   const float* warm_scale;  // (E) fraction / max(deg_a, deg_b, 1)
-  const int* incidence;     // (N, inc_width)
+  const int* inc_ptr;       // (N + 1) CSR rows into inc_cols
+  const int* inc_cols;      // edge incidence: rows into contrib
   const int* col_ids;       // (n_colors, col_width)
   const float* col_valid;
   const int* hinges;        // (H, 4)
   const float* brest;       // (H)
   const float* balpha;      // (H) compliance / dt^2
   const float* brelax;      // (H) omega / max(bend degree, 1)
-  const int* bend_incidence;  // (N, binc_width)
+  const int* binc_ptr;        // (N + 1) CSR rows into binc_cols
+  const int* binc_cols;       // hinge incidence: rows into bcontrib
   const int* bcol_ids;        // (n_bend_colors, bcol_width)
   const float* bcol_valid;
+  float* tlam;                // (T)
+  float* tcontrib;            // (4T, 3)
+  const int* tets;            // (T, 4)
+  const float* trest;         // (T) 6 x rest volume
+  const float* talpha;        // (T) compliance / dt^2
+  const float* tdeg;          // (N) tets per particle
+  const int* tinc_ptr;        // (N + 1) CSR rows into tinc_cols
+  const int* tinc_cols;       // tet incidence without its pads
+  const int* tcol_ids;        // (n_tet_colors, tcol_width)
+  const float* tcol_valid;
+  float* sc_corr;             // (3, N) dense self-collision correction
+  float* sc_stats;            // (3) mean of pred (dense pass)
 };
 
 enum {
@@ -136,6 +187,9 @@ enum {
   PF_CHEBY = 2,      // Chebyshev step (then contacts again)
   PF_SAVE = 4,       // cur = prev = pred (the first iteration's start)
   PF_FINALIZE = 8,   // velocities and positions from pred
+  PF_CHEBY_SPLIT = 16,  // Chebyshev step, prev = cur; contacts follow in a
+                        // later pass (self-collision needs the whole plane)
+  PF_SETCUR = 32,    // cur = pred (the split step's second half)
 };
 
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
@@ -251,8 +305,9 @@ __device__ float bending_dl(const MeshParams& p, float pp[4][3],
   return dl;
 }
 
-// The lambda lifecycle of both families, and predict (gravity, the first
-// substep's ext force, damping, clamps).  Grid: max(N, E, H) threads.
+// The lambda lifecycle of the three families, and predict (gravity, the
+// first substep's ext force, damping, clamps).  Grid: max(N, E, H, T)
+// threads.
 __global__ void predict_kernel(MeshParams p, MeshBuffers b, int use_ext,
                                int save) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -260,6 +315,8 @@ __global__ void predict_kernel(MeshParams p, MeshBuffers b, int use_ext,
     b.lam[i] = p.lambda_mode == 0 ? 0.f : b.lam[i] * p.lambda_decay;
   if (i < p.n_hinges)
     b.blam[i] = p.lambda_mode == 1 ? b.blam[i] * p.lambda_decay : 0.f;
+  if (i < p.n_tets)
+    b.tlam[i] = p.lambda_mode == 1 ? b.tlam[i] * p.lambda_decay : 0.f;
   if (i >= p.n) return;
   const int n = p.n;
   const float wa = b.w[i];
@@ -411,6 +468,154 @@ __global__ void hinge_color_kernel(MeshParams p, MeshBuffers b, int color) {
   }
 }
 
+// ops/tet_volume.py::tet_delta_lambda for one tet (p0..p3): returns
+// dlambda (0 when the denominator is at most eps_denominator) and writes
+// the four gradients of 6V.
+__device__ float tet_dl(const MeshParams& p, float pp[4][3], const float w[4],
+                        float rest, float alpha, float lam, float g[4][3]) {
+  float e1[3], e2[3], e3[3];
+  for (int c = 0; c < 3; ++c) {
+    e1[c] = pp[1][c] - pp[0][c];
+    e2[c] = pp[2][c] - pp[0][c];
+    e3[c] = pp[3][c] - pp[0][c];
+  }
+  cross3(e2, e3, g[1]);
+  cross3(e3, e1, g[2]);
+  cross3(e1, e2, g[3]);
+  for (int c = 0; c < 3; ++c) g[0][c] = -(g[1][c] + g[2][c] + g[3][c]);
+  const float vol6 = dot3(e1, g[1]);
+  const float cerr = vol6 - p.tet_pressure * rest;
+  const float denom = w[0] * dot3(g[0], g[0]) + w[1] * dot3(g[1], g[1]) +
+                      w[2] * dot3(g[2], g[2]) + w[3] * dot3(g[3], g[3]) +
+                      alpha;
+  const bool valid = denom > p.eps_denominator;
+  const float dl = (-cerr - alpha * lam) / (valid ? denom : 1.f);
+  return valid ? dl : 0.f;
+}
+
+// One thread per tet: the mass-splitting JACOBI projection at full strength
+// times omega; contributions in rows k*T + t for endpoint k.
+__global__ void tet_kernel(MeshParams p, MeshBuffers b) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= p.n_tets) return;
+  const int n = p.n, nt = p.n_tets;
+  float pp[4][3], w[4], g[4][3];
+  for (int k = 0; k < 4; ++k) {
+    const int i = b.tets[4 * t + k];
+    load3(b.pred, n, i, pp[k]);
+    w[k] = b.w[i];
+  }
+  const float dl =
+      tet_dl(p, pp, w, b.trest[t], b.talpha[t], b.tlam[t], g) * p.omega;
+  b.tlam[t] = b.tlam[t] + dl;
+  for (int k = 0; k < 4; ++k)
+    for (int c = 0; c < 3; ++c)
+      b.tcontrib[3 * (k * nt + t) + c] = w[k] * dl * g[k][c];
+}
+
+// COLORED: one thread per slot of tet colour `color`; exact in place.
+__global__ void tet_color_kernel(MeshParams p, MeshBuffers b, int color) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= p.tcol_width) return;
+  const size_t slot = (size_t)color * p.tcol_width + s;
+  if (!(b.tcol_valid[slot] > 0.f)) return;
+  const int n = p.n;
+  const int t = b.tcol_ids[slot];
+  int idx[4];
+  float pp[4][3], w[4], g[4][3];
+  for (int k = 0; k < 4; ++k) {
+    idx[k] = b.tets[4 * t + k];
+    load3(b.pred, n, idx[k], pp[k]);
+    w[k] = b.w[idx[k]];
+  }
+  const float dl = tet_dl(p, pp, w, b.trest[t], b.talpha[t], b.tlam[t], g);
+  b.tlam[t] = b.tlam[t] + dl;
+  for (int k = 0; k < 4; ++k) {
+    float o[3];
+    for (int c = 0; c < 3; ++c) o[c] = pp[k][c] + w[k] * dl * g[k][c];
+    store3(b.pred, n, idx[k], o);
+  }
+}
+
+// Dense self-collision, pass 1 of 2: the mean of pred, in one block.
+__global__ void sc_mean_kernel(MeshParams p, MeshBuffers b) {
+  __shared__ float s_sum[3][MX_THREADS];
+  const int t = threadIdx.x;
+  for (int c = 0; c < 3; ++c) {
+    float sum = 0.f;
+    for (int i = t; i < p.n; i += MX_THREADS)
+      sum = sum + b.pred[(size_t)c * p.n + i];
+    s_sum[c][t] = sum;
+  }
+  __syncthreads();
+  for (int half = MX_THREADS / 2; half > 0; half >>= 1) {
+    if (t < half)
+      for (int c = 0; c < 3; ++c)
+        s_sum[c][t] = s_sum[c][t] + s_sum[c][t + half];
+    __syncthreads();
+  }
+  if (t == 0)
+    for (int c = 0; c < 3; ++c) b.sc_stats[c] = s_sum[c][0] / (float)p.n;
+}
+
+// Dense self-collision, pass 2 of 2 (mesh_pallas.py:1390-1494): one thread
+// per row particle against all N particles, staged in shared memory tiles;
+// the pair arithmetic of the blocked pass (contact_xpbd.cu) on positions
+// centred by the mean; the correction goes to sc_corr.
+__global__ void dense_pair_kernel(MeshParams p, MeshBuffers b) {
+  __shared__ float sx[MX_THREADS], sy[MX_THREADS], sz[MX_THREADS];
+  __shared__ float ssq[MX_THREADS], sw[MX_THREADS];
+  const int n = p.n;
+  const int t = threadIdx.x;
+  const int i = blockIdx.x * blockDim.x + t;
+  const bool row = i < n;
+  float xi[3] = {0.f, 0.f, 0.f};
+  float wi = 0.f;
+  if (row) {
+    for (int c = 0; c < 3; ++c)
+      xi[c] = b.pred[(size_t)c * n + i] - b.sc_stats[c];
+    wi = b.w[i];
+  }
+  const float sqi = dot3(xi, xi);
+  float msum = 0.f, mx[3] = {0.f, 0.f, 0.f};
+  for (int j0 = 0; j0 < n; j0 += MX_THREADS) {
+    const int j = j0 + t;
+    __syncthreads();
+    if (j < n) {
+      float xj[3];
+      for (int c = 0; c < 3; ++c)
+        xj[c] = b.pred[(size_t)c * n + j] - b.sc_stats[c];
+      sx[t] = xj[0];
+      sy[t] = xj[1];
+      sz[t] = xj[2];
+      ssq[t] = dot3(xj, xj);
+      sw[t] = b.w[j];
+    }
+    __syncthreads();
+    if (!row) continue;
+    const int kmax = min(MX_THREADS, n - j0);
+    for (int k = 0; k < kmax; ++k) {
+      // the Gram product as contact_xpbd.cu takes it (fused, index order)
+      const float g = fmaf(xi[2], sz[k], fmaf(xi[1], sy[k], xi[0] * sx[k]));
+      const float d2 = (sqi + ssq[k]) - 2.f * g;
+      const float dist = sqrtf(fmaxf(d2, 1e-18f));
+      const float overlap = p.sc_diam - dist;
+      const float wsum = wi + sw[k];
+      if (i != j0 + k && overlap > 0.f && dist > 1e-9f && wsum > 1e-12f) {
+        const float mm =
+            overlap / (fmaxf(dist, 1e-12f) * fmaxf(wsum, 1e-12f));
+        msum = msum + mm;
+        mx[0] = fmaf(mm, sx[k], mx[0]);
+        mx[1] = fmaf(mm, sy[k], mx[1]);
+        mx[2] = fmaf(mm, sz[k], mx[2]);
+      }
+    }
+  }
+  if (row)
+    for (int c = 0; c < 3; ++c)
+      b.sc_corr[(size_t)c * n + i] = wi * (xi[c] * msum - mx[c]);
+}
+
 // The XPBD floor with positional friction, then each static sphere
 // (ops/collision.py), on one particle's predicted position.
 __device__ void project_contacts(const MeshParams& p, float wa,
@@ -444,41 +649,67 @@ __device__ void project_contacts(const MeshParams& p, float wa,
   }
 }
 
-// One thread per particle: add the particle's incidence row of `contrib`
-// (when given), then, as `flags` asks, contacts, the Chebyshev step with
-// weight om, saving the iteration's start, and finalize.
-__global__ void particle_kernel(MeshParams p, MeshBuffers b,
-                                const float* __restrict__ contrib,
-                                const int* __restrict__ incidence, int width,
-                                int pad, int flags, float om) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+// Where a particle pass takes a particle's constraint sum from: the
+// contribution buffer and its CSR incidence rows, the sum divided by
+// max(deg, 1) when deg is given.
+struct SumSource {
+  const float* contrib;
+  const int* cols;
+  const int* ptr;
+  const float* deg;
+};
+
+// Where a particle pass takes a self-collision correction from: thread t
+// applies omega * corr[c * ld + t] to particle perm[t] (or t).
+struct CorrSource {
+  const float* corr;
+  const int* perm;
+  int ld;
+};
+
+// One thread per particle: add the particle's constraint sum (when given)
+// or the self-collision correction (when given), then, as `flags` asks,
+// contacts, the Chebyshev step with weight om, saving the iteration's
+// start, and finalize.
+__global__ void particle_kernel(MeshParams p, MeshBuffers b, SumSource src,
+                                CorrSource sc, int flags, float om) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int n = p.n;
-  if (i >= n) return;
+  if (t >= n) return;
+  const int i = sc.perm ? sc.perm[t] : t;
   const float wa = b.w[i];
   float pc[3], xc[3];
   load3(b.pred, n, i, pc);
   load3(b.x, n, i, xc);
-  if (incidence) {
+  if (src.contrib) {
     float s[3] = {0.f, 0.f, 0.f};
-    const int* row = incidence + (size_t)i * width;
-    for (int k = 0; k < width; ++k) {
-      const int j = row[k];
-      if (j < pad)
-        for (int c = 0; c < 3; ++c) s[c] = s[c] + contrib[3 * j + c];
+    for (int k = src.ptr[i]; k < src.ptr[i + 1]; ++k) {
+      const int j = src.cols[k];
+      for (int c = 0; c < 3; ++c) s[c] = s[c] + src.contrib[3 * j + c];
+    }
+    if (src.deg) {
+      const float d = fmaxf(src.deg[i], 1.f);
+      for (int c = 0; c < 3; ++c) s[c] = s[c] / d;
     }
     for (int c = 0; c < 3; ++c) pc[c] = pc[c] + s[c];
   }
+  if (sc.corr)
+    for (int c = 0; c < 3; ++c)
+      pc[c] = pc[c] + p.sc_omega * sc.corr[(size_t)c * sc.ld + t];
   if (flags & PF_CONTACTS) project_contacts(p, wa, xc, pc);
-  if (flags & PF_CHEBY) {
+  if (flags & (PF_CHEBY | PF_CHEBY_SPLIT)) {
     float cu[3], pv[3];
     load3(b.cur, n, i, cu);
     load3(b.prev, n, i, pv);
     for (int c = 0; c < 3; ++c)
       pc[c] = om * (p.gamma * (pc[c] - cu[c]) + cu[c] - pv[c]) + pv[c];
-    if (flags & PF_CONTACTS) project_contacts(p, wa, xc, pc);
     store3(b.prev, n, i, cu);
-    store3(b.cur, n, i, pc);
+    if (flags & PF_CHEBY) {
+      if (flags & PF_CONTACTS) project_contacts(p, wa, xc, pc);
+      store3(b.cur, n, i, pc);
+    }
   }
+  if (flags & PF_SETCUR) store3(b.cur, n, i, pc);
   if (flags & PF_SAVE) {
     store3(b.cur, n, i, pc);
     store3(b.prev, n, i, pc);
@@ -533,19 +764,26 @@ const char* mesh_xpbd_error_string(int code) {
 // Advance n_substeps substeps on `stream`.  Buffers as MeshBuffers says;
 // the ext force is read on the first substep when ext_first.  om holds the
 // Chebyshev weight of each iteration (host memory, `iterations` floats).
-// *n_launched counts the kernels launched.  Returns a cudaError_t; nothing
-// is synchronised.
-int mesh_xpbd_run(const MeshParams* hp, const MeshBuffers* hb, int device,
-                  int n_substeps, int ext_first, const float* om,
-                  long long* n_launched, void* stream_handle) {
+// With the blocked self-collision backend (sc_mode 2), cp / cb describe the
+// B-4 pass over pred (its scratch allocated by the caller); otherwise they
+// may be null.  *n_launched counts the kernels launched by this library's
+// own passes, *n_contact those of the B-4 pass.  Returns a cudaError_t;
+// nothing is synchronised.
+int mesh_xpbd_run(const MeshParams* hp, const MeshBuffers* hb,
+                  const ContactParams* cp, const ContactBuffers* cb,
+                  int device, int n_substeps, int ext_first, const float* om,
+                  long long* n_launched, long long* n_contact,
+                  void* stream_handle) {
   const MeshParams p = *hp;
   const MeshBuffers b = *hb;
   cudaStream_t stream = (cudaStream_t)stream_handle;
   long long launched = 0;
   *n_launched = 0;
+  *n_contact = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (p.n_spheres > MX_MAX_SPHERES || p.n <= 0 || p.n_edges <= 0)
+  if (p.n_spheres > MX_MAX_SPHERES || p.n <= 0 || p.n_edges <= 0 ||
+      p.sc_every < 1 || (p.sc_mode == 2 && !(cp && cb)))
     return (int)cudaErrorInvalidValue;
 
 #define MX_CHECK()            \
@@ -560,30 +798,64 @@ int mesh_xpbd_run(const MeshParams* hp, const MeshBuffers* hb, int device,
 
   const dim3 block(MX_THREADS);
   const dim3 g_part = grid_for(p.n);
-  const dim3 g_edge = grid_for(p.n_edges);
-  const dim3 g_hinge = grid_for(p.n_hinges);
   int g_all = p.n > p.n_edges ? p.n : p.n_edges;
   if (p.n_hinges > g_all) g_all = p.n_hinges;
+  if (p.n_tets > g_all) g_all = p.n_tets;
   const bool warm = p.lambda_mode == 2;
   const bool bending = p.bending && p.n_hinges > 0;
+  const bool tets = p.tets_on && p.n_tets > 0;
   const int contacts = (p.floor_mode == 1 || p.n_spheres > 0)
                            ? PF_CONTACTS : 0;
   const int save = p.accelerate ? PF_SAVE : 0;
-  const int e_pad = 2 * p.n_edges, h_pad = 4 * p.n_hinges;
+  const CorrSource no_corr = {nullptr, nullptr, 0};
+  const SumSource no_sum = {nullptr, nullptr, nullptr, nullptr};
+  const SumSource edge_sum = {b.contrib, b.inc_cols, b.inc_ptr, nullptr};
+  const SumSource bend_sum = {b.bcontrib, b.binc_cols, b.binc_ptr, nullptr};
+  const SumSource tet_sum = {b.tcontrib, b.tinc_cols, b.tinc_ptr, b.tdeg};
+  auto particles = [&](SumSource src, CorrSource sc, int flags, float w) {
+    particle_kernel<<<g_part, block, 0, stream>>>(p, b, src, sc, flags, w);
+  };
+  // one self-collision pass over pred: its correction, and where it lies
+  auto self_collision = [&](CorrSource* out) -> int {
+    if (p.sc_mode == 1) {
+      sc_mean_kernel<<<1, MX_THREADS, 0, stream>>>(p, b);
+      MX_CHECK();
+      dense_pair_kernel<<<g_part, block, 0, stream>>>(p, b);
+      MX_CHECK();
+      *out = {b.sc_corr, nullptr, p.n};
+      return 0;
+    }
+    const int rc = contact_xpbd_corr(cp, cb, n_contact, stream);
+    *out = {cb->corr, cb->order, cp->nb * cp->block};
+    return rc;
+  };
 
   for (int i = 0; i < n_substeps; ++i) {
+    const bool contact = p.sc_mode != 0 && i % p.sc_every == 0;
     predict_kernel<<<grid_for(g_all), block, 0, stream>>>(
         p, b, ext_first && i == 0, save && !warm);
     MX_CHECK();
     if (warm) {
-      edge_kernel<<<g_edge, block, 0, stream>>>(p, b, 1);
+      edge_kernel<<<grid_for(p.n_edges), block, 0, stream>>>(p, b, 1);
       MX_CHECK();
-      particle_kernel<<<g_part, block, 0, stream>>>(
-          p, b, b.contrib, b.incidence, p.inc_width, e_pad, save, 0.f);
+      particles(edge_sum, no_corr, save, 0.f);
       MX_CHECK();
+    }
+    if (contact && p.sc_mode == 2) {
+      // the curve order, once per contact substep, after the warm start
+      if (int rc = contact_xpbd_order(cp, cb, n_contact, stream)) {
+        *n_launched = launched;
+        return rc;
+      }
     }
     for (int it = 0; it < p.iterations; ++it) {
       const int fin = it == p.iterations - 1 ? PF_FINALIZE : 0;
+      // without self-collision, the iteration's last particle pass also
+      // does the contacts, the Chebyshev step and finalize
+      const int tail = p.colored
+          ? contacts | fin
+          : contacts | fin | (p.accelerate ? PF_CHEBY : 0);
+      const int last = contact ? 0 : tail;
       if (p.colored) {
         for (int c = 0; c < p.n_colors; ++c) {
           edge_color_kernel<<<grid_for(p.col_width), block, 0, stream>>>(
@@ -597,27 +869,55 @@ int mesh_xpbd_run(const MeshParams* hp, const MeshBuffers* hb, int device,
             MX_CHECK();
           }
         }
-        if (contacts || fin) {
-          particle_kernel<<<g_part, block, 0, stream>>>(
-              p, b, nullptr, nullptr, 0, 0, contacts | fin, 0.f);
+        if (tets) {
+          for (int c = 0; c < p.n_tet_colors; ++c) {
+            tet_color_kernel<<<grid_for(p.tcol_width), block, 0, stream>>>(
+                p, b, c);
+            MX_CHECK();
+          }
+        }
+        if (last) {
+          particles(no_sum, no_corr, last, 0.f);
           MX_CHECK();
         }
-        continue;
-      }
-      const int last =
-          contacts | fin | (p.accelerate ? PF_CHEBY : 0);
-      edge_kernel<<<g_edge, block, 0, stream>>>(p, b, 0);
-      MX_CHECK();
-      particle_kernel<<<g_part, block, 0, stream>>>(
-          p, b, b.contrib, b.incidence, p.inc_width, e_pad,
-          bending ? 0 : last, om[it]);
-      MX_CHECK();
-      if (bending) {
-        hinge_kernel<<<g_hinge, block, 0, stream>>>(p, b);
+      } else {
+        edge_kernel<<<grid_for(p.n_edges), block, 0, stream>>>(p, b, 0);
         MX_CHECK();
-        particle_kernel<<<g_part, block, 0, stream>>>(
-            p, b, b.bcontrib, b.bend_incidence, p.binc_width, h_pad, last,
-            om[it]);
+        particles(edge_sum, no_corr, bending || tets ? 0 : last, om[it]);
+        MX_CHECK();
+        if (bending) {
+          hinge_kernel<<<grid_for(p.n_hinges), block, 0, stream>>>(p, b);
+          MX_CHECK();
+          particles(bend_sum, no_corr, tets ? 0 : last, om[it]);
+          MX_CHECK();
+        }
+        if (tets) {
+          tet_kernel<<<grid_for(p.n_tets), block, 0, stream>>>(p, b);
+          MX_CHECK();
+          particles(tet_sum, no_corr, last, om[it]);
+          MX_CHECK();
+        }
+      }
+      if (!contact) continue;
+      // self-collision first among the contacts (general.py:568-585)
+      CorrSource corr;
+      if (int rc = self_collision(&corr)) {
+        *n_launched = launched;
+        return rc;
+      }
+      if (!p.colored && p.accelerate) {
+        // the momentum step may re-penetrate: contacts once more after it,
+        // self-collision included (general.py:654-655)
+        particles(no_sum, corr, PF_CONTACTS | PF_CHEBY_SPLIT, om[it]);
+        MX_CHECK();
+        if (int rc = self_collision(&corr)) {
+          *n_launched = launched;
+          return rc;
+        }
+        particles(no_sum, corr, PF_CONTACTS | PF_SETCUR | fin, 0.f);
+        MX_CHECK();
+      } else {
+        particles(no_sum, corr, PF_CONTACTS | fin, 0.f);
         MX_CHECK();
       }
     }

@@ -1,1 +1,1 @@
-from . import lattice_cuda, mesh_cuda
+from . import contact_cuda, lattice_cuda, mesh_cuda

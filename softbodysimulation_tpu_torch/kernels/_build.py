@@ -3,8 +3,9 @@ plain C interface, loaded with ``ctypes``.
 
 The library is built on first use, never at import (the package must import
 where there is no CUDA toolkit), into ``softbodysimulation_tpu_torch/_build/``
-under a name that hashes the sources and the flags, so an edited source
-builds anew and an unchanged one loads the existing file.
+under a name that hashes the sources, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source builds anew and an unchanged one loads
+the existing file.
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ def nvcc_path() -> str:
 def library_path(name: str, sources: Sequence[str],
                  extra_flags: Sequence[str] = ()) -> Path:
     h = hashlib.sha256(" ".join((*NVCC_FLAGS, *extra_flags)).encode())
-    for src in sources:
+    headers = sorted(p.name for p in CSRC_DIR.glob("*.cuh"))
+    for src in (*sources, *headers):
         h.update(src.encode())
         h.update((CSRC_DIR / src).read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"

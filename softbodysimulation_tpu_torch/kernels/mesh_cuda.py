@@ -3,10 +3,19 @@ runners.
 
 Counterpart of ``softbodysimulation_tpu/kernels/mesh_pallas.py``
 (``_check_supported``, ``make_mesh_substep_runner``,
-``make_mesh_pallas_step``) for the distance + dihedral-bending family:
-``make_mesh_cuda_substep_runner`` and ``make_mesh_cuda_step``.  The TPU
+``make_mesh_pallas_step``, ``make_mesh_hybrid_contact_step``) for the
+distance, dihedral-bending and per-tet volume families with floor, sphere
+and self-collision contacts: ``make_mesh_cuda_substep_runner``,
+``make_mesh_cuda_step`` and ``make_mesh_hybrid_contact_step``.  The TPU
 kernel's one-hot block plans have no counterpart: the CUDA kernel gathers
 by index, so any topology runs (a windowed one is not needed).
+
+Self-collision runs inside the library's substep loop: the dense backend
+as the kernel's all-pairs pass, ``blocked`` and ``blocked_pallas`` (one
+semantics) as TPU kernel B-4's pass (``csrc/contact_xpbd.cu``, linked into
+this library; its launches count in ``kernels.contact_cuda.launches``).
+The ``hash`` and ``sorted`` backends run only in the plain engine, for a
+CPU state.
 
 Device dispatch, with no fallback: a state on a CUDA device launches the
 kernel (or raises); a state on the CPU runs the kernel's plain version,
@@ -16,8 +25,8 @@ library is built with ``nvcc`` on the first CUDA call
 per-constraint constants go to the card once per runner configuration and
 device, on the first call there.
 
-``launches`` counts the CUDA kernels this module has launched; callers may
-reset it to 0 to count one run.
+``launches`` counts the CUDA kernels this module has launched (the B-4
+pass's aside); callers may reset it to 0 to count one run.
 """
 
 from __future__ import annotations
@@ -35,9 +44,10 @@ from ..ops import collision as _collision
 from ..ops import integrate as _integrate
 from ..solvers import general as _general
 from . import _build
+from . import contact_cuda as _contact
 
 LIB_NAME = "mesh_xpbd"
-SOURCES = ("mesh_xpbd.cu",)
+SOURCES = ("mesh_xpbd.cu", "contact_xpbd.cu")
 # every product and sum rounded as written (no FMA contraction): the
 # bending masks near flat hinges must see the plain engine's bits
 NVCC_EXTRA = ("-fmad=false",)
@@ -52,14 +62,16 @@ class MeshParams(ctypes.Structure):
 
     _fields_ = [
         ("n", ctypes.c_int), ("n_edges", ctypes.c_int),
-        ("n_hinges", ctypes.c_int), ("inc_width", ctypes.c_int),
-        ("binc_width", ctypes.c_int), ("iterations", ctypes.c_int),
+        ("n_hinges", ctypes.c_int), ("iterations", ctypes.c_int),
         ("colored", ctypes.c_int), ("lambda_mode", ctypes.c_int),
         ("bending", ctypes.c_int), ("gravity_acc", ctypes.c_int),
         ("floor_mode", ctypes.c_int), ("n_spheres", ctypes.c_int),
         ("accelerate", ctypes.c_int), ("n_colors", ctypes.c_int),
         ("col_width", ctypes.c_int), ("n_bend_colors", ctypes.c_int),
-        ("bcol_width", ctypes.c_int),
+        ("bcol_width", ctypes.c_int), ("n_tets", ctypes.c_int),
+        ("tets_on", ctypes.c_int), ("n_tet_colors", ctypes.c_int),
+        ("tcol_width", ctypes.c_int), ("sc_mode", ctypes.c_int),
+        ("sc_every", ctypes.c_int),
         ("dt", ctypes.c_float), ("gravity", ctypes.c_float * 3),
         ("max_force", ctypes.c_float), ("damp_factor", ctypes.c_float),
         ("max_velocity", ctypes.c_float), ("world_bounds", ctypes.c_float),
@@ -76,16 +88,21 @@ class MeshParams(ctypes.Structure):
         ("penetration_kick", ctypes.c_float),
         ("normal_force_scale", ctypes.c_float),
         ("floor_friction_coeff", ctypes.c_float),
-        ("gamma", ctypes.c_float),
+        ("gamma", ctypes.c_float), ("omega", ctypes.c_float),
+        ("tet_pressure", ctypes.c_float), ("sc_omega", ctypes.c_float),
+        ("sc_diam", ctypes.c_float),
         ("spheres", (ctypes.c_float * 4) * MAX_SPHERES),
     ]
 
 
 _BUFFERS = ("x", "v", "w", "f", "pred", "cur", "prev", "lam", "blam",
             "contrib", "bcontrib", "edges", "rest", "alpha", "relax",
-            "warm_scale", "incidence", "col_ids", "col_valid", "hinges",
-            "brest", "balpha", "brelax", "bend_incidence", "bcol_ids",
-            "bcol_valid")
+            "warm_scale", "inc_ptr", "inc_cols", "col_ids", "col_valid",
+            "hinges", "brest", "balpha", "brelax", "binc_ptr", "binc_cols",
+            "bcol_ids",
+            "bcol_valid", "tlam", "tcontrib", "tets", "trest", "talpha",
+            "tdeg", "tinc_ptr", "tinc_cols", "tcol_ids", "tcol_valid",
+            "sc_corr", "sc_stats")
 
 
 class MeshBuffers(ctypes.Structure):
@@ -98,14 +115,20 @@ _LAMBDA_MODE = {LambdaMode.RESET: 0, LambdaMode.DECAY: 1,
                 LambdaMode.WARM_START: 2}
 _FLOOR_MODE = {FloorMode.NONE: 0, FloorMode.XPBD_INEQUALITY: 1,
                FloorMode.VELOCITY_REFLECT: 2}
+# self-collision backend -> the library's sc_mode (hash and sorted: plain
+# engine only)
+_SC_MODE = {"dense": 1, "blocked": 2, "blocked_pallas": 2}
 
 
 def _check_supported(cfg: SolverConfig, topo: Topology,
                      approx_math: bool = False, n_bodies: int = 1,
-                     kin_colliders=None):
+                     kin_colliders=None, device=None):
     """Build-time refusals: the plain engine's, plus the kernel's options
-    that are not ported and its fixed table sizes."""
+    that are not ported and its fixed table sizes; with a CUDA ``device``,
+    also what only the plain engine runs (``check_cuda``)."""
     _general.check_supported(cfg)
+    if device is not None and torch.device(device).type == "cuda":
+        check_cuda(cfg, topo)
     if approx_math:
         raise NotImplementedError(
             "mesh kernel: approx_math (rsqrt / approximate reciprocal) is "
@@ -124,6 +147,22 @@ def _check_supported(cfg: SolverConfig, topo: Topology,
         raise NotImplementedError("mesh kernel needs at least one edge")
 
 
+def check_cuda(cfg: SolverConfig, topo: Topology):
+    """What a CUDA state is refused: the self-collision backends the
+    library does not run (``hash``, ``sorted``: plain engine only, as the
+    JAX mesh kernel sends them to its XLA engine) and blocked layouts the
+    B-4 kernel does not take."""
+    if not cfg.enable_self_collision:
+        return
+    if cfg.self_collision_backend not in _SC_MODE:
+        raise NotImplementedError(
+            f"mesh kernel: the {cfg.self_collision_backend!r} self-collision "
+            "backend runs only in the plain engine (a CPU state); use "
+            "'dense', 'blocked' or 'blocked_pallas'")
+    if _SC_MODE[cfg.self_collision_backend] == 2:
+        _contact.check_layout(topo.n_particles, cfg)
+
+
 def make_params(topo: Topology, cfg: SolverConfig, dt: float) -> MeshParams:
     """The kernel's scalar constants, each rounded to float32 as the plain
     engine rounds it."""
@@ -131,8 +170,6 @@ def make_params(topo: Topology, cfg: SolverConfig, dt: float) -> MeshParams:
     p.n = topo.n_particles
     p.n_edges = topo.n_edges
     p.n_hinges = topo.n_hinges
-    p.inc_width = topo.incidence.shape[1]
-    p.binc_width = topo.bend_incidence.shape[1]
     p.iterations = cfg.iterations
     p.colored = int(cfg.solve_mode == SolveMode.COLORED)
     p.lambda_mode = _LAMBDA_MODE[cfg.lambda_mode]
@@ -143,6 +180,13 @@ def make_params(topo: Topology, cfg: SolverConfig, dt: float) -> MeshParams:
     p.accelerate = int(_general.accelerated(cfg))
     p.n_colors, p.col_width = topo.col_edge_ids.shape
     p.n_bend_colors, p.bcol_width = topo.bcol_hinge_ids.shape
+    p.n_tets = topo.n_tets
+    p.tets_on = int(cfg.enable_tet_volume and topo.n_tets > 0)
+    if topo.n_tets:
+        p.n_tet_colors, p.tcol_width = topo.tcol_tet_ids.shape
+    if cfg.enable_self_collision:
+        p.sc_mode = _SC_MODE.get(cfg.self_collision_backend, 0)
+    p.sc_every = _general.contact_every(cfg)
     p.dt = dt
     p.gravity[:] = cfg.gravity
     p.max_force = cfg.max_force
@@ -169,24 +213,43 @@ def make_params(topo: Topology, cfg: SolverConfig, dt: float) -> MeshParams:
     p.normal_force_scale = cfg.normal_force_scale
     p.floor_friction_coeff = cfg.floor_friction_coeff
     p.gamma = cfg.jacobi_gamma
+    p.omega = cfg.omega if cfg.omega > 0 else 1.0
+    p.tet_pressure = cfg.tet_pressure
+    p.sc_omega = cfg.self_collision_omega
+    p.sc_diam = 2.0 * cfg.particle_radius
     for si, sphere in enumerate(cfg.sphere_colliders):
         p.spheres[si][:] = sphere
     return p
 
 
 def constraint_constants(topo: Topology, cfg: SolverConfig, dt: float):
-    """Per-edge and per-hinge float32 constants: alpha (compliance / dt^2,
-    floored at ``min_alpha_tilde``), the Jacobi relaxation and the
-    warm-start scale, and the hinges' alpha and relaxation — the values the
-    plain engine computes, to the bit."""
+    """Per-edge, per-hinge and per-tet float32 constants: alpha (compliance
+    / dt^2, floored at ``min_alpha_tilde`` for edges), the Jacobi
+    relaxation and the warm-start scale, the hinges' alpha and relaxation,
+    and the tets' alpha (a true division, as ``ops/tet_volume.py``) — the
+    values the plain engine computes, to the bit."""
     inv_dt2 = np.float32(1.0 / (dt * dt))
     alpha = topo.compliance.cpu().numpy() * inv_dt2
     if cfg.min_alpha_tilde > 0:
         alpha = np.maximum(alpha, np.float32(cfg.min_alpha_tilde))
     relax, brelax, warm = _general.relax_scales(topo, cfg)
-    return dict(alpha=alpha, relax=relax, warm_scale=warm,
-                balpha=topo.bend_compliance.cpu().numpy() * inv_dt2,
-                brelax=brelax)
+    out = dict(alpha=alpha, relax=relax, warm_scale=warm,
+               balpha=topo.bend_compliance.cpu().numpy() * inv_dt2,
+               brelax=brelax)
+    if topo.n_tets:
+        out["talpha"] = (topo.tet_compliance.cpu().numpy()
+                         / np.float32(dt * dt))
+    return out
+
+
+def incidence_csr(incidence: torch.Tensor, pad: int):
+    """Padded incidence rows (pad index ``pad``) as CSR (row pointers,
+    columns): the pads dropped, the column order kept, so the row sums are
+    unchanged."""
+    inc = incidence.cpu().numpy()
+    real = inc < pad
+    ptr = np.concatenate([[0], np.cumsum(real.sum(axis=1))]).astype(np.int32)
+    return ptr, inc[real].astype(np.int32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,11 +271,21 @@ def _device_tables(topo: Topology, cfg: SolverConfig, dt: float,
 
     tensors = dict(
         edges=dev(topo.edges), rest=dev(topo.rest_lengths),
-        incidence=dev(topo.incidence), col_ids=dev(topo.col_edge_ids),
-        col_valid=dev(topo.col_valid), hinges=dev(topo.hinges),
-        brest=dev(topo.rest_angles), bend_incidence=dev(topo.bend_incidence),
+        col_ids=dev(topo.col_edge_ids), col_valid=dev(topo.col_valid),
+        hinges=dev(topo.hinges), brest=dev(topo.rest_angles),
         bcol_ids=dev(topo.bcol_hinge_ids), bcol_valid=dev(topo.bcol_valid),
         **{k: dev(v) for k, v in consts.items()})
+    tables = [("inc", topo.incidence, 2 * topo.n_edges),
+              ("binc", topo.bend_incidence, 4 * topo.n_hinges)]
+    if topo.n_tets:
+        tables.append(("tinc", topo.tet_incidence, 4 * topo.n_tets))
+        tensors.update(tets=dev(topo.tets), trest=dev(topo.rest_tet_volumes),
+                       tdeg=dev(topo.tet_degree),
+                       tcol_ids=dev(topo.tcol_tet_ids),
+                       tcol_valid=dev(topo.tcol_valid))
+    for name, inc, pad in tables:
+        ptr, cols = incidence_csr(inc, pad)
+        tensors.update({f"{name}_ptr": dev(ptr), f"{name}_cols": dev(cols)})
     oms = _general.chebyshev_omegas(cfg)
     return _DeviceTables(tensors=tensors, params=make_params(topo, cfg, dt),
                          om=(ctypes.c_float * len(oms))(*oms))
@@ -222,6 +295,7 @@ def _device_tables(topo: Topology, cfg: SolverConfig, dt: float,
 def _library() -> ctypes.CDLL:
     """Build on first use, load, and declare every entry point's types."""
     lib = _build.load_library(LIB_NAME, SOURCES, NVCC_EXTRA)
+    _contact.declare(lib)
     lib.mesh_xpbd_params_size.argtypes = []
     lib.mesh_xpbd_params_size.restype = ctypes.c_int
     lib.mesh_xpbd_buffers_size.argtypes = []
@@ -230,9 +304,11 @@ def _library() -> ctypes.CDLL:
     lib.mesh_xpbd_error_string.restype = ctypes.c_char_p
     lib.mesh_xpbd_run.argtypes = [
         ctypes.POINTER(MeshParams), ctypes.POINTER(MeshBuffers),
+        ctypes.POINTER(_contact.ContactParams),
+        ctypes.POINTER(_contact.ContactBuffers),
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_longlong),
-        ctypes.c_void_p]
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
     lib.mesh_xpbd_run.restype = ctypes.c_int
     if (lib.mesh_xpbd_params_size() != ctypes.sizeof(MeshParams)
             or lib.mesh_xpbd_buffers_size() != ctypes.sizeof(MeshBuffers)):
@@ -258,12 +334,22 @@ def run_substeps_cuda(state: SimState, topo: Topology, cfg: SolverConfig,
     semantics of ``solvers.general.run_substeps_plain``.  No host sync."""
     global launches
     _check_supported(cfg, topo)
+    check_cuda(cfg, topo)
     _general.check_state(state)
     dev = state.device
     if dev.type != "cuda":
         raise ValueError(f"mesh kernel: state on {dev}, not CUDA")
     n, e, h = topo.n_particles, topo.n_edges, topo.n_hinges
     tables = _device_tables(topo, cfg, dt_sub, str(dev))
+    params = tables.params
+    if state.lambda_tet is None and topo.n_tets:
+        # no multipliers, no tet sweep (general._substep's has_tets)
+        params = MeshParams.from_buffer_copy(params)
+        params.n_tets = params.tets_on = 0
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
     # (N, 3) -> (3, N) structure of arrays, once per call
     x = _checked("positions", state.positions, (n, 3), dev).t().contiguous()
     v = _checked("velocities", state.velocities, (n, 3), dev).t().contiguous()
@@ -271,29 +357,44 @@ def run_substeps_cuda(state: SimState, topo: Topology, cfg: SolverConfig,
     f = _checked("ext_force", state.ext_force, (n, 3), dev).t().contiguous()
     lam = _checked("lambda_dist", state.lambda_dist, (e,), dev).clone()
     blam = _checked("lambda_bend", state.lambda_bend, (h,), dev).clone()
-    plane = torch.empty((3, 3, n), dtype=torch.float32, device=dev)
+    plane = f32(3, 3, n)
     work = dict(x=x, v=v, w=w, f=f, pred=plane[0], cur=plane[1],
-                prev=plane[2], lam=lam, blam=blam,
-                contrib=torch.empty((2 * e, 3), dtype=torch.float32,
-                                    device=dev),
-                bcontrib=torch.empty((max(4 * h, 1), 3), dtype=torch.float32,
-                                     device=dev),
-                **tables.tensors)
+                prev=plane[2], lam=lam, blam=blam, contrib=f32(2 * e, 3),
+                bcontrib=f32(max(4 * h, 1), 3), **tables.tensors)
+    if params.n_tets:
+        t = topo.n_tets
+        work.update(tlam=_checked("lambda_tet", state.lambda_tet, (t,),
+                                  dev).clone(), tcontrib=f32(4 * t, 3))
+    if params.sc_mode == 1:
+        work.update(sc_corr=f32(3, n), sc_stats=f32(3))
     bufs = MeshBuffers(**{k: ctypes.c_void_p(work[k].data_ptr())
-                          for k in _BUFFERS})
+                          for k in _BUFFERS if k in work})
     lib = _library()
-    count = ctypes.c_longlong(0)
+    cp = cb = None
+    if params.sc_mode == 2:
+        # the B-4 pass over the pred plane (element (i, c) at c * n + i)
+        cp = _contact.make_params(n, cfg, 1, n)
+        ct = _contact.scratch(lib, n, cfg, dev)
+        ct.update(pred=work["pred"], w=w)
+        cb = _contact.buffers(ct)
+    count, ccount = ctypes.c_longlong(0), ctypes.c_longlong(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.mesh_xpbd_run(ctypes.byref(tables.params), ctypes.byref(bufs),
-                           dev.index, n_substeps, int(with_ext), tables.om,
-                           ctypes.byref(count), ctypes.c_void_p(stream))
+    rc = lib.mesh_xpbd_run(
+        ctypes.byref(params), ctypes.byref(bufs),
+        None if cp is None else ctypes.byref(cp),
+        None if cb is None else ctypes.byref(cb), dev.index, n_substeps,
+        int(with_ext), tables.om, ctypes.byref(count), ctypes.byref(ccount),
+        ctypes.c_void_p(stream))
     launches += count.value
+    _contact.launches += ccount.value
     if rc != 0:
         msg = lib.mesh_xpbd_error_string(rc).decode()
         raise RuntimeError(f"mesh kernel launch failed: {msg} ({rc})")
     out = state.replace(positions=x.t().contiguous(),
                         velocities=v.t().contiguous(), lambda_dist=lam,
                         lambda_bend=blam)
+    if params.n_tets:
+        out = out.replace(lambda_tet=work["tlam"])
     if with_ext:
         out = out.replace(ext_force=torch.zeros_like(state.ext_force))
     return out
@@ -317,15 +418,19 @@ def make_mesh_cuda_substep_runner(topo: Topology, cfg: SolverConfig,
                                   dt_sub: float, n_substeps: int,
                                   with_ext: bool = False,
                                   approx_math: bool = False,
-                                  n_bodies: int = 1, kin_colliders=None):
-    """``SimState -> SimState`` advancing ``n_substeps`` raw substeps.
+                                  n_bodies: int = 1, kin_colliders=None,
+                                  device=None):
+    """``SimState -> SimState`` advancing ``n_substeps`` raw substeps,
+    self-collision on substep i iff ``i % self_collision_every == 0``.
     ``with_ext=False``: external forces are neither applied nor cleared
     (rollout semantics); ``with_ext=True``: ``state.ext_force`` is consumed
     on the first substep and zeroed.  ``approx_math``, ``n_bodies > 1`` and
     ``kin_colliders`` are not ported and raise ``NotImplementedError`` here,
-    at build time, as do the configurations the plain engine refuses."""
+    at build time, as do the configurations the plain engine refuses and,
+    when ``device`` names a CUDA device, what a CUDA state is refused
+    (``check_cuda``; a CUDA state is checked again when it arrives)."""
     _check_supported(cfg, topo, approx_math=approx_math, n_bodies=n_bodies,
-                     kin_colliders=kin_colliders)
+                     kin_colliders=kin_colliders, device=device)
 
     def fn(state: SimState) -> SimState:
         return advance(state, topo, cfg, dt_sub, n_substeps, with_ext)
@@ -334,10 +439,49 @@ def make_mesh_cuda_substep_runner(topo: Topology, cfg: SolverConfig,
 
 
 def make_mesh_cuda_step(topo: Topology, cfg: SolverConfig, dt: float,
-                        n_steps: int = 1):
+                        n_steps: int = 1, device=None):
     """Full step semantics: ``n_steps`` frames of ``cfg.substeps`` substeps,
     ``state.ext_force`` consumed on the first substep and zeroed after
-    (drop-in for ``solvers.general.make_step``)."""
+    (drop-in for ``solvers.general.make_step``), routed as
+    ``make_mesh_pallas_step`` routes: dense self-collision runs in the
+    library's loop, its cadence gated on the raw substep index, so a
+    cadence that does not divide the frame is refused; the other backends
+    with ``self_collision_every >= 2`` go to
+    ``make_mesh_hybrid_contact_step``."""
+    if cfg.enable_self_collision and cfg.self_collision_every >= 2:
+        if cfg.self_collision_backend != "dense":
+            return make_mesh_hybrid_contact_step(topo, cfg, dt, n_steps,
+                                                 device=device)
+        if cfg.substeps % cfg.self_collision_every != 0:
+            raise NotImplementedError(
+                "fused dense contact cadence needs substeps % "
+                "self_collision_every == 0 (the engine's per-frame pattern "
+                "must equal the kernel's raw-substep gate)")
     return make_mesh_cuda_substep_runner(topo, cfg, dt / cfg.substeps,
                                          n_steps * cfg.substeps,
-                                         with_ext=True)
+                                         with_ext=True, device=device)
+
+
+def make_mesh_hybrid_contact_step(topo: Topology, cfg: SolverConfig,
+                                  dt: float, n_steps: int = 1, device=None):
+    """Contact-cadence step (``mesh_pallas.make_mesh_hybrid_contact_step``'s
+    semantics): ``n_steps`` frames in which substep i of a frame projects
+    self-collision iff ``i % self_collision_every == 0``, exactly
+    ``general.step_fn``'s cadence, and ``ext_force`` is consumed on the
+    first substep of the first step and zeroed after.  Where the JAX step
+    runs the contact substeps in its XLA engine, here every substep runs in
+    the library's loop (on the card, the B-4 pass for blocked contact);
+    since the cadence divides the frame, the raw-substep gate of that loop
+    is the per-frame pattern."""
+    every = cfg.self_collision_every
+    if not cfg.enable_self_collision or every < 2:
+        raise ValueError("mesh hybrid contact step needs "
+                         "enable_self_collision and "
+                         "self_collision_every >= 2")
+    if cfg.substeps % every != 0:
+        raise NotImplementedError(
+            "mesh hybrid contact step needs substeps % "
+            "self_collision_every == 0 (use the plain engine otherwise)")
+    return make_mesh_cuda_substep_runner(topo, cfg, dt / cfg.substeps,
+                                         n_steps * cfg.substeps,
+                                         with_ext=True, device=device)

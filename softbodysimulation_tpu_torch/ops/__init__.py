@@ -1,1 +1,1 @@
-from . import bending, collision, distance, integrate
+from . import bending, collision, distance, integrate, spatial_hash, tet_volume

@@ -1,16 +1,25 @@
-"""General-topology XPBD engine (arbitrary meshes): the plain PyTorch
-version of the CUDA mesh kernel.
+"""General-topology XPBD engine (arbitrary meshes, solids, contact): the
+plain PyTorch version of the CUDA mesh kernel.
 
 Counterpart of ``softbodysimulation_tpu/solvers/general.py``, on ``(N, 3)``
-tensors, for the distance and dihedral-bending families:
+tensors, for the distance, dihedral-bending and per-tet volume families
+with floor, sphere and self-collision contacts:
 
 * COLORED — exact parallel Gauss-Seidel: one gather -> project -> scatter
   per colour of the host-side colouring (no particle repeats within a
   colour, so the batched update equals the sequential sweep).
-* JACOBI — every constraint projected at once with the per-constraint
-  ``omega / max(degree)`` relaxation; corrections summed per particle
-  through the incidence lists (a padded gather and a row sum, no
-  scatter), optionally Chebyshev-accelerated.
+* JACOBI — every constraint projected at once; distance and bending with
+  the per-constraint ``omega / max(degree)`` relaxation, tets at full
+  strength with each particle taking the mean of its corrections (mass
+  splitting); corrections summed per particle through the incidence lists
+  (a padded gather and a row sum in column order, no scatter), optionally
+  Chebyshev-accelerated.
+
+Self-collision (``ops/spatial_hash.py``) runs first among the contacts, in
+every projection and again after the Chebyshev momentum step; the
+backends that sort along the Hilbert curve compute the order once per
+contact substep, after the WARM_START pre-apply.  ``self_collision_every``
+gates it on the substep index (``i % every == 0``).
 
 The JAX engine's ``distance_backend`` / ``bending_backend`` "windowed" and
 "auto" spell the Jacobi sweep as one-hot matrix products; their result
@@ -22,16 +31,16 @@ kernel (``kernels/mesh_cuda.py``) is held against it.  ``make_step``
 dispatches on the state's device through the kernel wrapper (a CUDA state
 launches the kernel, a CPU state runs this engine); the plain loop on any
 device is ``run_substeps_plain`` (and ``step_fn`` / ``multi_step_fn``).
-Volume, tet volume, box colliders, self-collision and kinematic
-ColliderSets raise ``NotImplementedError`` (``check_supported``,
-``check_state``).
+The global volume constraint, box colliders, the windowed tet backend
+(``tet_backend="windowed"``) and kinematic ColliderSets raise
+``NotImplementedError`` (``check_supported``, ``check_state``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,14 +51,17 @@ from ..ops import bending as _bending
 from ..ops import collision as _collision
 from ..ops import distance as _distance
 from ..ops import integrate as _integrate
+from ..ops import spatial_hash as _spatial_hash
+from ..ops import tet_volume as _tet_volume
 
 
 def check_supported(cfg: SolverConfig):
     """Refuse, at build time, what this slice of the port does not carry."""
+    windowed_tets = cfg.enable_tet_volume and cfg.tet_backend == "windowed"
     for flag, what in ((cfg.enable_volume, "the global volume constraint"),
-                       (cfg.enable_tet_volume, "per-tet volume"),
                        (cfg.box_colliders, "box SDF colliders"),
-                       (cfg.enable_self_collision, "self-collision")):
+                       (windowed_tets,
+                        "the windowed tet backend (one-hot tet windows)")):
         if flag:
             raise NotImplementedError(f"mesh port: {what} is not ported")
 
@@ -92,10 +104,14 @@ class _Tables:
     ea: torch.Tensor
     eb: torch.Tensor
     hinge: Tuple[torch.Tensor, ...]       # ia, ib, ic, id
-    incidence: torch.Tensor
-    bend_incidence: torch.Tensor
+    incidence: "Incidence"
+    bend_incidence: "Incidence"
     colors: Tuple[torch.Tensor, ...]      # valid edge ids per colour
     bend_colors: Tuple[torch.Tensor, ...]
+    tet: Tuple[torch.Tensor, ...]         # i0, i1, i2, i3 (empty: no tets)
+    tet_incidence: Optional["Incidence"]
+    tet_colors: Tuple[torch.Tensor, ...]
+    omega: torch.Tensor                   # omega (0 => 1) as float32
     edge_scale: torch.Tensor              # omega / max(deg_a, deg_b, 1)
     hinge_scale: torch.Tensor             # omega / max(bend degree, 1)
     warm_scale: torch.Tensor              # fraction / max(deg_a, deg_b, 1)
@@ -131,24 +147,71 @@ def _tables(topo: Topology, cfg: SolverConfig, device: str) -> _Tables:
 
     es, hs, ws = (torch.as_tensor(a, device=device)
                   for a in relax_scales(topo, cfg))
+    has_tets = t.n_tets > 0
     return _Tables(
         ea=edges[:, 0], eb=edges[:, 1],
         hinge=tuple(hinges[:, k] for k in range(4)),
-        incidence=t.incidence.long(), bend_incidence=t.bend_incidence.long(),
+        incidence=Incidence.of(t.incidence, 2 * t.n_edges),
+        bend_incidence=Incidence.of(t.bend_incidence, 4 * t.n_hinges),
         colors=buckets(t.col_edge_ids, t.col_valid),
         bend_colors=buckets(t.bcol_hinge_ids, t.bcol_valid),
+        tet=(tuple(t.tets.long()[:, k] for k in range(4)) if has_tets
+             else ()),
+        tet_incidence=(Incidence.of(t.tet_incidence, 4 * t.n_tets)
+                       if has_tets else None),
+        tet_colors=(buckets(t.tcol_tet_ids, t.tcol_valid) if has_tets
+                    else ()),
+        omega=torch.tensor(cfg.omega if cfg.omega > 0 else 1.0,
+                           dtype=torch.float32, device=device),
         edge_scale=es, hinge_scale=hs, warm_scale=ws, topo=t)
 
 
-def gather_sum(contrib: torch.Tensor, incidence: torch.Tensor):
+# a row with more entries than this is a hub (the centre of a tet fan)
+HUB_WIDTH = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class Incidence:
+    """A padded incidence table split for the column-order row sum: the
+    first ``narrow.shape[1]`` columns of every row (enough for every row
+    but the hubs), and the hubs' whole rows (``hub_rows``, ``hub``)."""
+
+    narrow: torch.Tensor          # (N, Dn) int64
+    hub_rows: torch.Tensor        # (R,) int64
+    hub: torch.Tensor             # (R, D) int64
+
+    @staticmethod
+    def of(incidence: torch.Tensor, pad: int) -> "Incidence":
+        """Split a table whose pad index (one past the contributions) is
+        ``pad``."""
+        inc = incidence.long()
+        counts = (inc < pad).sum(dim=1)
+        wide = counts > HUB_WIDTH
+        dn = int(counts[~wide].max()) if bool((~wide).any()) else 0
+        rows = torch.nonzero(wide).flatten()
+        return Incidence(narrow=inc[:, :max(dn, 1)], hub_rows=rows,
+                         hub=inc[rows])
+
+
+def gather_sum(contrib: torch.Tensor, incidence: Incidence):
     """Row i: the sum of ``contrib[incidence[i, k]]`` over k, in column
-    order (the pad index points one past the end, at an appended zero
-    row)."""
+    order (the pad index points one past the end, at an appended zero row)
+    -- the order of the CUDA kernel's particle passes.  A hub's row runs on
+    the host (numpy's running sum is sequential in float32), so that its
+    hundreds of columns cost one copy instead of one launch each (on the
+    card, a device sync per call)."""
     full = torch.cat([contrib, contrib.new_zeros((1, 3))])
-    g = full[incidence]                              # (N, D, 3)
-    delta = g[:, 0]
-    for k in range(1, incidence.shape[1]):
-        delta = delta + g[:, k]
+    cols = incidence.narrow
+    delta = full[cols[:, 0]]
+    for k in range(1, cols.shape[1]):
+        delta = delta + full[cols[:, k]]
+    if incidence.hub_rows.numel():
+        g = full[incidence.hub[:, cols.shape[1]:]].cpu().numpy()
+        head = delta[incidence.hub_rows].cpu().numpy()
+        run = np.add.accumulate(np.concatenate([head[:, None], g], axis=1),
+                                axis=1)[:, -1]
+        delta = delta.index_put((incidence.hub_rows,),
+                                torch.as_tensor(run, device=delta.device))
     return delta
 
 
@@ -221,6 +284,52 @@ def _solve_bending_jacobi(pred, lam, inv_mass, T: _Tables,
     return pred + gather_sum(contrib, T.bend_incidence), lam
 
 
+# ------------------------------------------------------------- tet volume
+def _tet_projection(pred, lam, inv_mass, ids, idx, T: _Tables,
+                    cfg: SolverConfig, dt):
+    topo = T.topo
+    p, w = _hinge_gather(pred, inv_mass, idx)
+    rest, comp = topo.rest_tet_volumes, topo.tet_compliance
+    if ids is not None:
+        rest, comp, lam = rest[ids], comp[ids], lam[ids]
+    dl, *grads = _tet_volume.tet_delta_lambda(*p, *w, rest, comp, lam, dt,
+                                              cfg)
+    return dl, w, grads
+
+
+def _solve_tets_colored(pred, lam, inv_mass, T: _Tables, cfg: SolverConfig,
+                        dt):
+    """Exact parallel Gauss-Seidel over the tets, one batched projection per
+    conflict-free colour."""
+    for ids in T.tet_colors:
+        idx = [i[ids] for i in T.tet]
+        dl, w, grads = _tet_projection(pred, lam, inv_mass, ids, idx, T, cfg,
+                                       dt)
+        lam = lam.index_add(0, ids, dl)
+        dlb = dl[:, None]
+        for i, wi, g in zip(idx, w, grads):
+            pred = pred.index_add(0, i, wi[:, None] * dlb * g)
+    return pred, lam
+
+
+def _solve_tets_jacobi(pred, lam, inv_mass, T: _Tables, cfg: SolverConfig,
+                       dt):
+    """Mass-splitting Jacobi over the tets: every tet projected at full
+    strength (times omega, and no 1/max-degree prescale: the hub of a
+    centroid fan touches every tet), each particle applying the mean of the
+    corrections that reach it (``general.py:403-441`` of the JAX
+    package)."""
+    dl, w, grads = _tet_projection(pred, lam, inv_mass, None, T.tet, T, cfg,
+                                   dt)
+    dl = dl * T.omega
+    lam = lam + dl
+    dlb = dl[:, None]
+    contrib = torch.cat([wi[:, None] * dlb * g for wi, g in zip(w, grads)])
+    delta = gather_sum(contrib, T.tet_incidence)
+    return pred + delta / torch.clamp(T.topo.tet_degree, min=1.0)[:, None], \
+        lam
+
+
 # ---------------------------------------------------------------- substep
 def _warm_apply_distance(pred, lam, inv_mass, T: _Tables, cfg: SolverConfig):
     """Pre-apply carried distance impulses along current edge directions,
@@ -241,19 +350,24 @@ def _warm_apply_distance(pred, lam, inv_mass, T: _Tables, cfg: SolverConfig):
     return pred + gather_sum(contrib, T.incidence), lam
 
 
-def _substep(x, v, w, f, lam_d, lam_b, T: _Tables, cfg: SolverConfig, dt,
-             apply_ext: bool):
-    """One substep on (N, 3) tensors.  Returns (x, v, lam_d, lam_b)."""
+def _substep(x, v, w, f, lam, T: _Tables, cfg: SolverConfig, dt,
+             apply_ext: bool, contact_on: bool = True):
+    """One substep on (N, 3) tensors; ``lam`` = (lambda_dist, lambda_bend,
+    lambda_tet or None).  ``contact_on=False`` leaves self-collision out of
+    this substep (the contact cadence).  Returns (x, v, lam)."""
+    lam_d, lam_b, lam_t = lam
     # lambda lifecycle: WARM_START carries only distance impulses (they are
-    # pre-applied); bending restarts fresh except in DECAY
+    # pre-applied); bending and tets restart fresh except in DECAY
     if cfg.lambda_mode == LambdaMode.RESET:
         lam_d = torch.zeros_like(lam_d)
     else:
         lam_d = lam_d * cfg.lambda_decay
     if cfg.lambda_mode == LambdaMode.DECAY:
         lam_b = lam_b * cfg.lambda_decay
+        lam_t = None if lam_t is None else lam_t * cfg.lambda_decay
     else:
         lam_b = torch.zeros_like(lam_b)
+        lam_t = None if lam_t is None else torch.zeros_like(lam_t)
 
     pred, v = _integrate.predict(x, v, w, f, dt, cfg, apply_ext=apply_ext)
     if cfg.lambda_mode == LambdaMode.WARM_START:
@@ -261,17 +375,27 @@ def _substep(x, v, w, f, lam_d, lam_b, T: _Tables, cfg: SolverConfig, dt,
 
     colored = cfg.solve_mode == SolveMode.COLORED
     has_bending = cfg.enable_bending and T.topo.n_hinges > 0
-    has_contacts = (cfg.floor_mode == FloorMode.XPBD_INEQUALITY
+    has_tets = (cfg.enable_tet_volume and T.topo.n_tets > 0
+                and lam_t is not None)
+    sc_on = cfg.enable_self_collision and contact_on
+    # the curve order is built once per substep, from the predicted (and
+    # warm-started) positions, and reused by every projection
+    sc_order = (_spatial_hash.morton_order(pred, cfg)
+                if sc_on and _spatial_hash.needs_morton_order(cfg) else None)
+    has_contacts = (sc_on or cfg.floor_mode == FloorMode.XPBD_INEQUALITY
                     or bool(cfg.sphere_colliders))
 
     def project_contacts(pred):
+        if sc_on:
+            pred = _spatial_hash.project_self_collision(pred, w, sc_order,
+                                                        cfg)
         if cfg.floor_mode == FloorMode.XPBD_INEQUALITY:
             pred = _collision.floor_project_xpbd(pred, x, w, dt, cfg)
         if cfg.sphere_colliders:
             pred = _collision.sphere_sdf_project(pred, x, w, dt, cfg)
         return pred
 
-    def project_all(pred, lam_d, lam_b):
+    def project_all(pred, lam_d, lam_b, lam_t):
         if colored:
             pred, lam_d = _solve_distance_colored(pred, lam_d, w, T, cfg, dt)
         else:
@@ -280,7 +404,10 @@ def _substep(x, v, w, f, lam_d, lam_b, T: _Tables, cfg: SolverConfig, dt,
             solve = (_solve_bending_colored if colored
                      else _solve_bending_jacobi)
             pred, lam_b = solve(pred, lam_b, w, T, cfg, dt)
-        return project_contacts(pred), lam_d, lam_b
+        if has_tets:
+            solve = _solve_tets_colored if colored else _solve_tets_jacobi
+            pred, lam_t = solve(pred, lam_t, w, T, cfg, dt)
+        return project_contacts(pred), lam_d, lam_b, lam_t
 
     if accelerated(cfg):
         # Chebyshev semi-iterative acceleration; the momentum step can
@@ -288,39 +415,46 @@ def _substep(x, v, w, f, lam_d, lam_b, T: _Tables, cfg: SolverConfig, dt,
         # once more after it
         prev = pred
         for om in chebyshev_omegas(cfg):
-            new, lam_d, lam_b = project_all(pred, lam_d, lam_b)
+            new, lam_d, lam_b, lam_t = project_all(pred, lam_d, lam_b, lam_t)
             acc = om * (cfg.jacobi_gamma * (new - pred) + pred - prev) + prev
             if has_contacts:
                 acc = project_contacts(acc)
             prev, pred = pred, acc
     else:
         for _ in range(cfg.iterations):
-            pred, lam_d, lam_b = project_all(pred, lam_d, lam_b)
+            pred, lam_d, lam_b, lam_t = project_all(pred, lam_d, lam_b, lam_t)
 
     x, v = _integrate.finalize(x, pred, w, dt)
     if cfg.floor_mode == FloorMode.VELOCITY_REFLECT:
         x, v = _collision.floor_velocity_reflect(x, v, w, dt, cfg)
-    return x, v, lam_d, lam_b
+    return x, v, (lam_d, lam_b, lam_t)
+
+
+def contact_every(cfg: SolverConfig) -> int:
+    """Substep i of a run projects self-collision iff ``i % every == 0``."""
+    return cfg.self_collision_every if cfg.enable_self_collision else 1
 
 
 def run_substeps_plain(state: SimState, topo: Topology, cfg: SolverConfig,
                        dt_sub: float, n_substeps: int,
                        with_ext: bool = False) -> SimState:
     """The plain engine's substep loop on any device: ``n_substeps`` raw
-    substeps.  ``with_ext=True`` consumes ``state.ext_force`` on the first
+    substeps, self-collision on substep i iff ``i % self_collision_every ==
+    0``.  ``with_ext=True`` consumes ``state.ext_force`` on the first
     substep and zeroes it; ``with_ext=False`` neither applies nor clears it
     (the semantics of the JAX package's fused runners)."""
     check_supported(cfg)
     check_state(state)
     T = _tables(topo, cfg, str(state.device))
-    x, v, lam_d, lam_b = (state.positions, state.velocities,
-                          state.lambda_dist, state.lambda_bend)
+    every = contact_every(cfg)
+    x, v = state.positions, state.velocities
+    lam = (state.lambda_dist, state.lambda_bend, state.lambda_tet)
     for i in range(n_substeps):
-        x, v, lam_d, lam_b = _substep(x, v, state.inv_mass, state.ext_force,
-                                      lam_d, lam_b, T, cfg, dt_sub,
-                                      with_ext and i == 0)
-    out = state.replace(positions=x, velocities=v, lambda_dist=lam_d,
-                        lambda_bend=lam_b)
+        x, v, lam = _substep(x, v, state.inv_mass, state.ext_force, lam, T,
+                             cfg, dt_sub, with_ext and i == 0,
+                             contact_on=i % every == 0)
+    out = state.replace(positions=x, velocities=v, lambda_dist=lam[0],
+                        lambda_bend=lam[1], lambda_tet=lam[2])
     if with_ext:
         out = out.replace(ext_force=torch.zeros_like(state.ext_force))
     return out
@@ -330,7 +464,9 @@ def step_fn(state: SimState, topo: Topology, cfg: SolverConfig,
             dt: float) -> SimState:
     """One physics step = ``cfg.substeps`` substeps; external forces are
     consumed on the first substep and zeroed after
-    (``SoftBodyParticleCPU.cs:25-33``).  Plain engine, on any device."""
+    (``SoftBodyParticleCPU.cs:25-33``); substep i of the frame projects
+    self-collision iff ``i % self_collision_every == 0``, the cadence of
+    the JAX ``step_fn``.  Plain engine, on any device."""
     return run_substeps_plain(state, topo, cfg, dt / cfg.substeps,
                               cfg.substeps, with_ext=True)
 

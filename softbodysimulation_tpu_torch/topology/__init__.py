@@ -1,1 +1,2 @@
-from . import build, coloring, edges, lattice, mesh, native, objloader, windows
+from . import (build, coloring, edges, lattice, mesh, native, objloader, tets,
+               windows)

@@ -126,7 +126,7 @@ def test_mesh_scenes_match_jax(scene, kw):
     from softbodysimulation_tpu.interact import forces as jforces
 
     jstate, jstep, jinfo = getattr(jscenes, scene)(**kw)
-    pstate, pstep, pinfo = getattr(pscenes, scene)(**kw)
+    pstate, pstep, pinfo = getattr(pscenes, scene)(device="cpu", **kw)
     assert pinfo["config"] == port_config(jinfo["config"])
     for k in FIELDS[:-1]:
         np.testing.assert_array_equal(getattr(pstate, k).numpy(),
@@ -148,9 +148,13 @@ def test_refused_features_raise_at_build():
     carry; a state with a ColliderSet is refused at call time."""
     _, _, ptopo, ps = jax_case("sphere")
     base = port_config(jconfig.SolverConfig(substeps=2, iterations=1))
-    for kw in (dict(enable_volume=True), dict(enable_tet_volume=True),
+    for kw in (dict(enable_volume=True),
+               dict(enable_tet_volume=True, tet_backend="windowed"),
                dict(box_colliders=((0.0, 0.3, 0.0, 0.5, 0.3, 0.5),)),
-               dict(enable_self_collision=True)):
+               # a dense contact cadence that does not divide the frame
+               dict(enable_self_collision=True,
+                    self_collision_backend="dense",
+                    self_collision_every=3)):
         with pytest.raises(NotImplementedError):
             pgeneral.make_step(ptopo, base.replace(**kw), DT)
     with pytest.raises(NotImplementedError):

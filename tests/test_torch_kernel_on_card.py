@@ -1,5 +1,5 @@
-"""The CUDA lattice and mesh kernels against their plain PyTorch versions,
-on the card.
+"""The CUDA lattice, mesh and contact kernels against their plain PyTorch
+versions, on the card.
 
 Imports torch, numpy and the port only (no jax), so it runs on a GPU host
 that has no JAX:
@@ -13,25 +13,35 @@ engine on the card: the lattice cases of ``test_torch_cases.py``
 max |dx| < 1e-5, max |dlambda| < 1e-6, as the JAX suite's kernel-vs-engine
 tests) and the mesh cases of ``test_torch_mesh_cases.py``
 (``make_mesh_cuda_step`` vs ``solvers.general.multi_step_fn``, at that
-module's gates).  Both also hold multipliers to 1 % of their largest
-magnitude.
+module's gates), and the tet and contact cases of
+``test_torch_contact_cases.py``: the B-4 pass
+(``self_collision_project_blocked_cuda`` vs the plain blocked pass, max
+|dx| < 1e-5), the library's curve order and candidate selection (equal to
+the plain ones), and the mesh kernel on the tet cases (|dx| < 2e-5,
+|dlambda_tet| < 1e-5) and the contact cases (|dx| < 2e-4).  All also hold
+multipliers to 1 % of their largest magnitude.
 """
 
 import pytest
 import torch
 
 from softbodysimulation_tpu_torch import state_from_numpy
+from softbodysimulation_tpu_torch.kernels import contact_cuda as cc
 from softbodysimulation_tpu_torch.kernels import lattice_cuda as lc
 from softbodysimulation_tpu_torch.kernels import mesh_cuda as mc
 from softbodysimulation_tpu_torch.solvers import general as pgeneral
 from softbodysimulation_tpu_torch.solvers import lattice as plat
+from softbodysimulation_tpu_torch.ops import spatial_hash as psh
 from softbodysimulation_tpu_torch.topology import lattice as ptop
 
 import test_torch_cases as lattice_cases
+import test_torch_contact_cases as contact_cases
 import test_torch_mesh_cases as mesh_cases
 
 CASES = lattice_cases.parity_cases()
 MESH_CASES = mesh_cases.mesh_cases()
+TET_CASES = contact_cases.tet_cases()
+CONTACT_CASES = contact_cases.contact_cases()
 
 
 @pytest.fixture
@@ -113,3 +123,81 @@ def test_mesh_wrapper_refuses_bad_tensors_on_card(cuda):
         run(state.replace(inv_mass=state.inv_mass.double()))
     with pytest.raises(ValueError):
         run(state.replace(lambda_dist=state.lambda_dist[:-1]))
+
+
+def _lam_gates(out, ref, gates):
+    """Each multiplier within its absolute gate and 1 % of its largest."""
+    for k, gate in gates:
+        r = getattr(ref, k)
+        if r is not None and r.numel():
+            d = float((getattr(out, k) - r).abs().max())
+            lam = float(r.abs().max())
+            assert d < gate and d <= 1e-2 * lam, (k, d, lam)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(contact_cases.CLOUDS))
+def test_b4_pass_matches_plain_on_card(cuda, name):
+    x, w = contact_cases.cloud(name)
+    cfg = contact_cases.cloud_config(name, "blocked_pallas")
+    pred = torch.as_tensor(x, device=cuda)
+    inv = torch.as_tensor(w, device=cuda)
+    order = psh.morton_order(pred, cfg)
+    assert torch.equal(cc.curve_order_cuda(pred, cfg).long(), order)
+    _, _, _, touch, d2ab, _, _, nb = psh._blocked_layout(pred, inv, order,
+                                                         cfg)
+    nbr, ok = psh.select_candidates(touch, d2ab, min(cfg.block_neighbors,
+                                                     nb))
+    knbr, kok = cc.candidates_cuda(pred, inv, order, cfg)
+    assert torch.equal(knbr.long(), nbr) and torch.equal(kok, ok)
+    before = cc.launches
+    out = cc.self_collision_project_blocked_cuda(pred, inv, order, cfg)
+    torch.cuda.synchronize()
+    assert cc.launches > before
+    ref = psh.self_collision_project_blocked(pred, inv, order, cfg)
+    assert float((out - ref).abs().max()) < contact_cases.DX_PASS
+    assert float((ref - pred).abs().max()) > 1e-4
+    flips = (cc.touching_pairs_cuda(pred, inv, order, cfg)
+             != psh.blocked_touching_pairs(pred, inv, order, cfg))
+    assert int(flips.sum()) <= 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(TET_CASES))
+def test_mesh_kernel_tets_match_plain_on_card(cuda, name):
+    cfg, kind, kw, frames = TET_CASES[name]
+    topo, fields = contact_cases.tet_inputs(kind, contact_cases.modules(),
+                                            **kw)
+    state = state_from_numpy(fields, device=cuda)
+    out = mc.make_mesh_cuda_step(topo, cfg, 1 / 60, n_steps=frames)(state)
+    ref = pgeneral.multi_step_fn(state, topo, cfg, 1 / 60, frames)
+    assert float((out.positions - ref.positions).abs().max()) < \
+        contact_cases.DX_TET
+    _lam_gates(out, ref, (("lambda_tet", contact_cases.DLAM_TET),
+                          ("lambda_dist", mesh_cases.DLAM_DIST)))
+
+
+# the blocked cases also under their other name, blocked_pallas
+CONTACT_RUNS = [(name, backend) for name, (cfg, _) in CONTACT_CASES.items()
+                for backend in ((cfg.self_collision_backend, "blocked_pallas")
+                                if cfg.self_collision_backend == "blocked"
+                                else (cfg.self_collision_backend,))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,backend", CONTACT_RUNS)
+def test_mesh_kernel_contact_matches_plain_on_card(cuda, name, backend):
+    cfg, frames = CONTACT_CASES[name]
+    cfg = cfg.replace(self_collision_backend=backend)
+    topo, fields, _ = contact_cases.contact_scene(contact_cases.modules())
+    state = state_from_numpy(fields, device=cuda)
+    before = (mc.launches, cc.launches)
+    out = mc.make_mesh_cuda_step(topo, cfg, 1 / 60, n_steps=frames)(state)
+    torch.cuda.synchronize()
+    assert mc.launches > before[0]
+    assert (cc.launches > before[1]) == (cfg.self_collision_backend != "dense")
+    ref = pgeneral.multi_step_fn(state, topo, cfg, 1 / 60, frames)
+    assert float((out.positions - ref.positions).abs().max()) < \
+        contact_cases.DX_CONTACT
+    _lam_gates(out, ref, (("lambda_tet", 1.0), ("lambda_dist", 1.0),
+                          ("lambda_bend", 1.0)))

@@ -96,7 +96,7 @@ def test_scenes_match_jax(scene, kw):
     """The two lattice scenes build the same body and config as the JAX
     package's, and their steppers agree over 3 frames."""
     jstate, jstep, jinfo = getattr(jscenes, scene)(**kw)
-    pstate, pstep, pinfo = getattr(pscenes, scene)(**kw)
+    pstate, pstep, pinfo = getattr(pscenes, scene)(device="cpu", **kw)
     assert pinfo["config"] == port_config(jinfo["config"])
     assert pinfo["spec"] == type(pinfo["spec"])(**jinfo["spec"].__dict__)
     np.testing.assert_array_equal(pstate.positions.numpy(),

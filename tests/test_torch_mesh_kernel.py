@@ -117,22 +117,26 @@ REFUSED = ["volume", "tet_volume", "box_colliders", "kin_colliders",
 
 @pytest.mark.parametrize("what", REFUSED)
 def test_unsupported_features_refused_at_build(what):
-    """B-3's features this slice does not carry raise at build time, in
-    both the kernel's runners and the plain engine's step."""
+    """B-3's features the port does not carry raise at build time, in both
+    the kernel's runners and the plain engine's step."""
     _, _, ptopo, _ = both("sphere")
     cfg = port_config(C.SolverConfig(substeps=2, iterations=1))
     kw = {}
     if what == "volume":
         cfg = cfg.replace(enable_volume=True)
     elif what == "tet_volume":
-        cfg = cfg.replace(enable_tet_volume=True)
+        # tets run; their windowed (one-hot) backend is not ported
+        cfg = cfg.replace(enable_tet_volume=True, tet_backend="windowed")
     elif what == "box_colliders":
         cfg = cfg.replace(box_colliders=((0.0, 0.3, 0.0, 0.5, 0.3, 0.5),))
     elif what == "kin_colliders":
         kw = dict(kin_colliders=(1, 0))
     elif what == "self_collision":
+        # self-collision runs; the hash backend only in the plain engine,
+        # so a runner built for the card refuses it
         cfg = cfg.replace(enable_self_collision=True,
-                          self_collision_backend="dense")
+                          self_collision_backend="hash")
+        kw = dict(device="cuda")
     elif what == "ensembles":
         kw = dict(n_bodies=2)
     elif what == "approx_math":
@@ -192,7 +196,13 @@ def test_structs_mirror_the_cuda_source():
     p = mc.make_params(ptopo, cfg, dt)
     assert (p.n, p.n_edges, p.n_hinges) == (162, 480, 0)
     assert p.colored == 0 and p.lambda_mode == 1 and p.accelerate == 1
-    assert p.inc_width == ptopo.incidence.shape[1]
+    # the incidence rows go to the card as CSR: pads dropped, order kept
+    ptr, cols = mc.incidence_csr(ptopo.incidence, 2 * ptopo.n_edges)
+    inc = ptopo.incidence.numpy()
+    assert ptr[-1] == len(cols) == 2 * ptopo.n_edges
+    for i in (0, 5, 161):
+        np.testing.assert_array_equal(cols[ptr[i]:ptr[i + 1]],
+                                      inc[i][inc[i] < 2 * ptopo.n_edges])
     assert p.damp_factor == np.float32(1.0) - np.float32(0.02)
     assert p.friction_dt == np.float32(dt) * np.float32(0.3)
     consts = mc.constraint_constants(ptopo, cfg, dt)

@@ -26,6 +26,7 @@ from softbodysimulation_tpu_torch.topology import coloring as pcoloring
 from softbodysimulation_tpu_torch.topology import edges as pedges
 from softbodysimulation_tpu_torch.topology import mesh as pmesh
 from softbodysimulation_tpu_torch.topology import native as pnative
+from softbodysimulation_tpu_torch.topology import tets as ptets
 from softbodysimulation_tpu_torch.topology import windows as pwindows
 
 import test_torch_mesh_cases as mesh_cases
@@ -159,11 +160,16 @@ def test_topology_numpy_round_trip_and_to():
 
 
 def test_tets_and_bad_topologies_are_refused():
+    """An inverted tet (non-positive rest volume) and a degenerate edge are
+    refused, as the JAX builders refuse them."""
     m = pmesh.icosphere(1)
     e = pedges.unique_edges(m.triangles)
-    with pytest.raises(NotImplementedError):
-        pbuild.build_topology(m.vertices, e, 1e-3,
-                              tets=np.array([[0, 1, 2, 3]]))
+    verts = np.concatenate([m.vertices, m.vertices.mean(0, keepdims=True)])
+    tet = ptets.fix_orientation(verts, [[len(m.vertices), *m.triangles[0]]])
+    inverted = tet[:, [0, 1, 3, 2]]
+    for b in (jbuild, pbuild):
+        with pytest.raises(ValueError, match="non-positive rest tet"):
+            b.build_topology(verts, e, 1e-3, tets=inverted)
     bad = pbuild.build_topology(m.vertices, e, 1e-3)
     bad = bad.replace(edges=bad.edges.clone())
     bad.edges[0, 1] = bad.edges[0, 0]
