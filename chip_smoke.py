@@ -3,14 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's lattice and mesh main paths through the entry points a
-user calls and fails (nonzero exit) if any phase fails:
+Drives the port's lattice, mesh, contact and differentiable main paths
+through the entry points a user calls and fails (nonzero exit) if any
+phase fails:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch / CUDA
    versions;
 2. the CUDA lattice kernel built from ``softbodysimulation_tpu_torch/csrc``
-   with ``nvcc`` (sm_90a), and the build time (both kernels' ``nvcc`` runs
-   are started together);
+   with ``nvcc`` (sm_90a), and the build time (the three libraries' ``nvcc``
+   runs are started together);
 3. kernel vs its plain PyTorch version on the card, at res 6 over 12-18
    substeps, for each configuration the CPU tests hold against the JAX
    package (``tests/test_torch_cases.py``): max |dx| < 1e-5,
@@ -77,8 +78,8 @@ user calls and fails (nonzero exit) if any phase fails:
    in-contact state, and 30 more frames of the kernel path into
    contact-rich rest (health, 0 dropped pairs), where the B-4 pass is
    timed against its bound (operations counted from this state's
-   candidate and touching pairs) and the plain engine's host-side hub
-   sums are timed;
+   candidate and touching pairs) and the plain engine's hub sums (on the
+   device, one scan each) are timed;
 15. the catalogued ``ball_on_cloth`` (619 particles, dense contact every
    substep) through ``make_mesh_cuda_step`` for 120 frames: the ball rests
    on the cloth (ball > 0.55, cloth centre < 0.99, rim within 1e-4 of 1),
@@ -86,7 +87,38 @@ user calls and fails (nonzero exit) if any phase fails:
 16. particle-substeps/s of the kernel path and of the plain engine for
    phases 14 and 15, from their in-contact states (frame 90 of phase 14,
    frame 120 of phase 15), as phase 6 times them, and launches per
-   substep.
+   substep;
+17. the fused mesh backward's kernels (``csrc/mesh_diff_xpbd.cu``, TPU
+   kernel B-5, built into the mesh library in phase 2), registers and
+   spills;
+18. B-5 (``backward_chunk_cuda``) vs its plain version
+   (``backward_chunk_plain``) on the card for every case of
+   ``tests/test_torch_diff_cases.py``: max |dg| / max |g| < 1e-5 for each
+   of gx, gv, glambda, g_rest, g_comp; both vs autograd through the plain
+   engine < 1e-4 (the JAX suite's gradient gate); the mesh kernel's traced
+   materials equal to its static path bit for bit;
+19. the differentiable main path at full width, the scene and config of
+   ``scripts/bench_diff.py`` (``icosphere(4, 0.5)``, 2,562 particles,
+   7,680 edges, lifted by 1.0, compliance 1e-6, JACOBI with Chebyshev,
+   4 iterations, RESET, floor, dt_sub 1/240): the gradient of
+   sum(positions^2) w.r.t. a launch velocity through
+   ``make_differentiable_mesh_runner`` at 40 substeps with
+   ``backward="fused"`` (the launch counts read around it) and ``"xla"``
+   (autograd through the plain engine): finite, non-trivial, within 1e-4;
+   the same at 240 substeps (printed), the 240-substep fused gradient in
+   40-substep chunks against one chunk; B-5 vs plain at the 40- and
+   240-substep shapes (< 1e-5); at 240 substeps a float64 witness on the
+   CPU (``--f64-witness``, a process of its own started with the smoke),
+   autograd through the plain engine against ``backward_chunk_plain``
+   (< 1e-9), and both float32 gradients against it (printed); 30 fit
+   steps; the materials gradient, fused vs xla;
+   ``config10`` at its own sizes and ``config6`` cut to 20 frames and 2
+   gradient steps (their losses shrink);
+20. particle-substeps/s of ``grad_fused`` / ``grad_xla``, the 240-substep
+   pair, ``grad_materials_{fused,xla}`` and ``fitloop30_fused``, timed as
+   phase 6 times (CUDA events, windows of at least a second, in turns),
+   the launches per backward substep, and B-5's bound at the 40-substep
+   shapes (``diff_work``).
 
 Prints one JSON line of kernels (with each kernel's bound, the least time
 the card could take for the same work, from ``bound_ms``), the card's name
@@ -146,10 +178,11 @@ def compare(torch, name, out, ref, start, dt_sub, n_sub, is_finite):
     return d["positions"]
 
 
-def cuda_ms(torch, fn, reps):
+def cuda_ms(torch, fn, reps, warm=True):
     """Milliseconds per call of ``fn`` on the card (CUDA events, one warm-up
-    call first)."""
-    fn()
+    call first unless ``warm`` is false)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -204,11 +237,18 @@ def timed_build(build, name, sources, extra=()):
     return path, log, time.perf_counter() - t0
 
 
-def print_build(built):
+def print_build(built, kernels=None):
+    """The build's time and its ``-Xptxas -v`` register and spill lines;
+    with ``kernels``, only those of entry functions whose names hold one
+    of them."""
     path, log, secs = built
     print(f"# build: {os.path.relpath(path, HERE)} in {secs:.2f} s")
+    keep = kernels is None
     for ln in log.splitlines():
-        if "registers" in ln or "spill" in ln or "Compiling" in ln:
+        if "Compiling entry function" in ln and kernels is not None:
+            name = ln.split("'")[1] if "'" in ln else ln
+            keep = any(f"{len(k)}{k}" in name for k in kernels)
+        if keep and ("registers" in ln or "spill" in ln or "Compiling" in ln):
             print(f"#   {ln.strip()}")
 
 
@@ -255,20 +295,22 @@ def mesh_compare(torch, name, out, ref, start, topo, cfg, n_sub, gates,
     return dx
 
 
-def timed_windows(torch, runs, min_s=1.0):
+def timed_windows(torch, runs, min_s=1.0, warm=True):
     """ms per substep of each named runner, two CUDA-event windows of at
     least ``min_s`` each, taken in turns (a, b, b, a).  ``runs`` maps a name
     to (fn, substeps per call); each window's call count comes from a
-    timed trial call."""
+    timed trial call, after a warm-up call unless ``warm`` is false (every
+    runner has run before)."""
     reps = {}
     for key, (fn, _) in runs.items():
-        t = cuda_ms(torch, fn, 1)
+        t = cuda_ms(torch, fn, 1, warm)
         reps[key] = max(1, math.ceil(1.2 * min_s * 1e3 / t))
     times = {key: [] for key in runs}
     a, b = list(runs)
     for key in (a, b, b, a):
         fn, per_call = runs[key]
-        times[key].append(cuda_ms(torch, fn, reps[key]) / per_call)
+        times[key].append(cuda_ms(torch, fn, reps[key], warm=False)
+                          / per_call)
     return times, reps
 
 
@@ -321,6 +363,421 @@ def mesh_work(topo, cfg):
               + (4 * (n + 1 + 4 * t) + 4 * n if t else 0))
     ops = cfg.iterations * (30 * e + 150 * h + 120 * t + 10 * n)
     return nbytes, ops
+
+
+DIFF_DT = 1.0 / 240.0
+GRAD_SUBSTEPS = 40
+LONG_GRAD_SUBSTEPS = 240
+FITLOOP_STEPS = 30
+# config6 cut to 20 of its 60 frames and 2 gradient steps: its backward is
+# autograd through the plain stencil engine, about 8 s a step at 60 frames
+CONFIG6_FRAMES = 20
+CONFIG6_ITERS = 2
+# the kernels of csrc/mesh_diff_xpbd.cu (the mesh library's build log
+# names them in mangled form)
+B5_KERNELS = ("stash_sub_kernel", "stash_kernel", "new_kernel",
+              "fin_bwd_kernel", "iter_bwd_kernel", "edge_bwd_kernel",
+              "sum_bwd_kernel", "predict_bwd_kernel")
+# float32 operations of a B-5 chunk at the bench_diff configuration
+# (JACOBI + Chebyshev, RESET, the XPBD floor; no clamps, spheres, world
+# bounds or materials), counted from the kernel bodies in
+# csrc/mesh_diff_xpbd.cu and mesh_xpbd.cu{,h}: each add, subtract,
+# multiply, divide, square root, min / max and comparison of a value (a
+# negation or absolute value is an operand modifier and counts nothing;
+# loop-invariant scalars once per thread).  Per edge per iteration: the
+# replay's edge_kernel 34, the cotangent's edge_bwd_kernel 67, and the
+# three row sums (particle_kernel, new_kernel, sum_bwd_kernel) 3 adds per
+# coordinate at each of the edge's 2 endpoints, 18.  Per particle per
+# iteration: new_kernel 3; particle_kernel 37 (the sum 3, the floor twice
+# at 8, the Chebyshev step 18); iter_bwd_kernel 58 (the replayed floor 8
+# and Chebyshev step 18, two floor VJPs at 5, the mix 16, the two anchor
+# cotangents 6); sum_bwd_kernel 6.  Per particle per substep:
+# predict_kernel 24, finalize 7, fin_bwd_kernel 7, sum_bwd_kernel's prev
+# term 3, predict_bwd_kernel 33.  Not counted: the floor's friction and
+# normal-row work on a particle in contact (up to 50 a particle-iteration),
+# which the 40-substep chunk of the bound does not meet (phase 19 prints
+# its lowest point, above the floor).
+B5_EDGE_ITER_OPS = 34 + 67 + 18
+B5_PARTICLE_ITER_OPS = 3 + 37 + 58 + 6
+B5_PARTICLE_SUB_OPS = 24 + 7 + 7 + 3 + 33
+
+
+def diff_work(topo, cfg, n_substeps):
+    """(bytes, operations) of one B-5 chunk of ``n_substeps``.  Bytes: the
+    inputs read once (the edges and three per-edge constants, the CSR rows,
+    x, v, inverse masses and multipliers, the output cotangents) and the
+    entry cotangents written once; the stash is the kernel's intermediate,
+    not an input or an output, and is not counted.  Operations: the counts
+    above."""
+    n, e, k = topo.n_particles, topo.n_edges, cfg.iterations
+    nbytes = (e * (8 + 12) + 4 * (n + 1 + 2 * e)    # edges, rest/alpha/relax
+              + n * (12 + 12 + 4) + 4 * e          # x, v, w, lambda
+              + 2 * (n * 24 + 4 * e))              # cotangents in and out
+    ops = n_substeps * (k * (B5_EDGE_ITER_OPS * e + B5_PARTICLE_ITER_OPS * n)
+                        + B5_PARTICLE_SUB_OPS * n)
+    return nbytes, ops
+
+
+# gate of the float64 witness: autograd through the plain engine against
+# backward_chunk_plain, the same derivative, parted by float64 rounding
+F64_TOL = 1e-9
+
+
+def diff_scene(torch, device):
+    """The scene and config of ``scripts/bench_diff.py`` (its fallback
+    mesh): (topology, config, the state on ``device``, the launch
+    velocity)."""
+    import numpy as np
+    from softbodysimulation_tpu_torch import state_from_topology
+    from softbodysimulation_tpu_torch.core import config as C
+    from softbodysimulation_tpu_torch.topology import build, mesh
+
+    pos, topo = build.topology_from_mesh(mesh.icosphere(4, radius=0.5),
+                                         compliance=1e-6, windowed=True)
+    pos = pos + np.array([0.0, 1.0, 0.0], np.float32)
+    cfg = C.SolverConfig(substeps=4, iterations=4, damping=0.02,
+                         solve_mode=C.SolveMode.JACOBI,
+                         gravity_is_acceleration=True, ground_height=0.0,
+                         friction=0.3)
+    return (topo, cfg, state_from_topology(topo, pos, device=device),
+            torch.tensor([0.1, 0.0, 0.0], device=device))
+
+
+def f64_witness() -> int:
+    """``--f64-witness``: the gradient of sum(x^2) w.r.t. the launch
+    velocity over LONG_GRAD_SUBSTEPS of the bench_diff scene, in float64 on
+    the CPU, twice (autograd through the plain engine, and
+    ``backward_chunk_plain``), printed as one JSON line.  The smoke runs it
+    in a process of its own while the card works (``f64_witness_check``
+    reads it)."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from softbodysimulation_tpu_torch.kernels import mesh_diff as md
+    from softbodysimulation_tpu_torch.solvers import general
+
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    topo, cfg, st, v0 = diff_scene(torch, "cpu")
+    st = st.replace(**{k: getattr(st, k).double() for k in (
+        "positions", "velocities", "inv_mass", "ext_force", "lambda_dist",
+        "lambda_bend", "lambda_volume")})
+    ns, n, v0 = LONG_GRAD_SUBSTEPS, topo.n_particles, v0.double()
+    v = v0.clone().requires_grad_()
+    out = general.run_substeps_plain(st.replace(velocities=v.expand(n, 3)),
+                                     topo, cfg, DIFF_DT, ns)
+    loss = (out.positions ** 2).sum()
+    (g_auto,) = torch.autograd.grad(loss, v)
+    end = out.positions.detach()
+    _, gv, _ = md.backward_chunk_plain(
+        topo, cfg, DIFF_DT, ns, st.inv_mass, st.positions,
+        v0.expand(n, 3).contiguous(), st.lambda_dist, 2.0 * end,
+        torch.zeros_like(end), torch.zeros_like(st.lambda_dist))
+    print(json.dumps({"loss": float(loss.detach()),
+                      "autograd": g_auto.tolist(),
+                      "plain": gv.sum(0).tolist(),
+                      "seconds": time.perf_counter() - t0}))
+    return 0
+
+
+def f64_witness_check(torch, proc, grads32):
+    """Read the witness process's line; raise unless its two float64
+    gradients agree to F64_TOL; print each float32 gradient of ``grads32``
+    against it."""
+    out, _ = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the float64 witness failed ({proc.returncode})")
+    w = json.loads(out.strip().splitlines()[-1])
+    g_auto, g_plain = (torch.tensor(w[k], dtype=torch.float64)
+                       for k in ("autograd", "plain"))
+    scale = float(g_auto.abs().max())
+    rel = float((g_plain - g_auto).abs().max()) / scale
+    print(f"# float64 witness, {LONG_GRAD_SUBSTEPS} substeps on the CPU "
+          f"({w['seconds']:.1f} s, beside the card's phases): loss "
+          f"{w['loss']:.9f}; grad autograd {g_auto.numpy()} "
+          f"backward_chunk_plain {g_plain.numpy()}, max|dg|/max|g| = "
+          f"{rel:.3e} (gate {F64_TOL})")
+    for key, g in grads32.items():
+        d = float((g.cpu().double() - g_auto).abs().max()) / scale
+        print(f"# float32 {key} gradient vs the float64 witness: "
+              f"max|dg|/max|g| = {d:.3e}")
+    if not (rel < F64_TOL and scale > 1e-3):
+        raise RuntimeError(f"the float64 VJP disagrees with autograd: {rel}")
+
+
+def timed_alone(torch, fn, per_call, min_s=1.0):
+    """ms per substep of one runner, two CUDA-event windows of at least
+    ``min_s`` each."""
+    t = cuda_ms(torch, fn, 1)
+    reps = max(1, math.ceil(1.2 * min_s * 1e3 / t))
+    return [cuda_ms(torch, fn, reps, warm=False) / per_call
+            for _ in range(2)], reps
+
+
+def diff_phases(torch, built, smi, witness):
+    """Phases 17-20, the differentiable path (``witness``: the float64
+    witness's process).  Returns the B-5 kernel's JSON numbers and the
+    gradient to profile."""
+    import test_torch_diff_cases as D
+    from softbodysimulation_tpu_torch.examples import config6_diffsim
+    from softbodysimulation_tpu_torch.examples import config10_material_fit
+    from softbodysimulation_tpu_torch.kernels import diff as kd
+    from softbodysimulation_tpu_torch.kernels import mesh_cuda as mc
+    from softbodysimulation_tpu_torch.kernels import mesh_diff as md
+    from softbodysimulation_tpu_torch.solvers import general
+
+    # 17. B-5's kernels, built into the mesh library in phase 2
+    print("# B-5: csrc/mesh_diff_xpbd.cu, built into the mesh library")
+    print_build(built, B5_KERNELS)
+
+    def errs(got, ref):
+        return D.normalized_errors({k: v.cpu() for k, v in got.items()},
+                                   {k: v.cpu() for k, v in ref.items()})
+
+    def abs_err(got, ref):
+        return max(float((got[k] - ref[k]).abs().max()) for k in ref)
+
+    # 18. B-5 vs plain (and both vs autograd) for every diff case
+    t0 = time.perf_counter()
+    b5_err = 0.0
+    for name, (cfg, n_sub, _, kw) in D.diff_cases().items():
+        topo, fields = D.case_inputs(kw)
+        st, cot, mats = D.port_inputs(fields, "cuda")
+        got = D.chunk_vjp(md.backward_chunk_cuda, topo, cfg, n_sub, st, cot,
+                          mats)
+        plain = D.chunk_vjp(md.backward_chunk_plain, topo, cfg, n_sub, st,
+                            cot, mats)
+        auto = D.autograd_vjp(topo, cfg, n_sub, st, cot, mats)
+        e_plain, e_kauto, e_pauto = (errs(got, plain), errs(got, auto),
+                                     errs(plain, auto))
+        b5_err = max(b5_err, abs_err(got, plain))
+        print(f"# B-5 case {name} ({n_sub} substeps): kernel vs plain "
+              + " ".join(f"{k}={v:.2e}" for k, v in e_plain.items())
+              + f"; vs autograd kernel {max(e_kauto.values()):.2e} plain "
+              f"{max(e_pauto.values()):.2e}; max|gx|="
+              f"{float(auto['gx'].abs().max()):.3e}")
+        if not (max(e_plain.values()) < D.KERNEL_TOL
+                and max(e_kauto.values()) < D.GRAD_TOL
+                and max(e_pauto.values()) < D.GRAD_TOL
+                and float(auto["gx"].abs().max()) > 1e-3):
+            raise RuntimeError(f"B-5 disagrees on {name}")
+    cfg, n_sub, _, kw = D.diff_cases()["clamps"]
+    cfg = cfg.replace(min_alpha_tilde=0.0576, max_dlambda_rel=0.05)
+    topo, fields = D.case_inputs(kw)
+    st, _, _ = D.port_inputs(fields, "cuda")
+    run = mc.make_mesh_cuda_substep_runner(topo, cfg, D.DT, n_sub)
+    static = run(st)
+    traced = run(st, {"rest_lengths": topo.rest_lengths.cuda(),
+                      "compliance": topo.compliance.cuda()})
+    same = (torch.equal(static.positions, traced.positions)
+            and torch.equal(static.lambda_dist, traced.lambda_dist))
+    print(f"# traced materials vs the static path (min_alpha_tilde, "
+          f"max_dlambda_rel, DECAY): bit for bit={same}")
+    if not same:
+        raise RuntimeError("traced materials differ from the static path")
+
+    print(f"# time: phase 18 took {time.perf_counter() - t0:.1f} s")
+
+    # 19. the differentiable main path at full width
+    t0 = time.perf_counter()
+    topo, cfg, st, v0 = diff_scene(torch, "cuda")
+    n = topo.n_particles
+    print(f"# diff main path: icosphere(4) {n} particles, {topo.n_edges} "
+          f"edges, JACOBI x {cfg.iterations} (Chebyshev rho "
+          f"{cfg.jacobi_rho}), RESET, floor; stash of a "
+          f"{GRAD_SUBSTEPS}-substep chunk "
+          f"{md.stash_bytes(topo, cfg, GRAD_SUBSTEPS) / 1e9:.4f} GB, of "
+          f"{LONG_GRAD_SUBSTEPS} {md.stash_bytes(topo, cfg, LONG_GRAD_SUBSTEPS) / 1e9:.4f} GB")
+
+    def vel_grad(run):
+        def f(v=None):
+            v = (v0 if v is None else v).clone().requires_grad_()
+            out = run(st.replace(velocities=v.expand(n, 3)))
+            loss = (out.positions ** 2).sum()
+            (g,) = torch.autograd.grad(loss, v)
+            return loss.detach(), g
+        return f
+
+    runners = {(bk, ns): kd.make_differentiable_mesh_runner(
+        topo, cfg, DIFF_DT, ns, backward=bk)
+        for bk in ("fused", "xla") for ns in (GRAD_SUBSTEPS,
+                                              LONG_GRAD_SUBSTEPS)}
+    vel_grad(runners["fused", GRAD_SUBSTEPS])()      # warm: builds, tables
+    torch.cuda.synchronize()
+    mc.launches = md.launches = 0
+    val_f, g_f = vel_grad(runners["fused", GRAD_SUBSTEPS])()
+    torch.cuda.synchronize()
+    main_b5, main_fwd = md.launches, mc.launches
+    val_x, g_x = vel_grad(runners["xla", GRAD_SUBSTEPS])()
+    rel = float((g_f - g_x).abs().max() / g_x.abs().max())
+    print(f"# diff main path, {GRAD_SUBSTEPS} substeps: loss fused "
+          f"{float(val_f):.6f} xla {float(val_x):.6f}; grad fused "
+          f"{g_f.cpu().numpy()} xla {g_x.cpu().numpy()}, max|dg|/max|g| = "
+          f"{rel:.3e}; launches: {main_fwd} forward (mesh_xpbd) + {main_b5} "
+          f"backward (mesh_diff_xpbd) = {main_b5 / GRAD_SUBSTEPS:.2f} B-5 "
+          f"launches per backward substep")
+    if not (bool(torch.isfinite(g_f).all()) and rel < D.GRAD_TOL
+            and float(g_x.abs().max()) > 1e-3 and main_b5 > 0
+            and main_fwd > 0):
+        raise RuntimeError(f"fused and xla gradients disagree: {rel}")
+    # the longer horizon, through the body's landing and slide: both
+    # backwards linearize at the same trajectory (the forward is bit for bit
+    # the plain engine's); the fused backward in 40-substep chunks
+    # (boundaries recomputed by the forward kernel) must equal it in one
+    # chunk, and B-5 its plain version, below; the float64 witness then
+    # says how far each float32 gradient is from the exact one
+    ns = LONG_GRAD_SUBSTEPS
+    val_fl, g_fl = vel_grad(runners["fused", ns])()
+    val_xl, g_xl = vel_grad(runners["xla", ns])()
+    rel_l = float((g_fl - g_xl).abs().max() / g_xl.abs().max())
+    print(f"# diff main path, {ns} substeps: loss fused "
+          f"{float(val_fl):.6f} xla {float(val_xl):.6f}; grad fused "
+          f"{g_fl.cpu().numpy()} xla {g_xl.cpu().numpy()}, "
+          f"max|dg|/max|g| = {rel_l:.3e}")
+    if not bool(torch.isfinite(g_fl).all() and torch.isfinite(g_xl).all()):
+        raise RuntimeError(f"non-finite {ns}-substep gradients")
+    _, g_ch = vel_grad(kd.make_differentiable_mesh_runner(
+        topo, cfg, DIFF_DT, LONG_GRAD_SUBSTEPS, remat_chunk=GRAD_SUBSTEPS,
+        backward="fused"))()
+    print(f"# fused backward at {LONG_GRAD_SUBSTEPS} substeps in "
+          f"{GRAD_SUBSTEPS}-substep chunks vs one chunk: bit for bit="
+          f"{torch.equal(g_ch, g_fl)}, max|dg|/max|g| = "
+          f"{float((g_ch - g_fl).abs().max() / g_fl.abs().max()):.3e}")
+    if not float((g_ch - g_fl).abs().max() / g_fl.abs().max()) \
+            < D.KERNEL_TOL:
+        raise RuntimeError("the chunked fused backward disagrees")
+    # the kernel and its plain version at the main path's shapes: one
+    # chunk of 40 and of 240 substeps, the loss's own cotangent at the
+    # output
+    start = st.replace(velocities=v0.expand(n, 3).contiguous())
+    chunk_args = {}
+    for ns in (GRAD_SUBSTEPS, LONG_GRAD_SUBSTEPS):
+        out = runners["fused", ns](start)
+        ref_out = general.run_substeps_plain(start, topo, cfg, DIFF_DT, ns)
+        fwd_same = torch.equal(out.positions, ref_out.positions)
+        cot = (2.0 * out.positions, torch.zeros_like(out.velocities),
+               torch.zeros_like(out.lambda_dist))
+        args = chunk_args[ns] = (topo, cfg, DIFF_DT, ns, start.inv_mass,
+                                 start.positions, start.velocities,
+                                 start.lambda_dist, *cot)
+        k_out = dict(zip(D.GRAD_KEYS, md.backward_chunk_cuda(*args)))
+        p_out = dict(zip(D.GRAD_KEYS, md.backward_chunk_plain(*args)))
+        e_main = errs(k_out, p_out)
+        b5_err = max(b5_err, abs_err(k_out, p_out))
+        low = float(out.positions[:, 1].min())
+        print(f"# B-5 vs plain at the main path's shapes ({ns}-substep "
+              f"chunk): " + " ".join(f"{k}={v:.2e}"
+                                     for k, v in e_main.items())
+              + f" (normalized), max |dg| {abs_err(k_out, p_out):.3e}; the "
+              f"kernel forward bit for bit with the plain engine={fwd_same}"
+              f"; lowest point at the end {low:.6f} (floor "
+              f"{cfg.ground_height})")
+        if not (max(e_main.values()) < D.KERNEL_TOL and fwd_same):
+            raise RuntimeError(f"B-5 disagrees with plain at the main path "
+                               f"({ns} substeps)")
+    f64_witness_check(torch, witness, {"fused": g_fl, "xla": g_xl})
+    args = chunk_args[GRAD_SUBSTEPS]
+    reps = 5
+    ms_b5 = cuda_ms(torch, lambda: md.backward_chunk_cuda(*args), reps)
+    ms_b5_plain = cuda_ms(torch, lambda: md.backward_chunk_plain(*args), 1,
+                          warm=False)
+
+    def fitloop(run):
+        v, first, last = v0, None, None
+        for _ in range(FITLOOP_STEPS):
+            last, g = vel_grad(run)(v)
+            first = last if first is None else first
+            v = v - 1e-6 * g
+        return float(first), float(last), v
+
+    l_first, l_last, v_fit = fitloop(runners["fused", GRAD_SUBSTEPS])
+    print(f"# fitloop{FITLOOP_STEPS} (fused, lr 1e-6): loss {l_first:.6f} -> "
+          f"{l_last:.6f}, v {v_fit.cpu().numpy()}")
+    if not (math.isfinite(l_last) and l_last <= l_first):
+        raise RuntimeError("the fit loop did not descend")
+    mats0 = {"rest_lengths": topo.rest_lengths.cuda(),
+             "compliance": topo.compliance.cuda()}
+    mat_runs = {bk: kd.make_differentiable_material_runner(
+        topo, cfg, DIFF_DT, GRAD_SUBSTEPS, backward=bk)
+        for bk in ("fused", "xla")}
+
+    def mat_grad(run):
+        def f():
+            m = {k: v.clone().requires_grad_() for k, v in mats0.items()}
+            loss = (run(st, m).positions ** 2).sum()
+            return torch.autograd.grad(loss, [m["rest_lengths"],
+                                              m["compliance"]])
+        return f
+
+    gm_f, gm_x = mat_grad(mat_runs["fused"])(), mat_grad(mat_runs["xla"])()
+    e_mat = [float((a - b).abs().max() / b.abs().max())
+             for a, b in zip(gm_f, gm_x)]
+    print(f"# materials gradient, {GRAD_SUBSTEPS} substeps, fused vs xla: "
+          f"rest {e_mat[0]:.3e} compliance {e_mat[1]:.3e} (max|g_rest|="
+          f"{float(gm_x[0].abs().max()):.3e}, max|g_comp|="
+          f"{float(gm_x[1].abs().max()):.3e})")
+    if not (max(e_mat) < D.GRAD_TOL
+            and float(gm_x[0].abs().max()) > 1e-3):
+        raise RuntimeError(f"materials gradients disagree: {e_mat}")
+    l0, l1, err0, err1 = config10_material_fit.run(device="cuda",
+                                                   verbose=False)
+    print(f"# config10 (fused backward): trajectory loss {l0:.3e} -> "
+          f"{l1:.3e}, mean |rest error| {err0:.4f} -> {err1:.4f}")
+    if not (l1 < l0 and err1 < err0):
+        raise RuntimeError("config10's fit did not shrink its losses")
+    t6 = time.perf_counter()
+    _, hist = config6_diffsim.run(steps=CONFIG6_FRAMES, device="cuda",
+                                  verbose=False, opt_iters=CONFIG6_ITERS)
+    print(f"# config6 (paired lattice runner, {CONFIG6_FRAMES} frames, "
+          f"{CONFIG6_ITERS} steps): loss "
+          f"{hist[0]:.4f} -> {hist[-1]:.6f} ({time.perf_counter() - t6:.1f} "
+          f"s)")
+    if not hist[-1] < hist[0]:
+        raise RuntimeError("config6's loss did not drop")
+
+    print(f"# time: phase 19 took {time.perf_counter() - t0:.1f} s")
+
+    # 20. throughput of the differentiable path, in turns (every runner
+    # ran in phase 19)
+    rows = {}
+    for a, b, ns in (("grad_fused", "grad_xla", GRAD_SUBSTEPS),
+                     ("grad_fused_long", "grad_xla_long",
+                      LONG_GRAD_SUBSTEPS)):
+        times, reps = timed_windows(torch, {
+            a: (vel_grad(runners["fused", ns]), ns),
+            b: (vel_grad(runners["xla", ns]), ns)}, warm=False)
+        rows.update({k: (times[k], reps[k] * ns) for k in (a, b)})
+    times, reps = timed_windows(torch, {
+        "grad_materials_fused": (mat_grad(mat_runs["fused"]),
+                                 GRAD_SUBSTEPS),
+        "grad_materials_xla": (mat_grad(mat_runs["xla"]), GRAD_SUBSTEPS)},
+        warm=False)
+    rows.update({k: (t, reps[k] * GRAD_SUBSTEPS) for k, t in times.items()})
+    per = GRAD_SUBSTEPS * FITLOOP_STEPS
+    t_fit, reps = timed_alone(torch, lambda: fitloop(
+        runners["fused", GRAD_SUBSTEPS]), per)
+    rows[f"fitloop{FITLOOP_STEPS}_fused"] = (t_fit, reps * per)
+    for key, (t, subs) in rows.items():
+        print(f"# throughput {key} ({smi}): best {min(t):.5f} ms/substep = "
+              f"{n / min(t) * 1e3:.4e} particle-substeps/s over {subs} "
+              f"substeps a window (windows in turn order: {t})")
+    work = diff_work(topo, cfg, GRAD_SUBSTEPS)
+    bnd = bound_ms(*work)
+    print(f"# B-5 chunk of {GRAD_SUBSTEPS} substeps ({smi}): kernel "
+          f"{ms_b5:.4f} ms, plain {ms_b5_plain:.4f} ms; bound {bnd[0]:.5f} "
+          f"ms ({bnd[1]}: {work[0]} bytes of inputs and outputs, "
+          f"{work[1]} operations: {B5_EDGE_ITER_OPS} per edge and "
+          f"{B5_PARTICLE_ITER_OPS} per particle per iteration, "
+          f"{B5_PARTICLE_SUB_OPS} per particle per substep), "
+          f"{ms_b5 / bnd[0]:.0f}x the bound; stash "
+          f"{md.stash_bytes(topo, cfg, GRAD_SUBSTEPS)} bytes (an "
+          f"intermediate, not in the bound); "
+          f"{main_b5 / GRAD_SUBSTEPS:.2f} launches per backward substep")
+    # --profile: one 40-substep gradient through the fused backward
+    grad_fused = vel_grad(runners["fused", GRAD_SUBSTEPS])
+    return dict(launches=main_b5, max_abs_err=b5_err, ms=ms_b5,
+                plain_ms=ms_b5_plain, bound=bnd,
+                profile=[(lambda _: grad_fused(), st)])
 
 
 def contact_phases(torch, np, built, K, cc, mc, general, scenes, is_finite,
@@ -556,7 +1013,8 @@ def contact_phases(torch, np, built, K, cc, mc, general, scenes, is_finite,
           f"{b4_bound[0]:.5f} ms ({b4_bound[1]}: {PAIR_OPS} operations per "
           f"candidate pair, {TOUCH_OPS} more per touching pair)")
     # what the plain engine's column-order hub sums (general.gather_sum,
-    # the hub rows on the host) cost it per substep at this scene
+    # the hub rows on the device, one scan each) cost it per substep at
+    # this scene
     hub_ms = 0.0
     for table, width in ((topo.tet_incidence, 4 * topo.n_tets),
                          (topo.incidence, 2 * topo.n_edges)):
@@ -568,8 +1026,9 @@ def contact_phases(torch, np, built, K, cc, mc, general, scenes, is_finite,
         hub_ms += (cuda_ms(torch, lambda: general.gather_sum(contrib, inc), 20)
                    - cuda_ms(torch, lambda: general.gather_sum(contrib, bare),
                              20))
-    print(f"# plain engine's hub rows (summed on the host, a device sync "
-          f"each): {hub_ms * cfg.iterations:.4f} ms per substep "
+    print(f"# plain engine's hub rows (summed on the device in column "
+          f"order, one scan each): {hub_ms * cfg.iterations:.4f} ms "
+          f"per substep "
           f"({cfg.iterations} iterations x {hub_ms:.4f} ms for the tet and "
           f"edge hubs)")
 
@@ -644,12 +1103,29 @@ def contact_phases(torch, np, built, K, cc, mc, general, scenes, is_finite,
 
 
 def main() -> int:
+    if "--f64-witness" in sys.argv[1:]:
+        return f64_witness()
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs only on a "
               "GPU", file=sys.stderr)
         return 1
+    # phase 19's float64 witness runs on the CPU, in a process of its own,
+    # while the card works
+    witness = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--f64-witness"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        return smoke(torch, witness)
+    finally:
+        if witness.poll() is None:
+            witness.kill()
+        witness.wait()
+
+
+def smoke(torch, witness) -> int:
+    """Phases 1-20 (module docstring)."""
     sys.path.insert(0, HERE)
     import numpy as np
 
@@ -671,13 +1147,20 @@ def main() -> int:
     from softbodysimulation_tpu_torch import is_finite, state_from_numpy
 
     # 1. the card
+    t_run = time.perf_counter()
+
+    def lap(phases):
+        print(f"# time: phases {phases} done at "
+              f"{time.perf_counter() - t_run:.1f} s")
+
     smi = smi_line()
     print(f"# gpu: {smi}")
     print(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} device(s)")
 
-    # 2. build: one nvcc per library, started together
+    # 2. build: one nvcc per library, started together (the mesh library
+    # holds the mesh, contact and B-5 sources)
     with ThreadPoolExecutor(3) as pool:
         lattice_build = pool.submit(timed_build, _build, lc.LIB_NAME,
                                     lc.SOURCES)
@@ -817,6 +1300,8 @@ def main() -> int:
               f"{n / hi * 1e3:.4e}-{n / lo * 1e3:.4e} particle-substeps/s "
               f"(windows in turn order: {times[key]})")
 
+    lap("1-6")
+
     # 7. the mesh kernel's build (started with the lattice kernel's)
     print_build(mesh_build)
 
@@ -942,10 +1427,18 @@ def main() -> int:
               f"{nm / hi * 1e3:.4e}-{nm / lo * 1e3:.4e} particle-substeps/s "
               f"(windows in turn order: {mtimes[key]})")
 
+    lap("7-10")
+
     # 11-16. the multi-body contact path
     contact = contact_phases(torch, np, contact_build, contact_cases, cc, mc,
                              general, scenes, is_finite, state_from_numpy,
                              smi, mask_flips)
+
+    lap("11-16")
+
+    # 17-20. the differentiable path
+    diff = diff_phases(torch, mesh_build, smi, witness)
+    lap("17-20")
 
     if "--profile" in sys.argv[1:]:
         profile_main_path(
@@ -954,7 +1447,7 @@ def main() -> int:
         profile_main_path(
             torch, mc.make_mesh_cuda_substep_runner(ctopo, ccfg, cdt_sub,
                                                     200), cstate)
-        for run, st in contact["profile"]:
+        for run, st in contact["profile"] + diff["profile"]:
             profile_main_path(torch, run, st)
 
     lat_bound = bound_ms(*lattice_work(spec, cfg))
@@ -994,6 +1487,18 @@ def main() -> int:
         "plain_ms": contact["plain_ms"],
         "bound_ms": contact["bound"][0],
         "bound_by": contact["bound"][1],
+        "library_ms": None,
+    }, {
+        "name": "mesh_diff_xpbd",
+        "route": "cuda",
+        "source": "softbodysimulation_tpu_torch/csrc/mesh_diff_xpbd.cu",
+        "replaces": "softbodysimulation_tpu/kernels/mesh_diff_pallas.py:188",
+        "launches": diff["launches"],
+        "max_abs_err": diff["max_abs_err"],
+        "ms": diff["ms"],
+        "plain_ms": diff["plain_ms"],
+        "bound_ms": diff["bound"][0],
+        "bound_by": diff["bound"][1],
         "library_ms": None,
     }]}))
     print(smi)

@@ -1,7 +1,7 @@
 """softbodysimulation_tpu_torch — the PyTorch / CUDA port of
 softbodysimulation_tpu, for NVIDIA Hopper (H100).
 
-The package carries three paths, each a plain PyTorch engine beside
+The package carries four paths, each a plain PyTorch engine beside
 hand-written CUDA kernels that replace fused Pallas kernels of the JAX
 package:
 
@@ -18,7 +18,12 @@ package:
   ``csrc/contact_xpbd.cu`` (bound in ``kernels/contact_cuda.py``), which
   the mesh kernel's substep loop runs too, and the mesh kernel's dense
   contact pass; ``diag/diagnostics.py`` checks the blocked pass's
-  exactness.
+  exactness;
+* the differentiable path (``kernels/diff.py``): kernel forwards paired
+  with autograd through the plain engines, traced materials, and the
+  hand-written fused mesh backward ``csrc/mesh_diff_xpbd.cu`` (bound in
+  ``kernels/mesh_diff.py``); ``examples/`` fits a launch velocity and
+  rest lengths through them.
 
 Scenes (``core/scenes.py``) run on the card unless the caller asks for
 the CPU.  It imports torch and numpy, never jax.
@@ -44,6 +49,16 @@ from .core.state import (
     topology_from_numpy,
 )
 
+from .kernels.diff import (
+    make_differentiable_lattice_runner,
+    make_differentiable_lattice_step,
+    make_differentiable_material_runner,
+    make_differentiable_mesh_runner,
+    make_differentiable_mesh_step,
+    pair_with_vjp,
+    pair_with_vjp_params,
+)
+
 __version__ = "0.1.0"
 
 __all__ = [
@@ -62,4 +77,11 @@ __all__ = [
     "restore",
     "state_from_numpy",
     "state_to_numpy",
+    "pair_with_vjp",
+    "pair_with_vjp_params",
+    "make_differentiable_lattice_runner",
+    "make_differentiable_lattice_step",
+    "make_differentiable_mesh_runner",
+    "make_differentiable_mesh_step",
+    "make_differentiable_material_runner",
 ]

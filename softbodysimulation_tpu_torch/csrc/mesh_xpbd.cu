@@ -15,9 +15,11 @@
 // solvers/general.py::_substep -- and none of its TPU machinery: no signed
 // one-hot gather/scatter matrices, no bf16 split compensation, no window
 // bases, no VMEM budget, and acosf in place of the polynomial Mosaic
-// needed.  The global volume constraint, box and kinematic colliders,
-// ensembles and traced materials are refused by the wrapper
-// (kernels/mesh_cuda.py).
+// needed.  The global volume constraint, box and kinematic colliders and
+// ensembles are refused by the wrapper (kernels/mesh_cuda.py); traced
+// materials are per-call rest and alpha buffers.  The structs and the
+// arithmetic the fused backward (mesh_diff_xpbd.cu, built into the same
+// library) shares live in mesh_xpbd.cuh.
 //
 // Layout: x, v, pred (and the Chebyshev planes cur, prev) are (3, N)
 // float32 structure-of-arrays planes; lambda_dist (E), lambda_bend (H),
@@ -74,170 +76,7 @@
 // self-collision passes take their two matrix-product sums with explicit
 // fused multiply-adds, as contact_xpbd.cu explains.
 
-#include <cuda_runtime.h>
-#include <math.h>
-
-#include "contact_xpbd.cuh"
-
-#define MX_MAX_SPHERES 16
-#define MX_THREADS 256
-
-// Every field is 4 bytes wide, so the ctypes mirror has no padding.
-struct MeshParams {
-  int n;               // particles
-  int n_edges;
-  int n_hinges;
-  int iterations;
-  int colored;         // SolveMode.COLORED (else JACOBI)
-  int lambda_mode;     // 0 RESET, 1 DECAY, 2 WARM_START
-  int bending;         // bending family active
-  int gravity_acc;     // gravity_is_acceleration
-  int floor_mode;      // 0 NONE, 1 XPBD_INEQUALITY, 2 VELOCITY_REFLECT
-  int n_spheres;
-  int accelerate;      // Chebyshev
-  int n_colors;
-  int col_width;
-  int n_bend_colors;
-  int bcol_width;
-  int n_tets;          // tets carried by the state (lambda_tet), else 0
-  int tets_on;         // per-tet volume sweep active
-  int n_tet_colors;
-  int tcol_width;
-  int sc_mode;         // self-collision: 0 off, 1 dense, 2 blocked
-  int sc_every;        // contact on substep i iff i % sc_every == 0
-  float dt;
-  float gravity[3];
-  float max_force;
-  float damp_factor;   // per-substep velocity multiplier
-  float max_velocity;
-  float world_bounds;
-  float lambda_decay;
-  float max_dlambda;
-  float max_dlambda_rel;
-  float lambda_clamp;
-  float warm_clamp;    // warm_start_clamp (0 = off)
-  float eps_length;
-  float eps_denominator;
-  float static_eps;    // static_inv_mass_eps
-  float skip_sin_eps;
-  float soften_sin_eps;
-  float soften_factor;
-  float ground_height;
-  float floor_alpha;   // collision_compliance / dt^2
-  float friction_dt;   // dt * clip(friction, 0, 1)
-  float floor_rest;    // ground_height + floor_offset
-  float restitution;
-  float penetration_kick;
-  float normal_force_scale;
-  float floor_friction_coeff;
-  float gamma;         // jacobi_gamma
-  float omega;         // omega (0 => 1): the tets' Jacobi scale
-  float tet_pressure;
-  float sc_omega;      // self_collision_omega
-  float sc_diam;       // 2 * particle_radius
-  float spheres[MX_MAX_SPHERES][4];
-};
-
-// Device pointers, all 8 bytes wide.
-struct MeshBuffers {
-  float* x;            // (3, N)
-  float* v;            // (3, N)
-  const float* w;      // (N)
-  const float* f;      // (3, N) ext force, read on the first substep
-  float* pred;         // (3, N)
-  float* cur;          // (3, N) Chebyshev: the iteration's start
-  float* prev;         // (3, N) Chebyshev: the previous iteration's start
-  float* lam;          // (E)
-  float* blam;         // (H)
-  float* contrib;      // (2E, 3)
-  float* bcontrib;     // (4H, 3)
-  const int* edges;    // (E, 2)
-  const float* rest;   // (E)
-  const float* alpha;  // (E) compliance / dt^2, floored at min_alpha_tilde
-  const float* relax;  // (E) omega / max(deg_a, deg_b, 1)
-  const float* warm_scale;  // (E) fraction / max(deg_a, deg_b, 1)
-  const int* inc_ptr;       // (N + 1) CSR rows into inc_cols
-  const int* inc_cols;      // edge incidence: rows into contrib
-  const int* col_ids;       // (n_colors, col_width)
-  const float* col_valid;
-  const int* hinges;        // (H, 4)
-  const float* brest;       // (H)
-  const float* balpha;      // (H) compliance / dt^2
-  const float* brelax;      // (H) omega / max(bend degree, 1)
-  const int* binc_ptr;        // (N + 1) CSR rows into binc_cols
-  const int* binc_cols;       // hinge incidence: rows into bcontrib
-  const int* bcol_ids;        // (n_bend_colors, bcol_width)
-  const float* bcol_valid;
-  float* tlam;                // (T)
-  float* tcontrib;            // (4T, 3)
-  const int* tets;            // (T, 4)
-  const float* trest;         // (T) 6 x rest volume
-  const float* talpha;        // (T) compliance / dt^2
-  const float* tdeg;          // (N) tets per particle
-  const int* tinc_ptr;        // (N + 1) CSR rows into tinc_cols
-  const int* tinc_cols;       // tet incidence without its pads
-  const int* tcol_ids;        // (n_tet_colors, tcol_width)
-  const float* tcol_valid;
-  float* sc_corr;             // (3, N) dense self-collision correction
-  float* sc_stats;            // (3) mean of pred (dense pass)
-};
-
-enum {
-  PF_CONTACTS = 1,   // project floor and spheres
-  PF_CHEBY = 2,      // Chebyshev step (then contacts again)
-  PF_SAVE = 4,       // cur = prev = pred (the first iteration's start)
-  PF_FINALIZE = 8,   // velocities and positions from pred
-  PF_CHEBY_SPLIT = 16,  // Chebyshev step, prev = cur; contacts follow in a
-                        // later pass (self-collision needs the whole plane)
-  PF_SETCUR = 32,    // cur = pred (the split step's second half)
-};
-
-__device__ __forceinline__ float clampf(float v, float lo, float hi) {
-  return fminf(fmaxf(v, lo), hi);
-}
-
-__device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
-  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
-}
-
-__device__ __forceinline__ void cross3(const float a[3], const float b[3],
-                                       float o[3]) {
-  o[0] = a[1] * b[2] - a[2] * b[1];
-  o[1] = a[2] * b[0] - a[0] * b[2];
-  o[2] = a[0] * b[1] - a[1] * b[0];
-}
-
-__device__ __forceinline__ void load3(const float* plane, int n, int i,
-                                      float o[3]) {
-  o[0] = plane[i];
-  o[1] = plane[n + i];
-  o[2] = plane[2 * n + i];
-}
-
-__device__ __forceinline__ void store3(float* plane, int n, int i,
-                                       const float o[3]) {
-  plane[i] = o[0];
-  plane[n + i] = o[1];
-  plane[2 * n + i] = o[2];
-}
-
-// ops/distance.py::distance_delta_lambda for one edge of length len.
-__device__ __forceinline__ float distance_dl(const MeshParams& p, float len,
-                                             float rest, float alpha,
-                                             float wa, float wb, float lam) {
-  const float c = len - rest;
-  const float denom = wa + wb + alpha;
-  const bool valid = len >= p.eps_length &&
-                     fabsf(denom) >= p.eps_denominator &&
-                     (wa >= p.static_eps || wb >= p.static_eps);
-  float dl = (-c - alpha * lam) / (valid ? denom : 1.f);
-  if (p.max_dlambda > 0.f) dl = clampf(dl, -p.max_dlambda, p.max_dlambda);
-  if (p.max_dlambda_rel > 0.f) {
-    const float m = p.max_dlambda_rel * rest;
-    dl = clampf(dl, -m, m);
-  }
-  return valid ? dl : 0.f;
-}
+#include "mesh_xpbd.cuh"
 
 // ops/bending.py::bending_delta_lambda for one hinge (a, b, c, d): returns
 // dlambda and writes the four gradients (zero when the hinge is invalid).
@@ -321,24 +160,9 @@ __global__ void predict_kernel(MeshParams p, MeshBuffers b, int use_ext,
   const int n = p.n;
   const float wa = b.w[i];
   for (int c = 0; c < 3; ++c) {
-    const float g = p.gravity[c];
-    float e = use_ext ? b.f[c * n + i] : 0.f;
-    float dv;
-    if (p.gravity_acc) {
-      if (p.max_force > 0.f) e = clampf(e, -p.max_force, p.max_force);
-      dv = p.dt * ((wa > 0.f ? g : 0.f) + wa * e);
-    } else {
-      float force = g + e;
-      if (p.max_force > 0.f)
-        force = clampf(force, -p.max_force, p.max_force);
-      dv = p.dt * wa * force;
-    }
-    float vc = (b.v[c * n + i] + dv) * p.damp_factor;
-    if (p.max_velocity > 0.f)
-      vc = clampf(vc, -p.max_velocity, p.max_velocity);
-    float pc = b.x[c * n + i] + p.dt * vc;
-    if (p.world_bounds > 0.f)
-      pc = clampf(pc, -p.world_bounds, p.world_bounds);
+    float v_raw, vc, p_raw, pc;
+    predict_coord(p, c, wa, b.x[c * n + i], b.v[c * n + i],
+                  use_ext ? b.f[c * n + i] : 0.f, &v_raw, &vc, &p_raw, &pc);
     b.v[c * n + i] = vc;
     b.pred[c * n + i] = pc;
     if (save) {
@@ -616,57 +440,6 @@ __global__ void dense_pair_kernel(MeshParams p, MeshBuffers b) {
       b.sc_corr[(size_t)c * n + i] = wi * (xi[c] * msum - mx[c]);
 }
 
-// The XPBD floor with positional friction, then each static sphere
-// (ops/collision.py), on one particle's predicted position.
-__device__ void project_contacts(const MeshParams& p, float wa,
-                                 const float xc[3], float pc[3]) {
-  if (p.floor_mode == 1) {
-    const float pen = p.ground_height - pc[1];
-    const float denom = wa + p.floor_alpha;
-    const bool active = pen > 0.f && wa >= p.static_eps &&
-                        fabsf(denom) >= p.eps_denominator;
-    const float dl = pen / (active ? denom : 1.f);
-    pc[1] = pc[1] + (active ? wa * dl : 0.f);
-    if (active) {
-      pc[0] = pc[0] - (pc[0] - xc[0]) / p.dt * p.friction_dt;
-      pc[2] = pc[2] - (pc[2] - xc[2]) / p.dt * p.friction_dt;
-    }
-  }
-  for (int s = 0; s < p.n_spheres; ++s) {
-    float d[3], nrm[3], vel[3];
-    for (int c = 0; c < 3; ++c) d[c] = pc[c] - p.spheres[s][c];
-    const float dist = sqrtf(dot3(d, d));
-    for (int c = 0; c < 3; ++c) nrm[c] = d[c] / fmaxf(dist, 1e-12f);
-    const float pen = p.spheres[s][3] - dist;
-    const bool active = pen > 0.f && wa >= p.static_eps;
-    if (active)
-      for (int c = 0; c < 3; ++c) pc[c] = pc[c] + nrm[c] * pen;
-    for (int c = 0; c < 3; ++c) vel[c] = (pc[c] - xc[c]) / p.dt;
-    const float vn = dot3(vel, nrm);
-    if (active)
-      for (int c = 0; c < 3; ++c)
-        pc[c] = pc[c] - (vel[c] - vn * nrm[c]) * p.friction_dt;
-  }
-}
-
-// Where a particle pass takes a particle's constraint sum from: the
-// contribution buffer and its CSR incidence rows, the sum divided by
-// max(deg, 1) when deg is given.
-struct SumSource {
-  const float* contrib;
-  const int* cols;
-  const int* ptr;
-  const float* deg;
-};
-
-// Where a particle pass takes a self-collision correction from: thread t
-// applies omega * corr[c * ld + t] to particle perm[t] (or t).
-struct CorrSource {
-  const float* corr;
-  const int* perm;
-  int ld;
-};
-
 // One thread per particle: add the particle's constraint sum (when given)
 // or the self-collision correction (when given), then, as `flags` asks,
 // contacts, the Chebyshev step with weight om, saving the iteration's
@@ -745,10 +518,6 @@ __global__ void particle_kernel(MeshParams p, MeshBuffers b, SumSource src,
   }
   store3(b.x, n, i, xc);
   store3(b.v, n, i, vc);
-}
-
-static inline dim3 grid_for(int count) {
-  return dim3((count + MX_THREADS - 1) / MX_THREADS);
 }
 
 extern "C" {

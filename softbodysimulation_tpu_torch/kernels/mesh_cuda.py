@@ -25,6 +25,15 @@ library is built with ``nvcc`` on the first CUDA call
 per-constraint constants go to the card once per runner configuration and
 device, on the first call there.
 
+A runner's ``fn(state, materials=None)`` takes traced materials,
+``{"rest_lengths": (E,), "compliance": (E,)}`` tensors on the state's
+device (``mesh_pallas.py:833-841, 1844-1898`` of the JAX package): the
+per-edge rest lengths and alpha (compliance / dt^2 floored at
+``min_alpha_tilde``) are built from them on the device per call, with no
+host round trip, and the ``max_dlambda_rel`` bound and the warm-start clamp
+follow them in the kernel; the topology's own values give the static path
+to the bit.
+
 ``launches`` counts the CUDA kernels this module has launched (the B-4
 pass's aside); callers may reset it to 0 to count one run.
 """
@@ -47,7 +56,9 @@ from . import _build
 from . import contact_cuda as _contact
 
 LIB_NAME = "mesh_xpbd"
-SOURCES = ("mesh_xpbd.cu", "contact_xpbd.cu")
+# with mesh_xpbd.cuh; the fused backward (kernels/mesh_diff.py) launches
+# mesh_diff_xpbd.cu's entry, whose replay runs this library's forward passes
+SOURCES = ("mesh_xpbd.cu", "contact_xpbd.cu", "mesh_diff_xpbd.cu")
 # every product and sum rounded as written (no FMA contraction): the
 # bending masks near flat hinges must see the plain engine's bits
 NVCC_EXTRA = ("-fmad=false",)
@@ -109,6 +120,19 @@ class MeshBuffers(ctypes.Structure):
     """Mirror of ``struct MeshBuffers`` (device pointers, same order)."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in _BUFFERS]
+
+
+# the fused backward's stash, then its cotangents
+DIFF_BUFFERS = ("st_x", "st_v", "st_wx", "st_wlam", "st_pred", "st_new",
+                "st_prev", "st_lam", "gx", "gv", "glam", "grest", "galpha",
+                "gp", "gprev", "gq", "gcur", "gcontrib")
+
+
+class DiffBuffers(ctypes.Structure):
+    """Mirror of ``struct DiffBuffers`` in ``csrc/mesh_diff_xpbd.cu``
+    (device pointers, same order)."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in DIFF_BUFFERS]
 
 
 _LAMBDA_MODE = {LambdaMode.RESET: 0, LambdaMode.DECAY: 1,
@@ -252,6 +276,21 @@ def incidence_csr(incidence: torch.Tensor, pad: int):
     return ptr, inc[real].astype(np.int32)
 
 
+def material_constants(materials, cfg: SolverConfig, dt: float, n_edges: int,
+                       device):
+    """(rest, alpha) per edge on ``device`` from traced ``materials``:
+    alpha = compliance / dt^2, floored at ``min_alpha_tilde``, rounded as
+    ``constraint_constants`` and the plain engine round it."""
+    rest = _checked("materials['rest_lengths']", materials["rest_lengths"],
+                    (n_edges,), device).contiguous()
+    comp = _checked("materials['compliance']", materials["compliance"],
+                    (n_edges,), device)
+    alpha = comp * float(np.float32(1.0 / (dt * dt)))
+    if cfg.min_alpha_tilde > 0:
+        alpha = torch.clamp(alpha, min=cfg.min_alpha_tilde)
+    return rest, alpha.contiguous()
+
+
 @dataclasses.dataclass(frozen=True)
 class _DeviceTables:
     tensors: dict                # MeshBuffers field -> tensor on the device
@@ -310,10 +349,20 @@ def _library() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_longlong),
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
     lib.mesh_xpbd_run.restype = ctypes.c_int
-    if (lib.mesh_xpbd_params_size() != ctypes.sizeof(MeshParams)
-            or lib.mesh_xpbd_buffers_size() != ctypes.sizeof(MeshBuffers)):
-        raise RuntimeError("MeshParams / MeshBuffers layout differs between "
-                           "mesh_cuda.py and mesh_xpbd.cu")
+    lib.mesh_diff_xpbd_buffers_size.argtypes = []
+    lib.mesh_diff_xpbd_buffers_size.restype = ctypes.c_int
+    lib.mesh_diff_xpbd_run.argtypes = [
+        ctypes.POINTER(MeshParams), ctypes.POINTER(MeshBuffers),
+        ctypes.POINTER(DiffBuffers), ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_longlong),
+        ctypes.c_void_p]
+    lib.mesh_diff_xpbd_run.restype = ctypes.c_int
+    sizes = (lib.mesh_xpbd_params_size(), lib.mesh_xpbd_buffers_size(),
+             lib.mesh_diff_xpbd_buffers_size())
+    if sizes != tuple(ctypes.sizeof(s) for s in (MeshParams, MeshBuffers,
+                                                 DiffBuffers)):
+        raise RuntimeError("MeshParams / MeshBuffers / DiffBuffers layout "
+                           "differs between the wrappers and the sources")
     return lib
 
 
@@ -329,7 +378,7 @@ def _checked(name: str, t: torch.Tensor, shape, device) -> torch.Tensor:
 
 def run_substeps_cuda(state: SimState, topo: Topology, cfg: SolverConfig,
                       dt_sub: float, n_substeps: int,
-                      with_ext: bool = False) -> SimState:
+                      with_ext: bool = False, materials=None) -> SimState:
     """Launch the kernel for ``n_substeps`` substeps of a CUDA state; the
     semantics of ``solvers.general.run_substeps_plain``.  No host sync."""
     global launches
@@ -361,6 +410,9 @@ def run_substeps_cuda(state: SimState, topo: Topology, cfg: SolverConfig,
     work = dict(x=x, v=v, w=w, f=f, pred=plane[0], cur=plane[1],
                 prev=plane[2], lam=lam, blam=blam, contrib=f32(2 * e, 3),
                 bcontrib=f32(max(4 * h, 1), 3), **tables.tensors)
+    if materials is not None:
+        work["rest"], work["alpha"] = material_constants(materials, cfg,
+                                                         dt_sub, e, dev)
     if params.n_tets:
         t = topo.n_tets
         work.update(tlam=_checked("lambda_tet", state.lambda_tet, (t,),
@@ -401,15 +453,16 @@ def run_substeps_cuda(state: SimState, topo: Topology, cfg: SolverConfig,
 
 
 def advance(state: SimState, topo: Topology, cfg: SolverConfig,
-            dt_sub: float, n_substeps: int, with_ext: bool) -> SimState:
+            dt_sub: float, n_substeps: int, with_ext: bool,
+            materials=None) -> SimState:
     """A CUDA state launches the kernel; a CPU state runs the plain engine;
     any other device raises."""
     if state.device.type == "cuda":
         return run_substeps_cuda(state, topo, cfg, dt_sub, n_substeps,
-                                 with_ext)
+                                 with_ext, materials)
     if state.device.type == "cpu":
         return _general.run_substeps_plain(state, topo, cfg, dt_sub,
-                                           n_substeps, with_ext)
+                                           n_substeps, with_ext, materials)
     raise NotImplementedError(
         f"mesh kernel: no path for a state on {state.device}")
 
@@ -420,8 +473,9 @@ def make_mesh_cuda_substep_runner(topo: Topology, cfg: SolverConfig,
                                   approx_math: bool = False,
                                   n_bodies: int = 1, kin_colliders=None,
                                   device=None):
-    """``SimState -> SimState`` advancing ``n_substeps`` raw substeps,
-    self-collision on substep i iff ``i % self_collision_every == 0``.
+    """``fn(state, materials=None) -> SimState`` advancing ``n_substeps``
+    raw substeps, self-collision on substep i iff ``i %
+    self_collision_every == 0``; ``materials`` as the module docstring says.
     ``with_ext=False``: external forces are neither applied nor cleared
     (rollout semantics); ``with_ext=True``: ``state.ext_force`` is consumed
     on the first substep and zeroed.  ``approx_math``, ``n_bodies > 1`` and
@@ -432,8 +486,9 @@ def make_mesh_cuda_substep_runner(topo: Topology, cfg: SolverConfig,
     _check_supported(cfg, topo, approx_math=approx_math, n_bodies=n_bodies,
                      kin_colliders=kin_colliders, device=device)
 
-    def fn(state: SimState) -> SimState:
-        return advance(state, topo, cfg, dt_sub, n_substeps, with_ext)
+    def fn(state: SimState, materials=None) -> SimState:
+        return advance(state, topo, cfg, dt_sub, n_substeps, with_ext,
+                       materials)
 
     return fn
 

@@ -4,7 +4,9 @@ tensors.
 Counterpart of ``softbodysimulation_tpu/ops/bending.py``
 (``CPUBendingConstraint.Solve``, ``CPUBendingConstraint.cs:40-166``, with
 the reference's control-flow bug fixed and its gradients replaced by the
-autodiff-verified ones), forward only.  The sinTheta degeneracy guards are
+autodiff-verified ones), differentiable by autograd: the arccos carries the
+JAX version's clamped derivative (``_SafeArccos``).  The sinTheta
+degeneracy guards are
 masks: hard skip below ``bend_skip_sin_eps``, compliance softened by
 ``bend_soften_factor`` below ``bend_soften_sin_eps``.  Cross products are
 taken component by component and dot products summed x + y + z, in the JAX
@@ -39,6 +41,26 @@ def bending_delta_lambda(pa, pb, pc, pd, wa, wb, wc, wd, rest_angle,
         compliance, lam, dt, cfg)
 
 
+class _SafeArccos(torch.autograd.Function):
+    """``torch.acos`` with the same forward bits and a clamped derivative
+    (the custom JVP of the JAX version's ``_safe_arccos``).
+
+    d/dx arccos = -1/sqrt(1 - x^2) is infinite at |x| = 1, a flat hinge (the
+    rest state of any planar mesh), and a zero cotangent times that is NaN.
+    Clamping 1 - x^2 at 1e-12 only changes lanes that ``bend_skip_sin_eps``
+    already marks invalid."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.acos(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return -g / torch.sqrt(torch.clamp(1.0 - x * x, min=1e-12))
+
+
 def _dihedral(e0, e1, e2):
     """(|n1|^2, |n2|^2, |n1|, |n2|, n1 / |n1|, n2 / |n2|, clipped cos)
     of the hinge normals n1 = e0 x e1, n2 = e2 x e0."""
@@ -60,9 +82,7 @@ def bending_delta_lambda_rel(e0, e1, e2, wa, wb, wc, wd, rest_angle,
     e2 = pD-pA."""
     l1sq, l2sq, l1, l2, n1n, n2n, cos = _dihedral(e0, e1, e2)
     geom_ok = (l1sq >= 1e-9) & (l2sq >= 1e-9)
-    # forward only: the JAX version's arccos with a clamped derivative at
-    # |x| = 1 becomes a torch.autograd.Function when the backward is ported
-    angle = torch.acos(cos)
+    angle = _SafeArccos.apply(cos)
     c = angle - rest_angle
     sin = torch.sin(angle)
 

@@ -193,25 +193,47 @@ class Incidence:
                          hub=inc[rows])
 
 
+class _HubRowSum(torch.autograd.Function):
+    """``head`` (R, 3) continued by the columns of ``cols`` (R, W, 3), one
+    column at a time in column order: the running float32 sum of the CUDA
+    kernel's particle passes, on the tensors' own device.  Backward: the
+    exact VJP of a sum, the row cotangent broadcast to every column."""
+
+    @staticmethod
+    def forward(ctx, head, cols):
+        ctx.width = cols.shape[1]
+        stack = torch.cat([head[:, None], cols], dim=1)
+        if stack.device.type == "cpu":
+            # numpy's running sum is sequential in float32 (torch's CPU
+            # cumsum accumulates in float64)
+            run = np.add.accumulate(stack.numpy(), axis=1)[:, -1]
+            return torch.from_numpy(np.ascontiguousarray(run))
+        # a CUDA scan along a dimension that is neither the innermost nor
+        # the only one gives each (row, coordinate) one thread that adds
+        # the columns in order in float32 (ATen's scan_outer_dim): the
+        # kernel's sum, in one launch
+        return torch.cumsum(stack, dim=1)[:, -1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, g[:, None, :].expand(-1, ctx.width, -1)
+
+
 def gather_sum(contrib: torch.Tensor, incidence: Incidence):
     """Row i: the sum of ``contrib[incidence[i, k]]`` over k, in column
     order (the pad index points one past the end, at an appended zero row)
-    -- the order of the CUDA kernel's particle passes.  A hub's row runs on
-    the host (numpy's running sum is sequential in float32), so that its
-    hundreds of columns cost one copy instead of one launch each (on the
-    card, a device sync per call)."""
+    -- the order of the CUDA kernel's particle passes.  A hub's row goes on
+    past the narrow columns through ``_HubRowSum``, so its hundreds of
+    columns do not widen every row."""
     full = torch.cat([contrib, contrib.new_zeros((1, 3))])
     cols = incidence.narrow
     delta = full[cols[:, 0]]
     for k in range(1, cols.shape[1]):
         delta = delta + full[cols[:, k]]
     if incidence.hub_rows.numel():
-        g = full[incidence.hub[:, cols.shape[1]:]].cpu().numpy()
-        head = delta[incidence.hub_rows].cpu().numpy()
-        run = np.add.accumulate(np.concatenate([head[:, None], g], axis=1),
-                                axis=1)[:, -1]
-        delta = delta.index_put((incidence.hub_rows,),
-                                torch.as_tensor(run, device=delta.device))
+        run = _HubRowSum.apply(delta[incidence.hub_rows],
+                               full[incidence.hub[:, cols.shape[1]:]])
+        delta = delta.index_put((incidence.hub_rows,), run)
     return delta
 
 
@@ -435,17 +457,39 @@ def contact_every(cfg: SolverConfig) -> int:
     return cfg.self_collision_every if cfg.enable_self_collision else 1
 
 
+def with_materials(T: _Tables, materials) -> _Tables:
+    """The tables with the distance constraints' rest lengths and
+    compliances taken from ``materials = {"rest_lengths": (E,),
+    "compliance": (E,)}`` (float32 tensors on the tables' device), as the
+    JAX engines take ``topo.replace(...)``: the ``min_alpha_tilde`` floor,
+    the ``max_dlambda_rel`` bound and the warm-start clamp follow them."""
+    e = T.topo.n_edges
+    rest, comp = materials["rest_lengths"], materials["compliance"]
+    for name, t in (("rest_lengths", rest), ("compliance", comp)):
+        if (tuple(t.shape) != (e,) or t.dtype != torch.float32
+                or t.device != T.ea.device):
+            raise ValueError(f"materials[{name!r}] must be float32 ({e},) on "
+                             f"{T.ea.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    return dataclasses.replace(
+        T, topo=T.topo.replace(rest_lengths=rest, compliance=comp))
+
+
 def run_substeps_plain(state: SimState, topo: Topology, cfg: SolverConfig,
                        dt_sub: float, n_substeps: int,
-                       with_ext: bool = False) -> SimState:
+                       with_ext: bool = False, materials=None) -> SimState:
     """The plain engine's substep loop on any device: ``n_substeps`` raw
     substeps, self-collision on substep i iff ``i % self_collision_every ==
     0``.  ``with_ext=True`` consumes ``state.ext_force`` on the first
     substep and zeroes it; ``with_ext=False`` neither applies nor clears it
-    (the semantics of the JAX package's fused runners)."""
+    (the semantics of the JAX package's fused runners).  ``materials``
+    (``with_materials``) overrides the topology's rest lengths and
+    compliances for this call; the topology's cached tables are kept."""
     check_supported(cfg)
     check_state(state)
     T = _tables(topo, cfg, str(state.device))
+    if materials is not None:
+        T = with_materials(T, materials)
     every = contact_every(cfg)
     x, v = state.positions, state.velocities
     lam = (state.lambda_dist, state.lambda_bend, state.lambda_tet)

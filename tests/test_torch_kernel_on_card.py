@@ -19,7 +19,13 @@ module's gates), and the tet and contact cases of
 |dx| < 1e-5), the library's curve order and candidate selection (equal to
 the plain ones), and the mesh kernel on the tet cases (|dx| < 2e-5,
 |dlambda_tet| < 1e-5) and the contact cases (|dx| < 2e-4).  All also hold
-multipliers to 1 % of their largest magnitude.
+multipliers to 1 % of their largest magnitude.  The fused mesh backward
+(B-5, ``kernels/mesh_diff.py``) on every case of ``test_torch_diff_cases.py``:
+``backward_chunk_cuda`` against ``backward_chunk_plain`` (max |dg| / max
+|g| < 1e-5 for every cotangent) and against autograd through the plain
+engine (< 1e-4, the JAX suite's gradient gate), and the mesh kernel's
+traced materials against its static path (bit for bit), and the plain
+engine's hub-row sum on the card against the column-order fold.
 """
 
 import pytest
@@ -29,6 +35,7 @@ from softbodysimulation_tpu_torch import state_from_numpy
 from softbodysimulation_tpu_torch.kernels import contact_cuda as cc
 from softbodysimulation_tpu_torch.kernels import lattice_cuda as lc
 from softbodysimulation_tpu_torch.kernels import mesh_cuda as mc
+from softbodysimulation_tpu_torch.kernels import mesh_diff as md
 from softbodysimulation_tpu_torch.solvers import general as pgeneral
 from softbodysimulation_tpu_torch.solvers import lattice as plat
 from softbodysimulation_tpu_torch.ops import spatial_hash as psh
@@ -36,12 +43,14 @@ from softbodysimulation_tpu_torch.topology import lattice as ptop
 
 import test_torch_cases as lattice_cases
 import test_torch_contact_cases as contact_cases
+import test_torch_diff_cases as diff_cases
 import test_torch_mesh_cases as mesh_cases
 
 CASES = lattice_cases.parity_cases()
 MESH_CASES = mesh_cases.mesh_cases()
 TET_CASES = contact_cases.tet_cases()
 CONTACT_CASES = contact_cases.contact_cases()
+DIFF_CASES = diff_cases.diff_cases()
 
 
 @pytest.fixture
@@ -201,3 +210,64 @@ def test_mesh_kernel_contact_matches_plain_on_card(cuda, name, backend):
         contact_cases.DX_CONTACT
     _lam_gates(out, ref, (("lambda_tet", 1.0), ("lambda_dist", 1.0),
                           ("lambda_bend", 1.0)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(DIFF_CASES))
+def test_b5_matches_plain_on_card(cuda, name):
+    cfg, n_sub, _, kw = DIFF_CASES[name]
+    topo, fields = diff_cases.case_inputs(kw)
+    state, cot, mats = diff_cases.port_inputs(fields, cuda)
+    before = md.launches
+    got = diff_cases.chunk_vjp(md.backward_chunk_cuda, topo, cfg, n_sub,
+                               state, cot, mats)
+    torch.cuda.synchronize()
+    assert md.launches > before
+    plain = diff_cases.chunk_vjp(md.backward_chunk_plain, topo, cfg, n_sub,
+                                 state, cot, mats)
+    auto = diff_cases.autograd_vjp(topo, cfg, n_sub, state, cot, mats)
+    err = diff_cases.normalized_errors(
+        {k: v.cpu() for k, v in got.items()},
+        {k: v.cpu() for k, v in plain.items()})
+    assert max(err.values()) < diff_cases.KERNEL_TOL, (name, err)
+    for g in (got, plain):
+        err = diff_cases.normalized_errors(
+            {k: v.cpu() for k, v in g.items()},
+            {k: v.cpu() for k, v in auto.items()})
+        assert max(err.values()) < diff_cases.GRAD_TOL, (name, err)
+    assert float(auto["gx"].abs().max()) > 1e-3
+
+
+@pytest.mark.gpu
+def test_traced_materials_match_static_on_card(cuda):
+    """The topology's own rest lengths and compliances as traced materials
+    reproduce the kernel's static path bit for bit."""
+    cfg, n_sub, _, kw = DIFF_CASES["clamps"]
+    cfg = cfg.replace(min_alpha_tilde=0.0576, max_dlambda_rel=0.05)
+    topo, fields = diff_cases.case_inputs(kw)
+    state, _, _ = diff_cases.port_inputs(fields, cuda)
+    run = mc.make_mesh_cuda_substep_runner(topo, cfg, diff_cases.DT, n_sub)
+    a = run(state)
+    b = run(state, {"rest_lengths": topo.rest_lengths.to(cuda),
+                    "compliance": topo.compliance.to(cuda)})
+    assert torch.equal(a.positions, b.positions)
+    assert torch.equal(a.lambda_dist, b.lambda_dist)
+    assert torch.equal(a.positions, pgeneral.run_substeps_plain(
+        state, topo, cfg, diff_cases.DT, n_sub).positions)
+
+
+@pytest.mark.gpu
+def test_hub_row_sum_on_card_is_the_column_order_fold(cuda):
+    """The plain engine's hub rows on a CUDA tensor (one scan) equal the
+    float32 fold over the columns in order, the sum of the kernel's
+    particle passes, bit for bit, and the CPU path's sum."""
+    gen = torch.Generator().manual_seed(0)
+    head = torch.randn((2, 3), generator=gen)
+    cols = (torch.randn((2, 1300, 3), generator=gen)
+            * torch.exp(3.0 * torch.randn((2, 1300, 1), generator=gen)))
+    run = head.to(cuda)
+    for k in range(cols.shape[1]):
+        run = run + cols[:, k].to(cuda)
+    got = pgeneral._HubRowSum.apply(head.to(cuda), cols.to(cuda))
+    assert torch.equal(got, run)
+    assert torch.equal(pgeneral._HubRowSum.apply(head, cols), run.cpu())

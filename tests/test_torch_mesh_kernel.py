@@ -180,10 +180,10 @@ def _c_struct_fields(src, name):
 
 def test_structs_mirror_the_cuda_source():
     """The ctypes ``MeshParams`` / ``MeshBuffers`` list the fields of the C
-    structs in ``csrc/mesh_xpbd.cu`` in the same order with the same
-    widths, and the constants are rounded as the plain engine rounds
-    them."""
-    src = (_build.CSRC_DIR / "mesh_xpbd.cu").read_text()
+    structs in ``csrc/mesh_xpbd.cuh`` (the header the mesh kernel and the
+    fused backward share) in the same order with the same widths, and the
+    constants are rounded as the plain engine rounds them."""
+    src = (_build.CSRC_DIR / "mesh_xpbd.cuh").read_text()
     for struct, cls in (("MeshParams", mc.MeshParams),
                         ("MeshBuffers", mc.MeshBuffers)):
         fields = _c_struct_fields(src, struct)

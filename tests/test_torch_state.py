@@ -181,12 +181,14 @@ def test_port_imports_without_jax():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 33, mods\n"
+        "assert len(mods) >= 38, mods\n"
         "assert {p.__name__ + '.' + m for m in ('solvers.general', "
         "'kernels.mesh_cuda', 'topology.build', 'ops.bending', "
         "'topology.tets', 'ops.tet_volume', 'ops.spatial_hash', "
-        "'diag', 'diag.diagnostics', 'kernels.contact_cuda')} <= "
-        "set(mods), mods\n"
+        "'diag', 'diag.diagnostics', 'kernels.contact_cuda', "
+        "'kernels.diff', 'kernels.mesh_diff', 'examples', "
+        "'examples.config6_diffsim', 'examples.config10_material_fit')} "
+        "<= set(mods), mods\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib', 'softbodysimulation_tpu.')))\n"
         "assert not bad, bad\n"
