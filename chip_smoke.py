@@ -3,14 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's lattice, mesh, contact and differentiable main paths
-through the entry points a user calls and fails (nonzero exit) if any
-phase fails:
+Drives the port's lattice, mesh, contact, differentiable and spatial main
+paths through the entry points a user calls and fails (nonzero exit) if
+any phase fails:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch / CUDA
    versions;
 2. the CUDA lattice kernel built from ``softbodysimulation_tpu_torch/csrc``
-   with ``nvcc`` (sm_90a), and the build time (the three libraries' ``nvcc``
+   with ``nvcc`` (sm_90a), and the build time (the four libraries' ``nvcc``
    runs are started together);
 3. kernel vs its plain PyTorch version on the card, at res 6 over 12-18
    substeps, for each configuration the CPU tests hold against the JAX
@@ -118,7 +118,39 @@ phase fails:
    pair, ``grad_materials_{fused,xla}`` and ``fitloop30_fused``, timed as
    phase 6 times (CUDA events, windows of at least a second, in turns),
    the launches per backward substep, and B-5's bound at the 40-substep
-   shapes (``diff_work``).
+   shapes (``diff_work``);
+21. the slab kernel's build (``csrc/spatial_xpbd.cu``, TPU kernel B-6),
+   registers and spills, and those of the lattice library's tet sweep;
+22. on the card: the lattice kernel with tets vs the plain engine for the
+   tet cases of ``tests/test_torch_spatial_cases.py`` (|dx| < 2e-5,
+   |dlambda_tet| < 1e-5); B-6 vs the sharded torch engine
+   (``parallel/spatial.py``, ``backend="xla"``) for every case it carries,
+   up to four slabs on one card, at phase 3's gates, and how many are bit
+   for bit; a race check, four slabs on four streams run five times,
+   equal to the bit;
+23. ``solid_lattice`` at full size (res 40, 64,000 particles, 355,914
+   tets) through ``make_cuda_step`` for 250 frames: finite, ymin > -1e-2,
+   height > 0.5, tet volume within 5 % of rest (the JAX package's own
+   solid gate: its engine rests at 0.977 here); 480 substeps of drift vs
+   the plain engine (gate 1e-3, volumes 1e-4 apart); 16 substeps of
+   parity from the rested state with velocity jitter;
+24. the spatial path at full width: ``bench.py``'s configuration with
+   ``fast_math`` off on the braced res-128 lattice (2,097,152 particles) in
+   4 slabs of 32 planes on one card, 2000 substeps through B-6
+   (``make_spatial_lattice_step``): finite, ymin > -1e-2, launches,
+   exchange copies and bytes, its height and drift beside B-1's from the
+   same start (the body pancakes on both); ``bench.py``'s height gate and
+   the drift gate vs B-1 (1e-3) at res 68 (``SPATIAL_CUT_RES``), 4 slabs
+   of 17 planes; B-6 in one slab equal to the bit to the four slabs at res
+   128 and at res 72 and 84, where the drift from B-1 is printed; 16
+   substeps of parity vs the sharded torch engine from
+   the res-128 state; where two or more cards are visible, one slab per
+   card equal to the one-card result bit for bit;
+25. particle-substeps/s, timed as phase 6 times them: B-6 at res 128 in 4
+   slabs, B-1 at res 128 and the sharded torch engine there; B-6 at res 40
+   in 4 slabs against B-1 at res 40; ``solid_lattice`` through B-1 and the
+   plain engine; and B-6's bound (``lattice_work`` at the slab shapes,
+   plus the exchanged planes where the slabs sit on more than one card).
 
 Prints one JSON line of kernels (with each kernel's bound, the least time
 the card could take for the same work, from ``bound_ms``), the card's name
@@ -297,17 +329,17 @@ def mesh_compare(torch, name, out, ref, start, topo, cfg, n_sub, gates,
 
 def timed_windows(torch, runs, min_s=1.0, warm=True):
     """ms per substep of each named runner, two CUDA-event windows of at
-    least ``min_s`` each, taken in turns (a, b, b, a).  ``runs`` maps a name
-    to (fn, substeps per call); each window's call count comes from a
-    timed trial call, after a warm-up call unless ``warm`` is false (every
-    runner has run before)."""
+    least ``min_s`` each, taken in turns (a, b, b, a; or a, b, c, c, b, a).
+    ``runs`` maps a name to (fn, substeps per call); each window's call
+    count comes from a timed trial call, after a warm-up call unless
+    ``warm`` is false (every runner has run before)."""
     reps = {}
     for key, (fn, _) in runs.items():
         t = cuda_ms(torch, fn, 1, warm)
         reps[key] = max(1, math.ceil(1.2 * min_s * 1e3 / t))
     times = {key: [] for key in runs}
-    a, b = list(runs)
-    for key in (a, b, b, a):
+    keys = list(runs)
+    for key in keys + keys[::-1]:
         fn, per_call = runs[key]
         times[key].append(cuda_ms(torch, fn, reps[key], warm=False)
                           / per_call)
@@ -343,11 +375,15 @@ def bound_ms(nbytes, ops):
 
 def lattice_work(spec, cfg):
     """(bytes, operations) of one lattice substep: positions and velocities
-    read and written, inverse masses read, every family's multipliers read
-    and written; ~30 operations per constraint projection (difference,
-    length, the XPBD update, two corrections) per iteration."""
+    read and written, inverse masses read, every family's multipliers
+    written, and read unless the mode is RESET (which zeroes them in the
+    predict and never reads them); ~30 operations per constraint projection
+    (difference, length, the XPBD update, two corrections) per
+    iteration."""
+    from softbodysimulation_tpu_torch.core.config import LambdaMode
     n, fam = spec.n_particles, spec.n_families
-    return n * (24 * 2 + 4 + 8 * fam), 30 * n * fam * cfg.iterations
+    lam = 4 * fam * (1 if cfg.lambda_mode == LambdaMode.RESET else 2)
+    return n * (24 * 2 + 4 + lam), 30 * n * fam * cfg.iterations
 
 
 def mesh_work(topo, cfg):
@@ -1102,6 +1138,391 @@ def contact_phases(torch, np, built, K, cc, mc, general, scenes, is_finite,
                 plain_ms=ms_b4_plain, bound=b4_bound, profile=profile)
 
 
+# the spatial path (phases 21-25): the res-128 braced lattice in 4 slabs of
+# 32 planes on one card, bench.py's configuration with fast_math off (no
+# spatial engine reads it)
+SPATIAL_RES = 128
+SPATIAL_SLABS = 4
+# bench.py's body pancakes at res 128 on B-1 as on B-6 (1 kg-per-1000
+# particles, 1 Jacobi iteration: height 0.22 after 2000 substeps), so its
+# height gate and the drift gate against B-1 are held at the largest res
+# that passes them on B-1 and B-6 alike (res 68, 314,432 particles; B-1
+# keeps height > 0.5 up to res 84, but from res 72 the sagging body parts
+# B-6 from B-1 by more than 1e-3: scripts/torch_spatial_cut.py)
+SPATIAL_CUT_RES = 68
+# past the cut: where B-6 in one slab is held to the bit against four slabs
+# and its drift from B-1 printed
+SPATIAL_WITNESS_RES = (72, 84)
+SPATIAL_SUBSTEPS = 2000
+SOLID_FRAMES = 250                 # 2000 substeps of solid_lattice
+SOLID_DRIFT_SUBSTEPS = 480
+TET_DX, TET_DLAM = 2e-5, 1e-5
+# solid_lattice's volume gate: the JAX package's own (its solid soak,
+# scripts/soak_solid_streamed.py:69).  At this configuration (1 Jacobi
+# iteration, 8 substeps) its stencil engine rests at 0.97706 of the rest
+# volume (scripts/soak_solid_streamed.out.json), so a 1 % gate fails any
+# faithful engine; the kernel is also held to the plain engine's volume
+SOLID_VOL_TOL = 0.05
+SOLID_VOL_MATCH = 1e-4
+RACE_RUNS = 5
+
+
+def tet_compare(torch, name, out, ref, start, n_sub, is_finite):
+    """A lattice result with tets against the plain engine's: positions
+    TET_DX, tet multipliers TET_DLAM, distance multipliers DLAM_TOL, each
+    within LAM_REL of its largest.  Raises when it disagrees; returns max
+    |dx|."""
+    torch.cuda.synchronize()
+    dx = float((out.positions - ref.positions).abs().max())
+    d = {k: float((getattr(out, k) - getattr(ref, k)).abs().max())
+         for k in ("lambda_dist", "lambda_tet")}
+    lam = {k: float(getattr(ref, k).abs().max()) for k in d}
+    moved = float((out.positions - start.positions).abs().max())
+    print(f"# tet parity {name}: max|dx|={dx:.3e} max|dlam|="
+          f"{d['lambda_dist']:.3e} (max|lam|={lam['lambda_dist']:.3e}) "
+          f"max|dlam_tet|={d['lambda_tet']:.3e} (max|lam_tet|="
+          f"{lam['lambda_tet']:.3e}) bit for bit="
+          f"{torch.equal(out.positions, ref.positions)} (moved "
+          f"{moved:.3e}) over {n_sub} substeps")
+    if not (dx < TET_DX and d["lambda_dist"] < DLAM_TOL
+            and d["lambda_tet"] < TET_DLAM and is_finite(out)
+            and all(d[k] <= LAM_REL * lam[k] for k in d)):
+        raise RuntimeError(f"lattice kernel tets disagree with plain on "
+                           f"{name}: dx={dx} {d} {lam}")
+    return dx
+
+
+def spatial_phases(torch, np, spatial_build, lattice_build, smi,
+                   is_finite, state_from_numpy, lattice_ms):
+    """Phases 21-25, the spatial (x-slab sharded) lattice and the solid
+    lattice (``lattice_ms``: phase 6's B-1 ms per substep at res 40).
+    Returns the slab kernel's JSON numbers, the tet sweep's and the runs to
+    profile."""
+    import test_torch_spatial_cases as SC
+    from softbodysimulation_tpu_torch.core import config as C
+    from softbodysimulation_tpu_torch.core import scenes
+    from softbodysimulation_tpu_torch.kernels import lattice_cuda as lc
+    from softbodysimulation_tpu_torch.kernels import spatial_cuda as sc
+    from softbodysimulation_tpu_torch.ops import tet_volume
+    from softbodysimulation_tpu_torch.parallel import spatial as psp
+    from softbodysimulation_tpu_torch.solvers import lattice as lat
+    from softbodysimulation_tpu_torch.topology import lattice as top
+    from softbodysimulation_tpu_torch.topology import tets as T
+
+    t_phases = time.perf_counter()
+    cuda = torch.device("cuda", torch.cuda.current_device())
+
+    def jittered(st, seed=0):
+        """``st`` with velocity jitter ~ N(0, 0.05) from a seed, so the body
+        moves and its constraints load."""
+        jit = np.random.default_rng(seed).normal(0.0, 0.05,
+                                                 tuple(st.velocities.shape))
+        return st.replace(velocities=st.velocities + torch.as_tensor(
+            jit, dtype=torch.float32, device=st.device))
+
+    # 21. the slab kernel's build (started with the others in phase 2), and
+    # the lattice library's tet sweep
+    print_build(spatial_build)
+    print_build(lattice_build, kernels=("tet_cell_kernel",
+                                        "tet_apply_kernel"))
+
+    # 22. parity on the card: B-1's tets vs the plain engine; B-6 vs the
+    # sharded torch engine (up to four slabs on one card); the race check
+    b6_err, tet_err, bits = 0.0, 0.0, []
+    for name, (cfg, inputs, d, res, frames) in SC.spatial_cases().items():
+        spec = top.lattice_spec(res, braced=True)
+        st = state_from_numpy(SC.case_inputs(res, **inputs), device=cuda)
+        n_sub = frames * cfg.substeps
+        if cfg.enable_tet_volume:
+            tet_err = max(tet_err, tet_compare(
+                torch, f"B-1 {name} res {res}",
+                lc.make_cuda_step(spec, cfg, SC.DT, n_steps=frames)(st),
+                lat.multi_step_fn(st, spec, cfg, SC.DT, frames), st, n_sub,
+                is_finite))
+        if SC.kernel_carries(cfg, d, res):
+            devs = [cuda] * d
+            out = sc.make_spatial_cuda_substep(spec, cfg, SC.DT, devs,
+                                               n_steps=frames)(st)
+            ref = psp.make_spatial_lattice_step(spec, cfg, SC.DT, devs,
+                                                n_steps=frames,
+                                                backend="xla")(st)
+            b6_err = max(b6_err, compare(
+                torch, f"B-6 {name} res {res} over {d} slabs", out, ref,
+                st, SC.DT / cfg.substeps, n_sub, is_finite))
+            bits.append(torch.equal(out.positions, ref.positions)
+                        and torch.equal(out.lambda_dist, ref.lambda_dist)
+                        and torch.equal(out.velocities, ref.velocities))
+    print(f"# B-6 vs the sharded torch engine: bit for bit in "
+          f"{sum(bits)} of {len(bits)} cases")
+    cfg, inputs, d, res, frames = SC.spatial_cases()["colored_reset"]
+    spec = top.lattice_spec(res, braced=True)
+    st = state_from_numpy(SC.case_inputs(res, **inputs), device=cuda)
+    race = sc.make_spatial_cuda_substep(spec, cfg, SC.DT, [cuda] * d,
+                                        n_steps=frames)
+    first = race(st)
+    same = [torch.equal(race(st).positions, first.positions)
+            for _ in range(RACE_RUNS - 1)]
+    print(f"# race check: {d} slabs on {d} streams, {RACE_RUNS} runs of "
+          f"colored_reset: equal to the bit in {sum(same)} of "
+          f"{len(same)} reruns")
+    if not all(same):
+        raise RuntimeError("the slab kernel's result changes between runs")
+
+    # 23. solid_lattice at full size through make_cuda_step
+    t0 = time.perf_counter()
+    solid, solid_step, info = scenes.solid_lattice(device=cuda)
+    tspec, tcfg = info["spec"], info["config"]
+    tdt_sub = info["dt"] / tcfg.substeps
+    tets = torch.as_tensor(T.cube_lattice_tets(tspec.res), device=cuda)
+    vol0 = float(tet_volume.tet_volumes6(solid.positions, tets).sum())
+    torch.cuda.synchronize()
+    lc.launches = 0
+    out = solid
+    for _ in range(SOLID_FRAMES):
+        out = solid_step(out)
+    torch.cuda.synchronize()
+    solid_s = time.perf_counter() - t0
+    solid_launches = lc.launches
+    p = out.positions
+    vol = float(tet_volume.tet_volumes6(p, tets).sum())
+    ymin = float(p[:, 1].min())
+    height = float(p[:, 1].max() - p[:, 1].min())
+    print(f"# solid_lattice: res {tspec.res} ({tspec.n_particles} "
+          f"particles, {tets.shape[0]} tets), {SOLID_FRAMES} frames x "
+          f"{tcfg.substeps} substeps through make_cuda_step in "
+          f"{solid_s:.3f} s wall, {solid_launches} launches "
+          f"({solid_launches / (SOLID_FRAMES * tcfg.substeps):.2f} a "
+          f"substep); finite={is_finite(out)} ymin={ymin:.6f} "
+          f"height={height:.6f} volume/rest={vol / vol0:.6f}")
+    if not (is_finite(out) and ymin > -1e-2 and height > 0.5
+            and abs(vol / vol0 - 1.0) < SOLID_VOL_TOL and solid_launches > 0):
+        raise RuntimeError("solid_lattice failed its health gates")
+    k_drift = lc.make_cuda_substep_runner(tspec, tcfg, tdt_sub,
+                                          SOLID_DRIFT_SUBSTEPS,
+                                          with_ext=True)(solid)
+    p_drift = lat.run_substeps_plain(solid, tspec, tcfg, tdt_sub,
+                                     SOLID_DRIFT_SUBSTEPS, with_ext=True)
+    drift = float((k_drift.positions - p_drift.positions).abs().max())
+    k_vol, p_vol = (float(tet_volume.tet_volumes6(r.positions, tets).sum())
+                    / vol0 for r in (k_drift, p_drift))
+    print(f"# solid_lattice drift vs plain, {SOLID_DRIFT_SUBSTEPS} substeps "
+          f"from the same start: {drift:.3e} (gate {DRIFT_TOL}); "
+          f"volume/rest kernel {k_vol:.6f}, plain {p_vol:.6f} (gate "
+          f"{SOLID_VOL_MATCH} apart)")
+    if not (drift < DRIFT_TOL and abs(k_vol - p_vol) < SOLID_VOL_MATCH):
+        raise RuntimeError(f"solid lattice drifts from plain: {drift}, "
+                           f"volume {k_vol} vs {p_vol}")
+    start = jittered(out)
+    tet_err = max(tet_err, tet_compare(
+        torch, f"solid_lattice res {tspec.res} from rest",
+        lc.make_cuda_substep_runner(tspec, tcfg, tdt_sub, 16)(start),
+        lat.run_substeps_plain(start, tspec, tcfg, tdt_sub, 16), start, 16,
+        is_finite))
+
+    # 24. the spatial path at full width: bench.py's config, the res-128
+    # body in 4 slabs of 32 planes on one card, through the kernel route
+    scfg = C.SolverConfig(substeps=8, iterations=1, damping=0.02,
+                          solve_mode=C.SolveMode.JACOBI,
+                          lambda_mode=C.LambdaMode.RESET,
+                          gravity_is_acceleration=True, ground_height=0.0,
+                          friction=0.3)
+    sspec = top.lattice_spec(SPATIAL_RES, braced=True)
+    sdt_sub = 1 / 60 / scfg.substeps
+    sstate = lat.make_lattice_state(sspec, center=(0.0, 0.6, 0.0),
+                                    mass=0.001, device=cuda)
+    devs = [cuda] * SPATIAL_SLABS
+    sharded = psp.shard_lattice_state(sstate, sspec, devs)
+    frames = SPATIAL_SUBSTEPS // scfg.substeps
+    b6_step = psp.make_spatial_lattice_step(sspec, scfg, 1 / 60, devs,
+                                            n_steps=frames)
+    torch.cuda.synchronize()
+    sc.launches = sc.copies = sc.bytes_exchanged = 0
+    t0 = time.perf_counter()
+    b6_out = b6_step(sharded)
+    torch.cuda.synchronize()
+    b6_s = time.perf_counter() - t0
+    main_b6 = (sc.launches, sc.copies, sc.bytes_exchanged)
+    res_out = psp.gather_lattice_state(b6_out)
+    print(f"# spatial main path: res {SPATIAL_RES} ({sspec.n_particles} "
+          f"particles) in {SPATIAL_SLABS} slabs of "
+          f"{SPATIAL_RES // SPATIAL_SLABS} planes on one card, "
+          f"{SPATIAL_SUBSTEPS} substeps in {b6_s:.3f} s wall: "
+          f"{main_b6[0]} launches, {main_b6[1]} exchange copies, "
+          f"{main_b6[2]} bytes exchanged "
+          f"({main_b6[0] / SPATIAL_SUBSTEPS:.2f} launches, "
+          f"{main_b6[1] / SPATIAL_SUBSTEPS:.2f} copies and "
+          f"{main_b6[2] / SPATIAL_SUBSTEPS:.0f} bytes a substep)")
+    if not main_b6[0] > 0:
+        raise RuntimeError("the spatial main path launched no kernel")
+
+    def b6_vs_b1(res, state, out):
+        """bench.py's health of a B-6 result and its drift from B-1 on one
+        device from the same start: (finite, ymin, height, B-1's height,
+        drift)."""
+        spec = top.lattice_spec(res, braced=True)
+        b1 = lc.make_cuda_substep_runner(spec, scfg, sdt_sub,
+                                         SPATIAL_SUBSTEPS)(state).positions
+        p = out.positions
+        return (is_finite(out), float(p[:, 1].min()),
+                float(p[:, 1].max() - p[:, 1].min()),
+                float(b1[:, 1].max() - b1[:, 1].min()),
+                float((p - b1).abs().max()))
+
+    ok, ymin, height, b1_height, drift = b6_vs_b1(SPATIAL_RES, sstate,
+                                                  res_out)
+    print(f"# health at res {SPATIAL_RES}: finite={ok} ymin={ymin:.6f} "
+          f"height={height:.6f}, B-1 from the same start: height "
+          f"{b1_height:.6f}, drift {drift:.3e} (the body pancakes on both, "
+          f"so bench.py's height gate and the drift gate are held at res "
+          f"{SPATIAL_CUT_RES} below)")
+    if not (ok and ymin > -1e-2):
+        raise RuntimeError("the spatial main path failed its health gates")
+
+    def slab_count_witness(res, state, four):
+        """Whether B-6 in one slab over the same SPATIAL_SUBSTEPS substeps
+        equals ``four`` (the four-slab result) to the bit."""
+        spec = top.lattice_spec(res, braced=True)
+        one = psp.make_spatial_lattice_step(spec, scfg, 1 / 60, [cuda],
+                                            n_steps=frames)(state)
+        return all(torch.equal(getattr(one, k), getattr(four, k))
+                   for k in ("positions", "velocities", "lambda_dist"))
+
+    # the slab count changes no bit, so one slab against four at full size
+    # is also a race check where launches overlap on the four streams
+    same = slab_count_witness(SPATIAL_RES, sstate, res_out)
+    print(f"# B-6 in 1 slab vs {SPATIAL_SLABS} slabs at res {SPATIAL_RES}, "
+          f"{SPATIAL_SUBSTEPS} substeps: bit for bit={same}")
+    if not same:
+        raise RuntimeError("the slab count changes the slab kernel's result")
+    # where the body sags past the cut, B-6 parts from B-1 by its arithmetic
+    # (dp = dl * (d / len)), not by its slabs: one slab equals four there
+    for wres in SPATIAL_WITNESS_RES:
+        wspec = top.lattice_spec(wres, braced=True)
+        wstate = lat.make_lattice_state(wspec, center=(0.0, 0.6, 0.0),
+                                        mass=0.001, device=cuda)
+        four = psp.make_spatial_lattice_step(wspec, scfg, 1 / 60, devs,
+                                             n_steps=frames)(wstate)
+        same = slab_count_witness(wres, wstate, four)
+        ok, ymin, height, b1_height, drift = b6_vs_b1(wres, wstate, four)
+        print(f"# witness at res {wres}: B-6 in 1 slab vs {SPATIAL_SLABS} "
+              f"slabs bit for bit={same}; {SPATIAL_SUBSTEPS} substeps: "
+              f"height {height:.6f} (B-1 {b1_height:.6f}), drift vs B-1 "
+              f"{drift:.3e}")
+        if not (same and ok):
+            raise RuntimeError(f"the slab count changes the slab kernel's "
+                               f"result at res {wres}")
+    cspec = top.lattice_spec(SPATIAL_CUT_RES, braced=True)
+    cstate = lat.make_lattice_state(cspec, center=(0.0, 0.6, 0.0),
+                                    mass=0.001, device=cuda)
+    cut_out = psp.make_spatial_lattice_step(cspec, scfg, 1 / 60, devs,
+                                            n_steps=frames)(cstate)
+    ok, ymin, height, b1_height, drift = b6_vs_b1(SPATIAL_CUT_RES, cstate,
+                                                  cut_out)
+    print(f"# health at res {SPATIAL_CUT_RES} ({cspec.n_particles} "
+          f"particles, {SPATIAL_SLABS} slabs of "
+          f"{SPATIAL_CUT_RES // SPATIAL_SLABS} planes), {SPATIAL_SUBSTEPS} "
+          f"substeps through B-6: finite={ok} ymin={ymin:.6f} "
+          f"height={height:.6f} (B-1: {b1_height:.6f}); drift vs B-1 from "
+          f"the same start: {drift:.3e} (gate {DRIFT_TOL})")
+    if not (ok and ymin > -1e-2 and height > 0.5):
+        raise RuntimeError(f"the spatial path failed its health gates at "
+                           f"res {SPATIAL_CUT_RES}")
+    if not drift < DRIFT_TOL:
+        raise RuntimeError(f"the slab kernel drifts from B-1: {drift}")
+    start = psp.shard_lattice_state(jittered(res_out), sspec, devs)
+    b6_16 = psp.make_spatial_lattice_step(sspec, scfg, 1 / 60, devs,
+                                          n_steps=2)
+    plain_16 = psp.make_spatial_lattice_step(sspec, scfg, 1 / 60, devs,
+                                             n_steps=2, backend="xla")
+    out16 = psp.gather_lattice_state(b6_16(start))
+    ref16 = psp.gather_lattice_state(plain_16(start))
+    b6_err = max(b6_err, compare(
+        torch, f"B-6 res {SPATIAL_RES} over {SPATIAL_SLABS} slabs after "
+        f"{SPATIAL_SUBSTEPS} substeps", out16, ref16,
+        psp.gather_lattice_state(start), sdt_sub,
+        16, is_finite))
+    print(f"# bit for bit at res {SPATIAL_RES}: "
+          f"{torch.equal(out16.positions, ref16.positions)}")
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        k = 4 if n_cards >= 4 else 2
+        multi = [torch.device("cuda", i) for i in range(k)]
+        one_card = psp.make_spatial_lattice_step(
+            sspec, scfg, 1 / 60, devs, n_steps=8)(sstate)
+        many = psp.make_spatial_lattice_step(
+            sspec, scfg, 1 / 60, multi, n_steps=8)(sstate)
+        same = torch.equal(many.positions, one_card.positions)
+        print(f"# one slab per card on {k} cards vs {SPATIAL_SLABS} slabs "
+              f"on one card, 64 substeps: bit for bit={same}")
+        if not same:
+            raise RuntimeError("slabs on several cards differ from one")
+    else:
+        print("# one slab per card: not run (one card visible)")
+
+    # 25. throughput (CUDA events, windows of at least a second, in turns)
+    n_b6 = 200
+    b6_run = psp.make_spatial_lattice_step(sspec, scfg, 1 / 60, devs,
+                                           n_steps=n_b6 // scfg.substeps)
+    b1_run = lc.make_cuda_substep_runner(sspec, scfg, sdt_sub, n_b6)
+    xla_run = psp.make_spatial_lattice_step(sspec, scfg, 1 / 60, devs,
+                                            backend="xla")
+    rested = b6_out
+    times, reps = timed_windows(torch, {
+        "B-6": (lambda: b6_run(rested), n_b6),
+        "B-1": (lambda: b1_run(res_out), n_b6),
+        "sharded torch": (lambda: xla_run(rested), scfg.substeps)})
+    spec40 = top.lattice_spec(40, braced=True)
+    st40 = lat.make_lattice_state(spec40, center=(0.0, 0.6, 0.0),
+                                  mass=0.001, device=cuda)
+    sh40 = psp.shard_lattice_state(st40, spec40, devs)
+    b6_40 = psp.make_spatial_lattice_step(spec40, scfg, 1 / 60, devs,
+                                          n_steps=n_b6 // scfg.substeps)
+    b1_40 = lc.make_cuda_substep_runner(spec40, scfg, sdt_sub, n_b6)
+    t40, r40 = timed_windows(torch, {
+        "B-6 res 40": (lambda: b6_40(sh40), n_b6),
+        "B-1 res 40": (lambda: b1_40(st40), n_b6)})
+    n_solid = 80
+    k_solid = lc.make_cuda_substep_runner(tspec, tcfg, tdt_sub, n_solid)
+    tsol, rsol = timed_windows(torch, {
+        "solid B-1": (lambda: k_solid(out), n_solid),
+        "solid plain": (lambda: lat.run_substeps_plain(
+            out, tspec, tcfg, tdt_sub, tcfg.substeps), tcfg.substeps)})
+    for group, rp, n in ((times, reps, sspec.n_particles),
+                         (t40, r40, spec40.n_particles),
+                         (tsol, rsol, tspec.n_particles)):
+        for key, ts in group.items():
+            print(f"# throughput {key} ({smi}): best {min(ts):.5f} "
+                  f"ms/substep = {n / min(ts) * 1e3:.4e} "
+                  f"particle-substeps/s; windows in turn order {ts}; "
+                  f"{rp[key]} calls a window")
+    # the plane copies are part of the function only when they cross
+    # devices; with every slab on one card they are the design's own
+    per_sub = main_b6[2] / SPATIAL_SUBSTEPS
+    crossing = per_sub if len(set(devs)) > 1 else 0.0
+    nbytes, ops = lattice_work(sspec, scfg)
+    bound = bound_ms(nbytes + crossing, ops)
+    print(f"# B-6 bound at res {SPATIAL_RES}: {bound[0]:.5f} ms a substep "
+          f"({bound[1]}; lattice_work at the slab shapes plus {crossing:.0f} "
+          f"bytes of planes crossing devices; {per_sub:.0f} bytes a substep "
+          f"copied between slabs on {len(set(devs))} device(s))")
+    print(f"# slabbing costs {min(times['B-6']) / min(times['B-1']):.3f}x "
+          f"B-1 at res {SPATIAL_RES} and "
+          f"{min(t40['B-6 res 40']) / min(t40['B-1 res 40']):.3f}x at res "
+          f"40; solid_lattice through B-1 costs "
+          f"{min(tsol['solid B-1']) / lattice_ms:.3f}x the plain lattice's "
+          f"B-1 at res 40 (phase 6)")
+    print(f"# time: phases 21-25 took "
+          f"{time.perf_counter() - t_phases:.1f} s")
+    profile = [(psp.make_spatial_lattice_step(sspec, scfg, 1 / 60, devs,
+                                              n_steps=2), rested),
+               (lc.make_cuda_substep_runner(tspec, tcfg, tdt_sub, 16), out)]
+    return dict(launches=main_b6[0], max_abs_err=b6_err,
+                ms=min(times["B-6"]), plain_ms=min(times["sharded torch"]),
+                bound=bound, exchange_bytes=per_sub, tet_err=tet_err,
+                tet_launches=solid_launches,
+                profile=profile)
+
+
 def main() -> int:
     if "--f64-witness" in sys.argv[1:]:
         return f64_witness()
@@ -1125,7 +1546,7 @@ def main() -> int:
 
 
 def smoke(torch, witness) -> int:
-    """Phases 1-20 (module docstring)."""
+    """Phases 1-25 (module docstring)."""
     sys.path.insert(0, HERE)
     import numpy as np
 
@@ -1141,6 +1562,7 @@ def smoke(torch, witness) -> int:
     from softbodysimulation_tpu_torch.kernels import contact_cuda as cc
     from softbodysimulation_tpu_torch.kernels import lattice_cuda as lc
     from softbodysimulation_tpu_torch.kernels import mesh_cuda as mc
+    from softbodysimulation_tpu_torch.kernels import spatial_cuda as sc
     from softbodysimulation_tpu_torch.solvers import general
     from softbodysimulation_tpu_torch.solvers import lattice as lat
     from softbodysimulation_tpu_torch.topology import lattice as top
@@ -1161,16 +1583,11 @@ def smoke(torch, witness) -> int:
 
     # 2. build: one nvcc per library, started together (the mesh library
     # holds the mesh, contact and B-5 sources)
-    with ThreadPoolExecutor(3) as pool:
-        lattice_build = pool.submit(timed_build, _build, lc.LIB_NAME,
-                                    lc.SOURCES)
-        mesh_build = pool.submit(timed_build, _build, mc.LIB_NAME,
-                                 mc.SOURCES, mc.NVCC_EXTRA)
-        contact_build = pool.submit(timed_build, _build, cc.LIB_NAME,
-                                    cc.SOURCES, cc.NVCC_EXTRA)
-        lattice_build, mesh_build, contact_build = (
-            lattice_build.result(), mesh_build.result(),
-            contact_build.result())
+    with ThreadPoolExecutor(4) as pool:
+        builds = [pool.submit(timed_build, _build, m.LIB_NAME, m.SOURCES,
+                              m.NVCC_EXTRA) for m in (lc, mc, cc, sc)]
+        lattice_build, mesh_build, contact_build, spatial_build = (
+            b.result() for b in builds)
     print_build(lattice_build)
 
     # 3. kernel vs plain on the card, res 6
@@ -1440,6 +1857,11 @@ def smoke(torch, witness) -> int:
     diff = diff_phases(torch, mesh_build, smi, witness)
     lap("17-20")
 
+    # 21-25. the spatial path and the solid lattice
+    spatial = spatial_phases(torch, np, spatial_build, lattice_build, smi,
+                             is_finite, state_from_numpy, ms_k)
+    lap("21-25")
+
     if "--profile" in sys.argv[1:]:
         profile_main_path(
             torch, lc.make_cuda_substep_runner(spec, cfg, dt_sub, 200),
@@ -1447,7 +1869,8 @@ def smoke(torch, witness) -> int:
         profile_main_path(
             torch, mc.make_mesh_cuda_substep_runner(ctopo, ccfg, cdt_sub,
                                                     200), cstate)
-        for run, st in contact["profile"] + diff["profile"]:
+        for run, st in (contact["profile"] + diff["profile"]
+                        + spatial["profile"]):
             profile_main_path(torch, run, st)
 
     lat_bound = bound_ms(*lattice_work(spec, cfg))
@@ -1464,6 +1887,11 @@ def smoke(torch, witness) -> int:
         "bound_ms": lat_bound[0],
         "bound_by": lat_bound[1],
         "library_ms": None,
+        # whether the main path (phase 4) ran the tet sweep; the sweep's own
+        # launches (solid_lattice, phase 23) and parity (phases 22-23)
+        "with_tets": cfg.enable_tet_volume,
+        "tet_launches": spatial["tet_launches"],
+        "tet_max_abs_err": spatial["tet_err"],
     }, {
         "name": "mesh_xpbd",
         "route": "cuda",
@@ -1500,6 +1928,19 @@ def smoke(torch, witness) -> int:
         "bound_ms": diff["bound"][0],
         "bound_by": diff["bound"][1],
         "library_ms": None,
+    }, {
+        "name": "spatial_xpbd",
+        "route": "cuda",
+        "source": "softbodysimulation_tpu_torch/csrc/spatial_xpbd.cu",
+        "replaces": "softbodysimulation_tpu/kernels/spatial_pallas.py:68",
+        "launches": spatial["launches"],
+        "max_abs_err": spatial["max_abs_err"],
+        "ms": spatial["ms"],
+        "plain_ms": spatial["plain_ms"],
+        "bound_ms": spatial["bound"][0],
+        "bound_by": spatial["bound"][1],
+        "library_ms": None,
+        "exchange_bytes_per_substep": spatial["exchange_bytes"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

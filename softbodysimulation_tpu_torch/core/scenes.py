@@ -1,9 +1,10 @@
 """Scenes, as build functions returning ``(state, step, info)``.
 
-Counterpart of eight scenes of ``softbodysimulation_tpu/core/scenes.py``:
+Counterpart of nine scenes of ``softbodysimulation_tpu/core/scenes.py``:
 the lattice scenes ``flagship`` (the reference's
-Scenes/SoftBodySimulator.unity) and ``flagship_perf`` (the ``bench.py``
-workload), the mesh scenes ``cpu_mesh`` (Scenes/CpuMesh.unity), ``cloth``
+Scenes/SoftBodySimulator.unity), ``flagship_perf`` (the ``bench.py``
+workload) and ``solid_lattice`` (``flagship_perf`` with per-cell tets),
+the mesh scenes ``cpu_mesh`` (Scenes/CpuMesh.unity), ``cloth``
 and ``cloth_xl``, the solids ``tet_cube`` and ``tet_ball``, and the
 multi-body contact scene ``ball_on_cloth``.  ``step`` is
 ``kernels.lattice_cuda.make_cuda_step`` or
@@ -35,7 +36,7 @@ from ..topology import mesh as _mesh
 from ..topology import tets as _tets
 from ..topology.objloader import load_obj
 from .config import DampingMode, FloorMode, LambdaMode, SolveMode, SolverConfig
-from .state import state_from_topology
+from .state import on_device, state_from_topology
 
 # OBJ assets are data, not code; the reference's bunny is used when present
 BUNNY_PATH = os.path.join(os.path.dirname(__file__), "..", "..", "assets",
@@ -45,12 +46,7 @@ BUNNY_PATH = os.path.join(os.path.dirname(__file__), "..", "..", "assets",
 def _device(device) -> torch.device:
     """The scene's device; a CUDA device where there is none raises (no
     silent move to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "scene: no CUDA device here; pass device='cpu' to run the plain "
-            "PyTorch engine on the CPU")
-    return dev
+    return on_device(device, "scene")
 
 
 def flagship(dt: float = 1 / 60, res: int = 4, gravity_on: bool = False,
@@ -90,6 +86,29 @@ def flagship_perf(dt: float = 1 / 60, res: int = 40, device="cuda"):
     # strain at structural compliance 1e-4 (it would pancake — physically)
     state = _lat_engine.make_lattice_state(spec, center=(0.0, 0.6, 0.0),
                                            mass=0.001, device=device)
+    step = make_cuda_step(spec, cfg, dt)
+    return state, step, {"spec": spec, "config": cfg, "dt": dt}
+
+
+def solid_lattice(dt: float = 1 / 60, res: int = 40, device="cuda"):
+    """Solid (volumetric) flagship-scale body on the stencil engine: the
+    res-40 braced lattice with per-cell tet volume constraints, 6 Kuhn
+    tets per cell as gather-free offset families
+    (``solvers/lattice._tet_sweep``; in the CUDA lattice kernel on the
+    card)."""
+    device = _device(device)
+    spec = _lattice.lattice_spec(res, braced=True)
+    cfg = SolverConfig(
+        substeps=8, iterations=1, damping=0.02,
+        solve_mode=SolveMode.JACOBI,
+        lambda_mode=LambdaMode.RESET,
+        gravity_is_acceleration=True,
+        fast_math=True,
+        enable_tet_volume=True,
+        ground_height=0.0, friction=0.3)
+    state = _lat_engine.make_lattice_state(spec, center=(0.0, 0.6, 0.0),
+                                           mass=0.001, tet_volume=True,
+                                           device=device)
     step = make_cuda_step(spec, cfg, dt)
     return state, step, {"spec": spec, "config": cfg, "dt": dt}
 

@@ -9,7 +9,9 @@ numpy arrays (``state_from_numpy`` / ``state_to_numpy``,
 lattices (index = (x*res + y)*res + z).
 
 Tensors are never mutated in place by the solvers: every step returns a
-new ``SimState`` (``replace``), as the JAX package does.  Kinematic
+new ``SimState`` (``replace``), as the JAX package does.  The constructors
+put their tensors on the card unless the caller asks for the CPU
+(``device="cpu"``); without a CUDA device they raise (``on_device``).  Kinematic
 collider sets are not ported yet, so ``colliders`` stays ``None``.  The
 topology carries no one-hot window matrices (``windows``, ``bend_windows``,
 ``tet_windows``): they are a layout for the TPU's matrix unit, and the
@@ -61,18 +63,30 @@ class SimState:
         return _map(self, lambda t: t.to(device))
 
 
+def on_device(device, who: str = "state") -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device where there is none
+    raises (no silent move to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who}: no CUDA device here; pass device='cpu' to run the plain "
+            f"PyTorch engine on the CPU")
+    return dev
+
+
 def _map(state: SimState, fn) -> SimState:
     return state.replace(**{
         k: fn(getattr(state, k)) for k in _TENSOR_FIELDS
         if getattr(state, k) is not None})
 
 
-def state_from_numpy(fields: Dict[str, Any], device="cpu") -> SimState:
+def state_from_numpy(fields: Dict[str, Any], device="cuda") -> SimState:
     """Build a state from a mapping of field name -> array-like (for example
     ``{k: np.asarray(getattr(jax_state, k)) ...}``).  ``lambda_tet`` may be
     missing or None; ``colliders`` must be missing or None."""
     if fields.get("colliders") is not None:
         raise NotImplementedError("kinematic ColliderSets are not ported")
+    device = on_device(device, "state_from_numpy")
     kw = {}
     for k in _TENSOR_FIELDS:
         a = fields.get(k)
@@ -173,12 +187,14 @@ _TOPO_WINDOW_FIELDS = ("windows", "bend_windows", "tet_windows",
                        "tet_window_perm")
 
 
-def topology_from_numpy(fields: Dict[str, Any], device="cpu") -> Topology:
+def topology_from_numpy(fields: Dict[str, Any],
+                        device="cuda") -> Topology:
     """Build a topology from a mapping of field name -> array-like or int,
     for example ``{f.name: getattr(jax_topo, f.name) for f in
     dataclasses.fields(jax_topo)}``.  Integer tables become int32, the rest
     float32; the window fields are dropped; an absent tet field stays
     None."""
+    device = on_device(device, "topology_from_numpy")
     kw = {}
     for f in dataclasses.fields(Topology):
         a = fields.get(f.name)
@@ -200,10 +216,11 @@ def topology_from_numpy(fields: Dict[str, Any], device="cpu") -> Topology:
 def make_state(positions, inv_mass=None, velocities=None,
                n_edges: Optional[int] = None, n_hinges: int = 0,
                n_tets: int = 0, mass: float = 1.0, dtype=torch.float32,
-               device="cpu") -> SimState:
+               device="cuda") -> SimState:
     """An initial state: uniform particle mass, inv_mass = 1/mass, with mass
     <= 1e-4 meaning pinned (``SoftBodyParticleCPU.cs:14-23``); zero
     velocities, force accumulator and multipliers."""
+    device = on_device(device, "make_state")
     positions = torch.as_tensor(np.asarray(positions), dtype=dtype,
                                 device=device)
     n = positions.shape[0]

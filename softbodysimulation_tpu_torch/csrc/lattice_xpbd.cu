@@ -19,11 +19,12 @@
 // Each substep is one launch per pass on the caller's stream, with no host
 // sync inside the loop:
 //   predict (gravity, first-substep ext force, damping, clamps) with the
-//     lambda reset / decay folded in;
+//     lambda reset / decay folded in (the tet multipliers' too);
 //   WARM_START: one pre-apply pass per family;
 //   per iteration: one pass per family (JACOBI) or two parity passes
-//     (COLORED), then the XPBD floor and sphere contacts; the last
-//     iteration's contacts share a launch with finalize (VELOCITY_REFLECT).
+//     (COLORED), then the per-cell tet sweep (two launches), then the XPBD
+//     floor and sphere contacts; the last iteration's contacts share a
+//     launch with finalize (VELOCITY_REFLECT).
 // A family pass is gather-only, with no atomics: thread a reads the
 // pass-entry positions from one buffer and writes another (ping-pong).  It
 // computes its own constraint (a, a+d) -- the lambda it writes -- and
@@ -39,119 +40,30 @@
 // should set the pace.  The design does nothing about that yet, by choice:
 // a persistent kernel, CUDA graphs or shared-memory slab tiling come later.
 //
-// Floats stay IEEE (built without --use_fast_math): sqrtf and '/' as in the
-// exact engines; only FMA contraction differs, at ulp level.
+// The per-cell tet sweep (solvers/lattice.py::_tet_sweep; the TPU kernel's
+// in-kernel sweep, lattice_pallas.py:591-659 and :1189) projects the 6 Kuhn
+// paths of every cell against the same pred (Jacobi), then applies
+// pred += w / max(tdeg, 1) * delta.  No atomics: tet_cell_kernel writes each
+// path's multiplier and its four endpoint terms dl*g_k to per-endpoint
+// planes (72 floats a particle, 18 MB at res 40, L2-resident), and
+// tet_apply_kernel sums a particle's incidences in the plain engine's
+// order, path by path: g0 at its own cell, then g1, g2, g3 from the cells
+// at -o1, -o2, -o3 (with the rolls' wrap, whose cells carry dl = 0).  The
+// tet degree and the valid-cell mask (_tet_fields' tdeg and valid) are two
+// more planes of the same scratch, built once a run on the device by
+// tet_tables_kernel from integer coordinates, so no table is uploaded.
+// With that order the sweep equals the plain engine to the bit.
+//
+// Floats stay IEEE (built without --use_fast_math, with -fmad=false): sqrtf
+// and '/' as in the exact engines, and no multiply-add is contracted.
 
-#include <cuda_runtime.h>
+#include "lattice_xpbd.cuh"
 
-#define LX_MAX_FAM 16
-#define LX_MAX_SPHERES 16
 #define LX_THREADS 256
-
-// Every field is 4 bytes wide, so the ctypes mirror has no padding.
-struct LatticeParams {
-  int res;
-  int n;             // res^3
-  int nfam;
-  int iterations;
-  int colored;       // SolveMode.COLORED (else JACOBI)
-  int lambda_mode;   // 0 RESET, 1 DECAY, 2 WARM_START
-  int fast_math;
-  int gravity_acc;   // gravity_is_acceleration
-  int floor_mode;    // 0 NONE, 1 XPBD_INEQUALITY, 2 VELOCITY_REFLECT
-  int reference_bounds;
-  int n_spheres;
-  int fam[LX_MAX_FAM][4];   // dx, dy, dz, kind
-  float dt;
-  float gravity[3];
-  float max_force;
-  float damp_factor;        // per-substep velocity multiplier
-  float max_velocity;
-  float world_bounds;
-  float lambda_decay;
-  float warm_fraction;
-  float relax;              // JACOBI 0.5 * omega
-  float max_dlambda;
-  float lambda_clamp;
-  float eps_length;
-  float eps_denominator;
-  float static_eps;         // static_inv_mass_eps
-  float ground_height;
-  float floor_alpha;        // collision_compliance / dt^2
-  float friction;           // clamped to [0, 1]
-  float sphere_dt_fr;       // dt * friction
-  float floor_rest;         // ground_height + floor_offset
-  float restitution;
-  float penetration_kick;
-  float normal_force_scale;
-  float floor_friction_coeff;
-  float rest[LX_MAX_FAM];
-  float alpha[LX_MAX_FAM];     // max(compliance / dt^2, min_alpha_tilde)
-  float dl_rel[LX_MAX_FAM];    // max_dlambda_rel * rest (0 = off)
-  float warm_lim[LX_MAX_FAM];  // warm_start_clamp * rest (0 = off)
-  float spheres[LX_MAX_SPHERES][4];
-};
-
-__device__ __forceinline__ float clampf(float v, float lo, float hi) {
-  return fminf(fmaxf(v, lo), hi);
-}
-
-__device__ __forceinline__ bool fam_valid(const LatticeParams& p, int f,
-                                          int x, int y, int z) {
-  const int res = p.res;
-  const int dx = p.fam[f][0], dy = p.fam[f][1], dz = p.fam[f][2];
-  if (p.reference_bounds && p.fam[f][3] != 0)
-    return x < res - 1 && y < res - 1 && z < res - 1;
-  bool v = true;
-  if (dx > 0) v = v && x < res - dx; else if (dx < 0) v = v && x >= -dx;
-  if (dy > 0) v = v && y < res - dy; else if (dy < 0) v = v && y >= -dy;
-  if (dz > 0) v = v && z < res - dz; else if (dz < 0) v = v && z >= -dz;
-  return v;
-}
-
-// sel: -1 every valid anchor (JACOBI), 0 even parity class, 1 odd class.
-__device__ __forceinline__ bool fam_mask(const LatticeParams& p, int f,
-                                         int sel, int x, int y, int z) {
-  if (!fam_valid(p, f, x, y, z)) return false;
-  if (sel < 0) return true;
-  const int lead = p.fam[f][0] ? x : (p.fam[f][1] ? y : z);
-  return ((lead & 1) == 0) == (sel == 0);
-}
-
-// The multiplier step of one distance constraint, given its current length
-// and the inverse masses of its anchor (wa) and partner (wb): the arithmetic
-// of solvers/lattice.py::_family_pass for an anchor whose mask is set.
-__device__ __forceinline__ float constraint_dl(const LatticeParams& p, int f,
-                                               float len, float wa, float wb,
-                                               float lam, int jacobi) {
-  const float alpha = p.alpha[f];
-  const float c = len - p.rest[f];
-  const float denom = wa + wb + alpha;
-  float dl = (-c - alpha * lam) / fmaxf(denom, 1e-30f);
-  if (p.max_dlambda > 0.f) dl = clampf(dl, -p.max_dlambda, p.max_dlambda);
-  if (p.dl_rel[f] > 0.f) dl = clampf(dl, -p.dl_rel[f], p.dl_rel[f]);
-  if (p.fast_math) {
-    if (jacobi) dl = dl * p.relax;
-  } else {
-    const bool active = len >= p.eps_length &&
-                        fabsf(denom) >= p.eps_denominator &&
-                        (wa >= p.static_eps || wb >= p.static_eps);
-    dl = active ? (jacobi ? dl * p.relax : dl) : 0.f;
-  }
-  return dl;
-}
-
-// The carried multiplier as WARM_START pre-applies it: SOR fraction, then
-// clamped so the correction stays under warm_start_clamp * rest.
-__device__ __forceinline__ float warm_lambda(const LatticeParams& p, int f,
-                                             float lam, float wa, float wb) {
-  lam = lam * p.warm_fraction;
-  if (p.warm_lim[f] > 0.f) {
-    const float lim = p.warm_lim[f] / fmaxf(fmaxf(wa, wb), 1e-12f);
-    lam = clampf(lam, -lim, lim);
-  }
-  return lam;
-}
+// the tet sweep's scratch planes: 72 endpoint terms, then the tables
+#define TET_TDEG 72
+#define TET_VALID 73
+#define TET_PLANES 74
 
 struct Cell {
   int a, x, c, y, z;
@@ -168,14 +80,15 @@ __device__ __forceinline__ Cell cell_of(const LatticeParams& p, int a) {
   return q;
 }
 
-// Roll-consistent neighbour along family f: step = +1 gives the partner
-// a+d, step = -1 the anchor a-d whose partner is a.
-__device__ __forceinline__ Cell step_cell(const LatticeParams& p, int f,
-                                          const Cell& q, int step) {
+// Roll-consistent neighbour at offset step * (dx, dy, dz): x mod res, the
+// lane y*res+z mod res^2, as the plain engine's rolls wrap.
+__device__ __forceinline__ Cell shift_cell(const LatticeParams& p,
+                                           const Cell& q, int dx, int dy,
+                                           int dz, int step) {
   const int res = p.res, r2 = res * res;
-  const int k = p.fam[f][1] * res + p.fam[f][2];
+  const int k = dy * res + dz;
   Cell o;
-  o.x = (q.x + step * p.fam[f][0] + res) % res;
+  o.x = (q.x + step * dx + res) % res;
   o.c = (q.c + step * k + r2) % r2;
   o.y = o.c / res;
   o.z = o.c - o.y * res;
@@ -183,43 +96,11 @@ __device__ __forceinline__ Cell step_cell(const LatticeParams& p, int f,
   return o;
 }
 
-__global__ void predict_kernel(LatticeParams p, const float* __restrict__ x,
-                               float* __restrict__ v,
-                               const float* __restrict__ w,
-                               const float* __restrict__ f,
-                               float* __restrict__ pred,
-                               const float* lam_src, float* lam_dst) {
-  const int a = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n = p.n;
-  if (a >= n) return;
-  const float wa = w[a];
-  for (int c = 0; c < 3; ++c) {
-    float vc = v[c * n + a];
-    const float g = p.gravity[c];
-    float e = f ? f[c * n + a] : 0.f;
-    if (p.gravity_acc) {
-      if (p.max_force > 0.f) e = clampf(e, -p.max_force, p.max_force);
-      vc = vc + p.dt * ((wa > 0.f ? g : 0.f) + wa * e);
-    } else {
-      float force = g + e;
-      if (p.max_force > 0.f)
-        force = clampf(force, -p.max_force, p.max_force);
-      vc = vc + p.dt * wa * force;
-    }
-    vc = vc * p.damp_factor;
-    if (p.max_velocity > 0.f)
-      vc = clampf(vc, -p.max_velocity, p.max_velocity);
-    float pc = x[c * n + a] + p.dt * vc;
-    if (p.world_bounds > 0.f)
-      pc = clampf(pc, -p.world_bounds, p.world_bounds);
-    v[c * n + a] = vc;
-    pred[c * n + a] = pc;
-  }
-  // lam_src may alias lam_dst: each thread touches only its own entries
-  for (int fi = 0; fi < p.nfam; ++fi) {
-    const size_t i = (size_t)fi * n + a;
-    lam_dst[i] = p.lambda_mode == 0 ? 0.f : lam_src[i] * p.lambda_decay;
-  }
+// Along family f: step = +1 gives the partner a+d, step = -1 the anchor a-d
+// whose partner is a.
+__device__ __forceinline__ Cell step_cell(const LatticeParams& p, int f,
+                                          const Cell& q, int step) {
+  return shift_cell(p, q, p.fam[f][0], p.fam[f][1], p.fam[f][2], step);
 }
 
 __global__ void warm_pass_kernel(LatticeParams p, int f,
@@ -305,6 +186,116 @@ __global__ void family_pass_kernel(LatticeParams p, int f, int sel,
     for (int c = 0; c < 3; ++c) o[c] = o[c] + wa * (d[c] * s);
   }
   for (int c = 0; c < 3; ++c) pout[c * n + a] = o[c];
+}
+
+__device__ __forceinline__ void cross3(const float* a, const float* b,
+                                       float* o) {
+  o[0] = a[1] * b[2] - a[2] * b[1];
+  o[1] = a[2] * b[0] - a[0] * b[2];
+  o[2] = a[0] * b[1] - a[1] * b[0];
+}
+
+__device__ __forceinline__ float dot3(const float* a, const float* b) {
+  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
+}
+
+// The tet sweep's tables, once a run: terms plane TET_TDEG holds each
+// particle's tet degree (the valid cells whose paths have it as a corner:
+// the anchor q - o_k of corner k must lie in [0, res - 2]^3), plane
+// TET_VALID 1 where the cell anchored at the particle is valid, else 0.
+__global__ void tet_tables_kernel(LatticeParams p, float* __restrict__ terms) {
+  const int a = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = p.n;
+  if (a >= n) return;
+  const Cell q = cell_of(p, a);
+  const int cmax = p.res - 2;   // a valid cell's largest coordinate
+  float tdeg = 0.f;
+  for (int pi = 0; pi < 6; ++pi) {
+    for (int k = 0; k < 4; ++k) {
+      int ox = 0, oy = 0, oz = 0;
+      if (k > 0) {
+        ox = p.tet_off[pi][k - 1][0];
+        oy = p.tet_off[pi][k - 1][1];
+        oz = p.tet_off[pi][k - 1][2];
+      }
+      const int ax = q.x - ox, ay = q.y - oy, az = q.z - oz;
+      if (ax >= 0 && ax <= cmax && ay >= 0 && ay <= cmax && az >= 0 &&
+          az <= cmax)
+        tdeg += 1.f;
+    }
+  }
+  terms[(size_t)TET_TDEG * n + a] = tdeg;
+  terms[(size_t)TET_VALID * n + a] =
+      q.x <= cmax && q.y <= cmax && q.z <= cmax ? 1.f : 0.f;
+}
+
+// The tet sweep's projection: thread a is the anchor cell (origin corner)
+// of the 6 Kuhn paths; it updates their multipliers in place and writes
+// dl*g_k for corners k = 0..3 to terms[((pi*4 + k)*3 + c)*n + a].
+__global__ void tet_cell_kernel(LatticeParams p, const float* __restrict__ w,
+                                const float* __restrict__ pin,
+                                float* __restrict__ lam_t,
+                                float* __restrict__ terms) {
+  const int a = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = p.n;
+  if (a >= n) return;
+  const Cell q = cell_of(p, a);
+  const bool valid = terms[(size_t)TET_VALID * n + a] != 0.f;
+  const float wa = w[a];
+  const float pa[3] = {pin[a], pin[n + a], pin[2 * n + a]};
+  for (int pi = 0; pi < 6; ++pi) {
+    float e[3][3], wk[3], g[4][3];
+    for (int k = 0; k < 3; ++k) {
+      const int* o = p.tet_off[pi][k];
+      const Cell ck = shift_cell(p, q, o[0], o[1], o[2], 1);
+      for (int c = 0; c < 3; ++c) e[k][c] = pin[c * n + ck.a] - pa[c];
+      wk[k] = w[ck.a];
+    }
+    cross3(e[1], e[2], g[1]);
+    cross3(e[2], e[0], g[2]);
+    cross3(e[0], e[1], g[3]);
+    for (int c = 0; c < 3; ++c) g[0][c] = -((g[1][c] + g[2][c]) + g[3][c]);
+    const float cerr = dot3(e[0], g[1]) - p.tet_target;
+    const float denom = wa * dot3(g[0], g[0]) + wk[0] * dot3(g[1], g[1]) +
+                        wk[1] * dot3(g[2], g[2]) + wk[2] * dot3(g[3], g[3]) +
+                        p.tet_alpha;
+    const size_t li = (size_t)pi * n + a;
+    const float lam = lam_t[li];
+    float dl = (-cerr - p.tet_alpha * lam) / fmaxf(denom, 1e-30f);
+    dl = (valid && denom > p.eps_denominator ? dl : 0.f) * p.tet_omega;
+    lam_t[li] = lam + dl;
+    for (int k = 0; k < 4; ++k)
+      for (int c = 0; c < 3; ++c)
+        terms[((size_t)(pi * 4 + k) * 3 + c) * n + a] = dl * g[k][c];
+  }
+}
+
+// The tet sweep's apply: particle a sums its terms in the plain engine's
+// order and moves by w / max(tdeg, 1) times the sum.
+__global__ void tet_apply_kernel(LatticeParams p, const float* __restrict__ w,
+                                 const float* __restrict__ pin,
+                                 const float* __restrict__ terms,
+                                 float* __restrict__ pout) {
+  const int a = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = p.n;
+  if (a >= n) return;
+  const Cell q = cell_of(p, a);
+  float delta[3] = {0.f, 0.f, 0.f};
+  for (int pi = 0; pi < 6; ++pi) {
+    for (int k = 0; k < 4; ++k) {
+      int src = a;
+      if (k > 0) {
+        const int* o = p.tet_off[pi][k - 1];
+        src = shift_cell(p, q, o[0], o[1], o[2], -1).a;
+      }
+      for (int c = 0; c < 3; ++c)
+        delta[c] = delta[c] + terms[((size_t)(pi * 4 + k) * 3 + c) * n + src];
+    }
+  }
+  const float tdeg = terms[(size_t)TET_TDEG * n + a];
+  const float coef = w[a] / fmaxf(tdeg, 1.f);
+  for (int c = 0; c < 3; ++c)
+    pout[c * n + a] = pin[c * n + a] + coef * delta[c];
 }
 
 // Contacts of one iteration (XPBD floor, static spheres) on pred in place,
@@ -402,12 +393,15 @@ const char* lattice_xpbd_error_string(int code) {
 // Advance n_substeps substeps on `stream`.  x, v: (3, N) in/out; w: (N);
 // f: (3, N) ext force consumed on the first substep when ext_first, else
 // unused; lam: (nfam, N) in/out; lam_scratch: (nfam, N) and pred_a,
-// pred_b: (3, N) scratch.  *n_launched counts the kernels launched.
-// Returns a cudaError_t; nothing is synchronised.
+// pred_b: (3, N) scratch; lam_t: (6, N) tet multipliers in/out, or null
+// when the state has none; tet_terms: (TET_PLANES, N) scratch when p.tets.
+// *n_launched counts the kernels launched.  Returns a cudaError_t;
+// nothing is synchronised.
 int lattice_xpbd_run(const LatticeParams* hp, int device, float* x, float* v,
                      const float* w, const float* f, int ext_first,
                      float* lam, float* lam_scratch, float* pred_a,
-                     float* pred_b, int n_substeps, long long* n_launched,
+                     float* pred_b, float* lam_t, float* tet_terms,
+                     int n_substeps, long long* n_launched,
                      void* stream_handle) {
   const LatticeParams p = *hp;
   cudaStream_t stream = (cudaStream_t)stream_handle;
@@ -415,7 +409,8 @@ int lattice_xpbd_run(const LatticeParams* hp, int device, float* x, float* v,
   *n_launched = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (p.nfam > LX_MAX_FAM || p.n_spheres > LX_MAX_SPHERES)
+  if (p.nfam > LX_MAX_FAM || p.n_spheres > LX_MAX_SPHERES ||
+      (p.tets && (!lam_t || !tet_terms)))
     return (int)cudaErrorInvalidValue;
 
   const dim3 grid((p.n + LX_THREADS - 1) / LX_THREADS);
@@ -435,10 +430,14 @@ int lattice_xpbd_run(const LatticeParams* hp, int device, float* x, float* v,
     ++launched;                                     \
   } while (0)
 
+  if (p.tets) {
+    tet_tables_kernel<<<grid, block, 0, stream>>>(p, tet_terms);
+    LX_CHECK();
+  }
   for (int i = 0; i < n_substeps; ++i) {
     predict_kernel<<<grid, block, 0, stream>>>(
         p, x, v, w, (ext_first && i == 0) ? f : nullptr, pred_a,
-        lam_buf[bit], lam_buf[0]);
+        lam_buf[bit], lam_buf[0], lam_t);
     LX_CHECK();
     int fb[LX_MAX_FAM] = {0};
     float* pin = pred_a;
@@ -465,6 +464,15 @@ int lattice_xpbd_run(const LatticeParams* hp, int device, float* x, float* v,
           fb[fi] ^= 1;
           float* t = pin; pin = pout; pout = t;
         }
+      }
+      if (p.tets) {
+        tet_cell_kernel<<<grid, block, 0, stream>>>(p, w, pin, lam_t,
+                                                    tet_terms);
+        LX_CHECK();
+        tet_apply_kernel<<<grid, block, 0, stream>>>(p, w, pin, tet_terms,
+                                                     pout);
+        LX_CHECK();
+        float* t = pin; pin = pout; pout = t;
       }
       const bool last = it == p.iterations - 1;
       if (has_contacts || last) {

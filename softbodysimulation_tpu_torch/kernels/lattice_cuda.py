@@ -33,10 +33,14 @@ from . import _build
 
 LIB_NAME = "lattice_xpbd"
 SOURCES = ("lattice_xpbd.cu",)
+# no contracted multiply-adds: the tet sweep's sums and products round as
+# the plain engine's separate torch ops do
+NVCC_EXTRA = ("-fmad=false",)
 MAX_FAM = 16
 MAX_SPHERES = 16
 
 launches = 0   # CUDA kernels launched by this module (plain int)
+TET_PLANES = 74   # csrc/lattice_xpbd.cu's tet scratch planes
 
 
 class LatticeParams(ctypes.Structure):
@@ -68,6 +72,10 @@ class LatticeParams(ctypes.Structure):
         ("dl_rel", ctypes.c_float * MAX_FAM),
         ("warm_lim", ctypes.c_float * MAX_FAM),
         ("spheres", (ctypes.c_float * 4) * MAX_SPHERES),
+        ("tets", ctypes.c_int),
+        ("tet_off", ((ctypes.c_int * 3) * 3) * 6),
+        ("tet_alpha", ctypes.c_float), ("tet_target", ctypes.c_float),
+        ("tet_omega", ctypes.c_float),
     ]
 
 
@@ -155,13 +163,19 @@ def make_params(spec: LatticeSpec, cfg: SolverConfig,
                           if cfg.warm_start_clamp > 0 else 0.0)
     for si, sphere in enumerate(cfg.sphere_colliders):
         p.spheres[si][:] = sphere
+    p.tets = int(cfg.enable_tet_volume)
+    for pi, path in enumerate(_lat._tet_fields(spec)[0]):
+        for k, off in enumerate(path[1:]):
+            p.tet_off[pi][k][:] = off
+    p.tet_alpha, p.tet_target, p.tet_omega = _lat.tet_constants(spec, cfg,
+                                                                dt)
     return p
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """Build on first use, load, and declare every entry point's types."""
-    lib = _build.load_library(LIB_NAME, SOURCES)
+    lib = _build.load_library(LIB_NAME, SOURCES, NVCC_EXTRA)
     lib.lattice_xpbd_params_size.argtypes = []
     lib.lattice_xpbd_params_size.restype = ctypes.c_int
     lib.lattice_xpbd_error_string.argtypes = [ctypes.c_int]
@@ -169,7 +183,7 @@ def _library() -> ctypes.CDLL:
     vp = ctypes.c_void_p
     lib.lattice_xpbd_run.argtypes = [
         ctypes.POINTER(LatticeParams), ctypes.c_int, vp, vp, vp, vp,
-        ctypes.c_int, vp, vp, vp, vp, ctypes.c_int,
+        ctypes.c_int, vp, vp, vp, vp, vp, vp, ctypes.c_int,
         ctypes.POINTER(ctypes.c_longlong), vp]
     lib.lattice_xpbd_run.restype = ctypes.c_int
     if lib.lattice_xpbd_params_size() != ctypes.sizeof(LatticeParams):
@@ -197,7 +211,7 @@ def run_substeps_cuda(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
     semantics of ``solvers.lattice.run_substeps_plain``.  No host sync."""
     global launches
     _check_supported(cfg, spec)
-    _lat.check_state(state)
+    _lat.check_state(state, cfg)
     dev = state.device
     if dev.type != "cuda":
         raise ValueError(f"lattice kernel: state on {dev}, not CUDA")
@@ -211,6 +225,17 @@ def run_substeps_cuda(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
     lam_scratch = torch.empty_like(lam)
     pred_a = torch.empty((3, n), dtype=torch.float32, device=dev)
     pred_b = torch.empty_like(pred_a)
+    lam_t = None
+    lam_t_ptr = terms_ptr = ctypes.c_void_p(None)
+    if state.lambda_tet is not None:
+        lam_t = state.lambda_tet.clone()
+        lam_t_ptr = _ptr("lambda_tet", lam_t, (6 * n,), dev)
+    if cfg.enable_tet_volume:
+        # the tet sweep's per-path endpoint terms (72 planes) and its tet
+        # degree and valid-cell planes (csrc/lattice_xpbd.cu TET_PLANES)
+        tet_terms = torch.empty((TET_PLANES, n), dtype=torch.float32,
+                                device=dev)
+        terms_ptr = ctypes.c_void_p(tet_terms.data_ptr())
     args = [_ptr("positions", x, (3, n), dev),
             _ptr("velocities", v, (3, n), dev),
             _ptr("inv_mass", w, (n,), dev),
@@ -219,7 +244,7 @@ def run_substeps_cuda(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
             _ptr("lambda_dist", lam, (nfam * n,), dev),
             _ptr("lambda scratch", lam_scratch, (nfam * n,), dev),
             _ptr("pred", pred_a, (3, n), dev),
-            _ptr("pred", pred_b, (3, n), dev)]
+            _ptr("pred", pred_b, (3, n), dev), lam_t_ptr, terms_ptr]
     params = make_params(spec, cfg, dt_sub)
     lib = _library()
     count = ctypes.c_longlong(0)
@@ -232,7 +257,8 @@ def run_substeps_cuda(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
         msg = lib.lattice_xpbd_error_string(rc).decode()
         raise RuntimeError(f"lattice kernel launch failed: {msg} ({rc})")
     out = state.replace(positions=x.t().contiguous(),
-                        velocities=v.t().contiguous(), lambda_dist=lam)
+                        velocities=v.t().contiguous(), lambda_dist=lam,
+                        lambda_tet=lam_t)
     if with_ext:
         out = out.replace(ext_force=torch.zeros_like(state.ext_force))
     return out

@@ -18,8 +18,9 @@ this engine, a CUDA state launches the kernel (or raises).  The plain loop
 on any device is ``run_substeps_plain`` (and ``step_fn`` /
 ``multi_step_fn``).
 
-The slice covers the lattice main path; self-collision, per-cell tets, box
-colliders, kinematic ColliderSets and lane-folded ensembles raise
+The slice covers the lattice main path and the per-cell tet family (6
+Kuhn tets per cell, ``_tet_sweep``; ``solid_lattice``); self-collision,
+box colliders, kinematic ColliderSets and lane-folded ensembles raise
 ``NotImplementedError`` (``check_supported``).
 """
 
@@ -32,7 +33,9 @@ import numpy as np
 import torch
 
 from ..core.config import FloorMode, LambdaMode, SolveMode, SolverConfig
-from ..core.state import SimState
+from ..core.state import SimState, on_device
+from ..ops import integrate as _integrate
+from ..topology import tets as _tets
 from ..topology.lattice import LatticeSpec, lattice_points
 
 
@@ -42,7 +45,12 @@ def n_lambda(spec: LatticeSpec) -> int:
 
 def make_lattice_state(spec: LatticeSpec, center=(0.0, 0.0, 0.0),
                        mass: float = 1.0, dtype=torch.float32,
-                       device="cpu") -> SimState:
+                       device="cuda", tet_volume: bool = False) -> SimState:
+    """The rest lattice on ``device`` (the card unless the caller asks for
+    the CPU).  ``tet_volume=True`` sizes ``lambda_tet`` for the per-cell
+    tet family (6 Kuhn tets per cell; enable with
+    ``cfg.enable_tet_volume``)."""
+    device = on_device(device, "make_lattice_state")
     pos = lattice_points(spec.res, spec.size, center)
     n = pos.shape[0]
     inv = 0.0 if mass <= 1e-4 else 1.0 / mass
@@ -55,6 +63,8 @@ def make_lattice_state(spec: LatticeSpec, center=(0.0, 0.0, 0.0),
                                 device=device),
         lambda_bend=torch.zeros((0,), dtype=dtype, device=device),
         lambda_volume=torch.zeros((), dtype=dtype, device=device),
+        lambda_tet=(torch.zeros((6 * spec.res ** 3,), dtype=dtype,
+                                device=device) if tet_volume else None),
     )
 
 
@@ -63,19 +73,20 @@ def check_supported(cfg: SolverConfig, spec: LatticeSpec):
     if cfg.enable_self_collision:
         raise NotImplementedError(
             "lattice port: self-collision (hybrid contact) is not ported")
-    if cfg.enable_tet_volume:
-        raise NotImplementedError(
-            "lattice port: per-cell tet volume is not ported")
     if cfg.box_colliders:
         raise NotImplementedError(
             "lattice port: box SDF colliders are not ported")
 
 
-def check_state(state: SimState):
-    """Refuse, at call time, a state the slice does not carry."""
+def check_state(state: SimState, cfg: SolverConfig):
+    """Refuse, at call time, a state the slice does not carry, and a tet
+    config whose state has no tet multipliers."""
     if state.colliders is not None:
         raise NotImplementedError(
             "lattice port: kinematic ColliderSets are not ported")
+    if cfg.enable_tet_volume and state.lambda_tet is None:
+        raise ValueError("enable_tet_volume needs a state built with "
+                         "tet_volume=True (make_lattice_state)")
 
 
 @functools.lru_cache(maxsize=64)
@@ -185,7 +196,9 @@ def _warm_apply_family(pred, w, wb, lam_f, fam, valid, res, rest,
         lam_f = lam_f * cfg.warm_start_fraction  # SOR pre-application
     if cfg.warm_start_clamp > 0:
         wmax = torch.clamp(torch.maximum(w, wb), min=1e-12)
-        lim = cfg.warm_start_clamp * rest / wmax
+        # a 0-dim tensor over wmax divides truly; float / tensor would be
+        # reciprocal(wmax) * float in PyTorch
+        lim = wmax.new_tensor(cfg.warm_start_clamp * rest) / wmax
         lam_f = torch.clamp(lam_f, -lim, lim)
     pb = _roll_fwd(pred, fam, res)
     d = pb - pred
@@ -196,6 +209,102 @@ def _warm_apply_family(pred, w, wb, lam_f, fam, valid, res, rest,
     pred = pred - w[None] * dp
     pred = pred + _roll_bwd(wb[None] * dp, fam, res)
     return pred, lam_f
+
+
+@functools.lru_cache(maxsize=16)
+def _tet_fields(spec: LatticeSpec):
+    """Static structure of the per-cell tet family: the 6 Kuhn paths as
+    offset families (``topology/tets.kuhn_offset_paths``), the valid-cell
+    anchor mask, the per-particle tet degree (for the mass-splitting
+    apply), and the shared 6x rest volume (the cell volume: every Kuhn
+    tet of a box cell has V = cellV / 6)."""
+    res = spec.res
+    paths = _tets.kuhn_offset_paths()
+    cells = np.zeros((res, res, res), bool)
+    cells[:res - 1, :res - 1, :res - 1] = True
+    tdeg = np.zeros((res, res, res), np.float32)
+    c = res - 1
+    for path in paths:
+        for (ox, oy, oz) in path:
+            tdeg[ox:ox + c, oy:oy + c, oz:oz + c] += 1.0
+    spacing = tuple(s / (res - 1) for s in spec.size)
+    rest6 = float(spacing[0] * spacing[1] * spacing[2])
+    return (paths, cells.reshape(res, res * res),
+            tdeg.reshape(res, res * res), rest6)
+
+
+def _tet_dev(spec: LatticeSpec, device):
+    paths, valid, tdeg, rest6 = _tet_fields(spec)
+    return (paths, torch.as_tensor(valid, device=device),
+            torch.as_tensor(tdeg, device=device), rest6)
+
+
+def _cross3(a, b):
+    """Cross product over the leading component axis of (3, ...)."""
+    return torch.stack([
+        a[1] * b[2] - a[2] * b[1],
+        a[2] * b[0] - a[0] * b[2],
+        a[0] * b[1] - a[1] * b[0],
+    ])
+
+
+def _dot3(a, b):
+    """Dot product over the leading component axis, summed x + y + z."""
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def tet_constants(spec: LatticeSpec, cfg: SolverConfig, dt: float):
+    """(alpha, pressure x 6 rest volume, omega) of the tet sweep, as Python
+    floats: ``tet_compliance / dt^2``, the target 6V, and
+    ``cfg.omega if cfg.omega > 0 else 1.0``."""
+    rest6 = _tet_fields(spec)[3]
+    return (cfg.tet_compliance / (dt * dt), cfg.tet_pressure * rest6,
+            cfg.omega if cfg.omega > 0 else 1.0)
+
+
+def _tet_sweep(pred, w, lam_t, spec: LatticeSpec, cfg: SolverConfig, dt,
+               tet_dev):
+    """Per-cell tet-volume Jacobi sweep, gather-free: each Kuhn path is an
+    offset family, so the 4 endpoint gathers are rolls and the gradient
+    scatter is the inverse rolls.  All 6 paths project against the SAME
+    pred (Jacobi), full strength, then one mass-splitting apply
+    ``pred += w / max(tdeg, 1) * delta``.  Each particle's delta sums its
+    terms path by path: g0 at its own cell, then g1, g2, g3 from the cells
+    at -o1, -o2, -o3.  lam_t: (6, res, r2)."""
+    paths, valid, tdeg, _ = tet_dev
+    alpha, target, omega = tet_constants(spec, cfg, dt)
+    res = spec.res
+    delta = torch.zeros_like(pred)
+    lam_parts = []
+    for pi, path in enumerate(paths):
+        f1 = path[1] + (0,)
+        f2 = path[2] + (0,)
+        f3 = path[3] + (0,)
+        e1 = _roll_fwd(pred, f1, res) - pred
+        e2 = _roll_fwd(pred, f2, res) - pred
+        e3 = _roll_fwd(pred, f3, res) - pred
+        g1 = _cross3(e2, e3)
+        g2 = _cross3(e3, e1)
+        g3 = _cross3(e1, e2)
+        g0 = -(g1 + g2 + g3)
+        cerr = _dot3(e1, g1) - target
+        w1 = _roll_fwd(w, f1, res)
+        w2 = _roll_fwd(w, f2, res)
+        w3 = _roll_fwd(w, f3, res)
+        denom = (w * _dot3(g0, g0) + w1 * _dot3(g1, g1)
+                 + w2 * _dot3(g2, g2) + w3 * _dot3(g3, g3) + alpha)
+        lam_f = lam_t[pi]
+        dl = (-cerr - alpha * lam_f) / torch.clamp(denom, min=1e-30)
+        active = valid & (denom > cfg.eps_denominator)
+        dl = torch.where(active, dl, 0.0) * omega
+        lam_parts.append(lam_f + dl)
+        dlb = dl[None]
+        delta = delta + dlb * g0
+        delta = delta + _roll_bwd(dlb * g1, f1, res)
+        delta = delta + _roll_bwd(dlb * g2, f2, res)
+        delta = delta + _roll_bwd(dlb * g3, f3, res)
+    pred = pred + (w / torch.clamp(tdeg, min=1.0))[None] * delta
+    return pred, torch.stack(lam_parts)
 
 
 def _floor_xpbd(pred, x, w, dt, cfg: SolverConfig):
@@ -229,7 +338,7 @@ def _spheres(pred, x, w, dt, cfg: SolverConfig):
         penet = radius - dist
         act = (penet > 0) & (w >= cfg.static_inv_mass_eps)
         pred = pred + torch.where(act[None], nrm * penet[None], 0.0)
-        vel = (pred - x) / dt
+        vel = _integrate.over_dt(pred - x, dt)
         vn = (vel[0] * nrm[0] + vel[1] * nrm[1]
               + vel[2] * nrm[2])[None] * nrm
         vt = vel - vn
@@ -238,15 +347,22 @@ def _spheres(pred, x, w, dt, cfg: SolverConfig):
 
 
 def _substep(x, v, w, f, lam, spec: LatticeSpec, cfg: SolverConfig, dt,
-             apply_ext: bool, masks_dev):
+             apply_ext: bool, masks_dev, lam_t=None, tet_dev=None):
     """One substep in (3,res,res^2) layout.  x,v,f: (3,res,r2); w: (res,r2);
-    lam: (nfam,res,r2).  Returns (x, v, lam)."""
+    lam: (nfam,res,r2); lam_t: (6,res,r2) or None (the tet sweep runs when
+    ``tet_dev`` is given).  Returns (x, v, lam, lam_t)."""
     res = spec.res
 
     if cfg.lambda_mode == LambdaMode.RESET:
         lam = torch.zeros_like(lam)
     else:
         lam = lam * cfg.lambda_decay
+    if lam_t is not None:
+        # tets follow the general engine's lifecycle: fresh except in DECAY
+        if cfg.lambda_mode == LambdaMode.DECAY:
+            lam_t = lam_t * cfg.lambda_decay
+        else:
+            lam_t = torch.zeros_like(lam_t)
 
     # predict (reference gravity is a force: v += dt*w*(g + f_ext);
     # gravity_is_acceleration applies g mass-independently)
@@ -315,6 +431,9 @@ def _substep(x, v, w, f, lam, spec: LatticeSpec, cfg: SolverConfig, dt,
             lam_parts.append(lam_f)
         lam = torch.stack(lam_parts)
 
+        if tet_dev is not None:
+            pred, lam_t = _tet_sweep(pred, w, lam_t, spec, cfg, dt, tet_dev)
+
         if cfg.floor_mode == FloorMode.XPBD_INEQUALITY:
             pred = _floor_xpbd(pred, x, w, dt, cfg)
         if cfg.sphere_colliders:
@@ -322,7 +441,7 @@ def _substep(x, v, w, f, lam, spec: LatticeSpec, cfg: SolverConfig, dt,
 
     # finalize
     pinned = (w == 0.0)[None]
-    v = torch.where(pinned, 0.0, (pred - x) / dt)
+    v = torch.where(pinned, 0.0, _integrate.over_dt(pred - x, dt))
     x = torch.where(pinned, x, pred)
 
     if cfg.floor_mode == FloorMode.VELOCITY_REFLECT:
@@ -346,24 +465,30 @@ def _substep(x, v, w, f, lam, spec: LatticeSpec, cfg: SolverConfig, dt,
         x = torch.stack([x[0], x1, x[2]])
         v = torch.stack([v0, v1, v2])
 
-    return x, v, lam
+    return x, v, lam, lam_t
 
 
 def _to_grid(state: SimState, spec: LatticeSpec):
+    """(x, v, w, f, lam, lam_t) in (.., res, res^2) layout; lam_t is None
+    for a state without tet multipliers."""
     res = spec.res
     r2 = res * res
+    lam_t = (None if state.lambda_tet is None
+             else state.lambda_tet.reshape(6, res, r2))
     return (state.positions.T.reshape(3, res, r2),
             state.velocities.T.reshape(3, res, r2),
             state.inv_mass.reshape(res, r2),
             state.ext_force.T.reshape(3, res, r2),
-            state.lambda_dist.reshape(spec.n_families, res, r2))
+            state.lambda_dist.reshape(spec.n_families, res, r2), lam_t)
 
 
-def _from_grid(state: SimState, x, v, lam, zero_ext: bool) -> SimState:
+def _from_grid(state: SimState, x, v, lam, lam_t,
+               zero_ext: bool) -> SimState:
     out = state.replace(
         positions=x.reshape(3, -1).T.contiguous(),
         velocities=v.reshape(3, -1).T.contiguous(),
         lambda_dist=lam.reshape(-1),
+        lambda_tet=None if lam_t is None else lam_t.reshape(-1),
     )
     if zero_ext:
         out = out.replace(ext_force=torch.zeros_like(state.ext_force))
@@ -378,13 +503,16 @@ def run_substeps_plain(state: SimState, spec: LatticeSpec,
     substep and zeroes it; ``with_ext=False`` neither applies nor clears it
     (the semantics of the JAX package's fused runners)."""
     check_supported(cfg, spec)
-    check_state(state)
+    check_state(state, cfg)
     masks = _masks_dev(spec, state.device)
-    x, v, w, f, lam = _to_grid(state, spec)
+    tet_dev = (_tet_dev(spec, state.device) if cfg.enable_tet_volume
+               else None)
+    x, v, w, f, lam, lam_t = _to_grid(state, spec)
     for i in range(n_substeps):
-        x, v, lam = _substep(x, v, w, f, lam, spec, cfg, dt_sub,
-                             with_ext and i == 0, masks)
-    return _from_grid(state, x, v, lam, zero_ext=with_ext)
+        x, v, lam, lam_t = _substep(x, v, w, f, lam, spec, cfg, dt_sub,
+                                    with_ext and i == 0, masks, lam_t,
+                                    tet_dev)
+    return _from_grid(state, x, v, lam, lam_t, zero_ext=with_ext)
 
 
 def step_fn(state: SimState, spec: LatticeSpec, cfg: SolverConfig,

@@ -107,7 +107,7 @@ def test_blocked_diagnostics_match_jax(name, neighbors):
                   lambda_bend=np.zeros(0), lambda_volume=np.zeros(()))
     js = jstate_mod.SimState(**{k: jnp.asarray(v, jnp.float32)
                                 for k, v in fields.items()})
-    ps = port.state_from_numpy(fields)
+    ps = port.state_from_numpy(fields, device="cpu")
     assert pdiag.blocked_overflow(ps, pcfg) == jdiag.blocked_overflow(js,
                                                                       jcfg)
     assert pdiag.blocked_dropped_pairs(ps, pcfg) == \
@@ -171,7 +171,8 @@ def test_diagnostics_match_jax():
                                         dtype=np.float32)
     js = jstate_mod.SimState(**{k: jnp.asarray(v) for k, v in fields.items()})
     j = jdiag.diagnostics(js, jtopo)
-    p = pdiag.diagnostics(port.state_from_numpy(fields), ptopo)
+    p = pdiag.diagnostics(port.state_from_numpy(fields, device="cpu"),
+                          ptopo)
     assert set(p) == set(j)
     # sums in another order: the centre of mass's zero components differ
     # by rounding

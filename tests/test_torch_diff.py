@@ -59,7 +59,8 @@ def jax_state(topo, pos):
 
 
 def port_state(topo, pos):
-    return port.state_from_topology(topo, np.asarray(pos))
+    return port.state_from_topology(topo, np.asarray(pos),
+                                    device="cpu")
 
 
 def jax_rollout(topo, cfg, n_sub):

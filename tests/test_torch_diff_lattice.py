@@ -64,7 +64,8 @@ def test_lattice_runner_grads_match_jax(remat_chunk):
     _, pspec, _, pcfg = lattice_case()
     n_sub = 8
     jval, jgrad = jax_lattice_grad(n_sub)
-    pst = plat.make_lattice_state(pspec, center=(0, 0.7, 0))
+    pst = plat.make_lattice_state(pspec, center=(0, 0.7, 0),
+                                  device="cpu")
     run = kdiff.make_differentiable_lattice_runner(pspec, pcfg, DT_SUB, n_sub,
                                                    remat_chunk=remat_chunk)
     v0 = torch.as_tensor(V0).requires_grad_()
@@ -90,7 +91,8 @@ def test_lattice_step_ext_force_grads_match_jax():
         return jnp.sum(ref_fn(s).positions[:, 1])
 
     jval, jgrad = jax.value_and_grad(jloss)(jnp.asarray(f0))
-    pst = plat.make_lattice_state(pspec, center=(0, 0.7, 0))
+    pst = plat.make_lattice_state(pspec, center=(0, 0.7, 0),
+                                  device="cpu")
     run = kdiff.make_differentiable_lattice_step(pspec, pcfg, dt,
                                                  n_steps=n_steps)
     f = torch.as_tensor(f0).requires_grad_()

@@ -42,7 +42,8 @@ def jax_case(kind, **kw):
     for k in fields:
         np.testing.assert_array_equal(fields[k], pfields[k])
     js = jstate_mod.SimState(**{k: jnp.asarray(v) for k, v in fields.items()})
-    return jtopo, js, ptopo, port.state_from_numpy(pfields)
+    return jtopo, js, ptopo, port.state_from_numpy(pfields,
+                                                   device="cpu")
 
 
 def diffs(jstate, pstate):

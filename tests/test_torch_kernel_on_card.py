@@ -25,7 +25,12 @@ multipliers to 1 % of their largest magnitude.  The fused mesh backward
 |g| < 1e-5 for every cotangent) and against autograd through the plain
 engine (< 1e-4, the JAX suite's gradient gate), and the mesh kernel's
 traced materials against its static path (bit for bit), and the plain
-engine's hub-row sum on the card against the column-order fold.
+engine's hub-row sum on the card against the column-order fold.  The
+slab kernel (B-6, ``kernels/spatial_cuda.py``) against the sharded torch
+engine for every case of ``test_torch_spatial_cases.py`` it carries (up
+to four slabs on one card; |dx| < 1e-5, |dlambda| < 1e-6), run again to
+the bit; and the lattice kernel's tet sweep against the plain stencil
+engine on that module's tet cases (|dx| < 2e-5, |dlambda_tet| < 1e-5).
 """
 
 import pytest
@@ -36,6 +41,8 @@ from softbodysimulation_tpu_torch.kernels import contact_cuda as cc
 from softbodysimulation_tpu_torch.kernels import lattice_cuda as lc
 from softbodysimulation_tpu_torch.kernels import mesh_cuda as mc
 from softbodysimulation_tpu_torch.kernels import mesh_diff as md
+from softbodysimulation_tpu_torch.kernels import spatial_cuda as sc
+from softbodysimulation_tpu_torch.parallel import spatial as psp
 from softbodysimulation_tpu_torch.solvers import general as pgeneral
 from softbodysimulation_tpu_torch.solvers import lattice as plat
 from softbodysimulation_tpu_torch.ops import spatial_hash as psh
@@ -45,6 +52,7 @@ import test_torch_cases as lattice_cases
 import test_torch_contact_cases as contact_cases
 import test_torch_diff_cases as diff_cases
 import test_torch_mesh_cases as mesh_cases
+import test_torch_spatial_cases as spatial_cases
 
 CASES = lattice_cases.parity_cases()
 MESH_CASES = mesh_cases.mesh_cases()
@@ -271,3 +279,89 @@ def test_hub_row_sum_on_card_is_the_column_order_fold(cuda):
     got = pgeneral._HubRowSum.apply(head.to(cuda), cols.to(cuda))
     assert torch.equal(got, run)
     assert torch.equal(pgeneral._HubRowSum.apply(head, cols), run.cpu())
+
+
+# ---- the spatial slab kernel (B-6) and B-1's tet sweep ---------------------
+
+SPATIAL_CASES = spatial_cases.spatial_cases()
+SLAB_CASES = [n for n, (c, _, d, r, _) in SPATIAL_CASES.items()
+              if spatial_cases.kernel_carries(c, d, r)]
+LATTICE_TET_CASES = [n for n, (c, _, _, _, _) in SPATIAL_CASES.items()
+                     if c.enable_tet_volume]
+
+
+def _slab_run(cuda, name, n_slabs=None):
+    cfg, inputs, d, res, frames = SPATIAL_CASES[name]
+    spec = ptop.lattice_spec(res, braced=True)
+    state = state_from_numpy(spatial_cases.case_inputs(res, **inputs),
+                             device=cuda)
+    devices = [cuda] * (n_slabs or d)
+    before = sc.launches
+    out = sc.make_spatial_cuda_substep(spec, cfg, spatial_cases.DT, devices,
+                                       n_steps=frames)(state)
+    torch.cuda.synchronize()
+    assert sc.launches > before
+    ref = psp.make_spatial_lattice_step(spec, cfg, spatial_cases.DT, devices,
+                                        n_steps=frames, backend="xla")(state)
+    return state, out, ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", SLAB_CASES)
+def test_slab_kernel_matches_sharded_engine_on_card(cuda, name):
+    """B-6 (D slabs on one card, each on its own stream) against the
+    sharded torch engine on the card, at B-1's gates."""
+    state, out, ref = _slab_run(cuda, name)
+    dx = float((out.positions - ref.positions).abs().max())
+    assert dx < 1e-5, (name, dx)
+    _lam_gates(out, ref, (("lambda_dist", 1e-6),))
+    assert float(out.ext_force.abs().max()) == 0.0
+    assert float((out.positions - state.positions).abs().max()) > 1e-3
+
+
+@pytest.mark.gpu
+def test_slab_kernel_is_race_free_on_card(cuda):
+    """Four slabs on four streams, run several times: equal to the bit each
+    time."""
+    _, first, _ = _slab_run(cuda, "colored_reset")
+    for _ in range(4):
+        _, again, _ = _slab_run(cuda, "colored_reset")
+        assert torch.equal(again.positions, first.positions)
+        assert torch.equal(again.lambda_dist, first.lambda_dist)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", LATTICE_TET_CASES)
+def test_lattice_kernel_tets_match_plain_on_card(cuda, name):
+    """B-1 with the per-cell tet sweep against the plain stencil engine on
+    one device: |dx| < 2e-5, |dlambda_tet| < 1e-5, every multiplier within
+    1 % of its largest."""
+    cfg, inputs, _, res, frames = SPATIAL_CASES[name]
+    spec = ptop.lattice_spec(res, braced=True)
+    state = state_from_numpy(spatial_cases.case_inputs(res, **inputs),
+                             device=cuda)
+    before = lc.launches
+    out = lc.make_cuda_step(spec, cfg, spatial_cases.DT,
+                            n_steps=frames)(state)
+    torch.cuda.synchronize()
+    assert lc.launches > before
+    ref = plat.multi_step_fn(state, spec, cfg, spatial_cases.DT, frames)
+    dx = float((out.positions - ref.positions).abs().max())
+    assert dx < 2e-5, (name, dx)
+    _lam_gates(out, ref, (("lambda_dist", 1e-6), ("lambda_tet", 1e-5)))
+
+
+@pytest.mark.gpu
+def test_slab_kernel_refuses_what_it_does_not_carry_on_card(cuda):
+    """On CUDA slabs ``backend="auto"`` routes to B-6, which refuses tets
+    and names ``backend="xla"``; that backend runs them on the card."""
+    cfg, inputs, d, res, frames = SPATIAL_CASES["tets"]
+    spec = ptop.lattice_spec(res, braced=True)
+    with pytest.raises(NotImplementedError, match='backend="xla"'):
+        psp.make_spatial_lattice_step(spec, cfg, spatial_cases.DT,
+                                      [cuda] * d)
+    state = state_from_numpy(spatial_cases.case_inputs(res, **inputs),
+                             device=cuda)
+    out = psp.make_spatial_lattice_step(spec, cfg, spatial_cases.DT,
+                                        [cuda] * d, backend="xla")(state)
+    assert out.device.type == "cuda" and out.lambda_tet is not None

@@ -93,15 +93,21 @@ def test_runner_without_ext_keeps_the_accumulator():
                                   "ensemble_runner", "batched_step",
                                   "solver_step", "too_many_spheres"])
 def test_unsupported_features_refused_at_build(what):
+    """What the slice does not carry raises ``NotImplementedError`` when the
+    runner is built.  The per-cell tets are carried: a tet config builds,
+    and only a state without tet multipliers is refused, when it arrives."""
     spec = ptop.lattice_spec(4, braced=True)
     cfg = port_config(SolverConfig(substeps=2, iterations=1))
     kw = {}
     build = lc.make_cuda_substep_runner
+    if what == "tet_volume":
+        run = build(spec, cfg.replace(enable_tet_volume=True), DT_SUB, 4)
+        with pytest.raises(ValueError, match="tet_volume=True"):
+            run(plat.make_lattice_state(spec, device="cpu"))
+        return
     if what == "self_collision":
         cfg = cfg.replace(enable_self_collision=True,
                           self_collision_every=2)
-    elif what == "tet_volume":
-        cfg = cfg.replace(enable_tet_volume=True)
     elif what == "box_colliders":
         cfg = cfg.replace(box_colliders=((0.0, 0.3, 0.0, 0.5, 0.3, 0.5),))
     elif what == "approx_math":
@@ -115,7 +121,8 @@ def test_unsupported_features_refused_at_build(what):
         if what == "batched_step":
             plat.make_batched_step(spec, cfg, 1 / 60, n_bodies=2)
         elif what == "solver_step":
-            plat.make_step(spec, cfg.replace(enable_tet_volume=True), 1 / 60)
+            plat.make_step(spec, cfg.replace(
+                box_colliders=((0.0, 0.3, 0.0, 0.5, 0.3, 0.5),)), 1 / 60)
         else:
             build(spec, cfg, DT_SUB, 4, **kw)
 
@@ -123,7 +130,8 @@ def test_unsupported_features_refused_at_build(what):
 def test_state_with_colliders_refused_at_call():
     spec = ptop.lattice_spec(3, braced=True)
     cfg = port_config(SolverConfig(substeps=2, iterations=1))
-    state = plat.make_lattice_state(spec).replace(colliders=object())
+    state = plat.make_lattice_state(spec, device="cpu").replace(
+        colliders=object())
     for fn in (lc.make_cuda_substep_runner(spec, cfg, DT_SUB, 2),
                lc.make_cuda_step(spec, cfg, 1 / 60),
                plat.make_step(spec, cfg, 1 / 60)):
@@ -133,9 +141,10 @@ def test_state_with_colliders_refused_at_call():
 
 def test_params_mirror_the_cuda_struct():
     """The ctypes ``LatticeParams`` lists the fields of the C struct in
-    ``csrc/lattice_xpbd.cu`` in the same order with the same widths, and
-    ``make_params`` rounds each constant from the config's double."""
-    src = (_build.CSRC_DIR / "lattice_xpbd.cu").read_text()
+    ``csrc/lattice_xpbd.cuh`` (shared by the lattice and slab kernels) in
+    the same order with the same widths, and ``make_params`` rounds each
+    constant from the config's double."""
+    src = (_build.CSRC_DIR / "lattice_xpbd.cuh").read_text()
     body = re.search(r"struct LatticeParams \{(.*?)\n\};", src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
     consts = {"LX_MAX_FAM": lc.MAX_FAM, "LX_MAX_SPHERES": lc.MAX_SPHERES}

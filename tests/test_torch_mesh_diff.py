@@ -148,7 +148,7 @@ def test_fused_runner_matches_jax_fused_backward(iters, lam):
     cfg = cases.config(iterations=iters,
                        lambda_mode=cases._port_config.LambdaMode(lam))
     from softbodysimulation_tpu_torch import state_from_topology
-    st = state_from_topology(topo, pos)
+    st = state_from_topology(topo, pos, device="cpu")
     run = kdiff.make_differentiable_mesh_runner(topo, cfg, cases.DT, n_sub,
                                                 backward="fused")
     v0 = torch.as_tensor(V0).requires_grad_()

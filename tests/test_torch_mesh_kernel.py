@@ -45,7 +45,7 @@ def both(kind, **kw):
     jtopo, fields = mesh_cases.case_inputs(kind, jbuild, jmesh, **kw)
     ptopo, _ = mesh_cases.case_inputs(kind, **kw)
     js = jstate_mod.SimState(**{k: jnp.asarray(v) for k, v in fields.items()})
-    return jtopo, js, ptopo, port.state_from_numpy(fields)
+    return jtopo, js, ptopo, port.state_from_numpy(fields, device="cpu")
 
 
 def assert_gates(jout, pout, cfg):

@@ -140,12 +140,12 @@ def test_topology_numpy_round_trip_and_to():
     _, jtopo = jbuild.topology_from_mesh(m, compliance=1e-3, bending=True,
                                          windowed=True)
     assert jtopo.windows is not None
-    carried = topology_from_numpy(jax_fields(jtopo))
+    carried = topology_from_numpy(jax_fields(jtopo), device="cpu")
     assert_same_topology(carried, jtopo)
     _, own = pbuild.topology_from_mesh(pmesh.icosphere(2), compliance=1e-3,
                                        bending=True, windowed=True)
     assert_same_topology(own, jtopo)
-    back = topology_from_numpy(port_fields(carried))
+    back = topology_from_numpy(port_fields(carried), device="cpu")
     assert_same_topology(back, jtopo)
     moved = carried.to("cpu")
     assert isinstance(moved, Topology) and moved.n_edges == jtopo.n_edges
@@ -154,9 +154,10 @@ def test_topology_numpy_round_trip_and_to():
     fields = jax_fields(jtopo)
     del fields["degree"]
     with pytest.raises(ValueError):
-        topology_from_numpy(fields)
+        topology_from_numpy(fields, device="cpu")
     with pytest.raises(ValueError):
-        topology_from_numpy(dict(jax_fields(jtopo), bogus=1))
+        topology_from_numpy(dict(jax_fields(jtopo), bogus=1),
+                            device="cpu")
 
 
 def test_tets_and_bad_topologies_are_refused():

@@ -128,7 +128,7 @@ def test_contact_cases_match_jax(name, engine):
     the rollout lands more than 10x further away."""
     cfg, frames = CONTACT_CASES[name]
     ptopo, fields, nc = cases.contact_scene(cases.modules())
-    ps = port.state_from_numpy(fields)
+    ps = port.state_from_numpy(fields, device="cpu")
     pcfg = port_config(cfg)
     if engine == "plain":
         out = pgeneral.multi_step_fn(ps, ptopo, pcfg, DT, frames)
@@ -249,9 +249,52 @@ def test_scenes_default_to_the_card(monkeypatch):
     """Without a CUDA device a scene called without ``device`` raises; with
     ``device="cpu"`` it builds on the CPU.  Nothing falls back."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for scene in ("flagship", "flagship_perf", "cpu_mesh", "cloth",
-                  "cloth_xl", "tet_cube", "tet_ball", "ball_on_cloth"):
+    for scene in ("flagship", "flagship_perf", "solid_lattice", "cpu_mesh",
+                  "cloth", "cloth_xl", "tet_cube", "tet_ball",
+                  "ball_on_cloth"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             getattr(pscenes, scene)()
     state, _, _ = pscenes.tet_cube(res=2, device="cpu")
     assert state.device.type == "cpu"
+
+
+def _constructor_calls():
+    """Each state constructor of the port, called with keyword overrides."""
+    spec = ptop.lattice_spec(3)
+    pos = ptop.lattice_points(3, spec.size, (0.0, 0.0, 0.0))
+    edges, comp = ptop.lattice_edges(3)
+    from softbodysimulation_tpu_torch.topology import build as pbuild
+    topo = pbuild.build_topology(pos, edges, comp)
+    fields = port.state_to_numpy(port.state_from_topology(topo, pos,
+                                                          device="cpu"))
+    tfields = {f.name: (getattr(topo, f.name).numpy()
+                        if isinstance(getattr(topo, f.name), torch.Tensor)
+                        else getattr(topo, f.name))
+               for f in dataclasses.fields(topo)}
+    return {
+        "make_lattice_state": lambda **kw: plat.make_lattice_state(spec,
+                                                                   **kw),
+        "make_state": lambda **kw: port.make_state(
+            pos, n_edges=topo.n_edges, **kw),
+        "state_from_topology": lambda **kw: port.state_from_topology(
+            topo, pos, **kw),
+        "state_from_numpy": lambda **kw: port.state_from_numpy(fields, **kw),
+        "topology_from_numpy": lambda **kw: port.topology_from_numpy(
+            tfields, **kw),
+    }
+
+
+@pytest.mark.parametrize("name", ["make_lattice_state", "make_state",
+                                  "state_from_topology", "state_from_numpy",
+                                  "topology_from_numpy"])
+def test_state_constructors_default_to_the_card(monkeypatch, name):
+    """Without a CUDA device a state constructor called without ``device``
+    raises, naming ``device='cpu'``; with ``device="cpu"`` it builds on the
+    CPU.  Nothing falls back to the CPU silently."""
+    make = _constructor_calls()[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    out = make(device="cpu")
+    t = out.positions if hasattr(out, "positions") else out.edges
+    assert t.device.type == "cpu"

@@ -109,10 +109,11 @@ def test_state_from_numpy_refuses_colliders_and_missing_fields():
     _, js = jax_lattice_state(3)
     fields = {k: np.asarray(getattr(js, k)) for k in FIELDS[:-1]}
     with pytest.raises(NotImplementedError):
-        port.state_from_numpy(dict(fields, colliders=object()))
+        port.state_from_numpy(dict(fields, colliders=object()),
+                              device="cpu")
     del fields["inv_mass"]
     with pytest.raises(ValueError):
-        port.state_from_numpy(fields)
+        port.state_from_numpy(fields, device="cpu")
 
 
 def test_is_finite_snapshot_restore():

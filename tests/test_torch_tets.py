@@ -148,7 +148,7 @@ def test_plain_engine_tets_match_jax(name):
     for k in fields:
         np.testing.assert_array_equal(fields[k], pfields[k])
     js = jstate_mod.SimState(**{k: jnp.asarray(v) for k, v in fields.items()})
-    ps = port.state_from_numpy(pfields)
+    ps = port.state_from_numpy(pfields, device="cpu")
     jout = jgeneral.make_step(jtopo, cfg, DT, n_steps=frames)(js)
     pout = pgeneral.make_step(ptopo, port_config(cfg), DT, n_steps=frames)(ps)
     assert port.is_finite(pout)
