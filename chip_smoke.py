@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's lattice, mesh, contact, differentiable and spatial main
-paths through the entry points a user calls and fails (nonzero exit) if
-any phase fails:
+Drives the port's lattice, mesh, contact, differentiable, spatial and
+kinematic-collider main paths through the entry points a user calls and
+fails (nonzero exit) if any phase fails:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch / CUDA
    versions;
@@ -150,7 +150,31 @@ any phase fails:
    slabs, B-1 at res 128 and the sharded torch engine there; B-6 at res 40
    in 4 slabs against B-1 at res 40; ``solid_lattice`` through B-1 and the
    plain engine; and B-6's bound (``lattice_work`` at the slab shapes,
-   plus the exchanged planes where the slabs sit on more than one card).
+   plus the exchanged planes where the slabs sit on more than one card);
+26. the lattice kernel with the rigid world against its plain version for
+   every case of ``tests/test_torch_collider_cases.py`` at phase 3's gates
+   (config boxes; kinematic spheres and boxes with velocities; an
+   animated ground in both floor modes; each pose moved once on the same
+   runner); ``sphere_sweep`` at res 40 (64,000 particles) for 240
+   animated frames through one runner and through the plain engine
+   (finite, ymin > -1e-2, the slab pushed along +x, max |dx| < 1e-5);
+   at that width a config box standing in the slab and a kinematic box
+   sweeping against the sphere, 120 frames each through the kernel and
+   the plain engine (the same gates, the box emptied or the slab moved);
+   ms per substep of that config with poses and without, and launches
+   per substep with and without (equal, also at ``flagship_perf``);
+27. the mesh kernel with the rigid world against the plain engine for the
+   mesh cases of that module at phase 8's gates; ``cloth_xl`` with a
+   kinematic sphere sweeping through it for 240 frames, kernel and plain
+   (finite, pinned row unmoved, the cloth pushed, drift < 1e-3), timed;
+   a config box and a kinematic box at that width, as in phase 26;
+28. B-5's pose cotangents on the ``bench_diff`` scene with a kinematic
+   sphere overlapping the shell, 40 substeps, a random-weighted loss:
+   against ``backward_chunk_plain`` (< 1e-5) and autograd (< 1e-4) on one
+   scale across the pose leaves; the runner's chunks of 10 against one
+   chunk (rtol 1e-5); ``config11_collider_control.run(engine="fused")``
+   at its defaults (its loss shrinks); ms per 40-substep chunk with and
+   without the pose cotangents, and the bound with them.
 
 Prints one JSON line of kernels (with each kernel's bound, the least time
 the card could take for the same work, from ``bound_ms``), the card's name
@@ -373,32 +397,65 @@ def bound_ms(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def lattice_work(spec, cfg):
+# float32 operations of one particle's projection against one collider,
+# counted from csrc/colliders.cuh (box_project) and the sphere blocks of
+# csrc/lattice_xpbd.cu and mesh_xpbd.cuh (sphere_project), as B5_* below
+# are counted: the push (difference, squared length, root, normal,
+# penetration, gate), the velocity relative to the collider and the
+# friction's tangential part
+SPHERE_OPS = 48
+BOX_OPS = 49
+# the 1 + S + B rows of the collider table (csrc/colliders.cuh), 9 floats
+KIN_ROW_BYTES = 36
+
+
+def collider_work(n, counts, passes):
+    """(bytes, operations) of ``passes`` contact projections of ``n``
+    particles against ``counts = (spheres, boxes)``: the collider table
+    read once, SPHERE_OPS / BOX_OPS per particle per collider per pass."""
+    s, b = counts
+    return (1 + s + b) * KIN_ROW_BYTES, passes * n * (SPHERE_OPS * s
+                                                      + BOX_OPS * b)
+
+
+def lattice_work(spec, cfg, colliders=(0, 0)):
     """(bytes, operations) of one lattice substep: positions and velocities
     read and written, inverse masses read, every family's multipliers
     written, and read unless the mode is RESET (which zeroes them in the
     predict and never reads them); ~30 operations per constraint projection
-    (difference, length, the XPBD update, two corrections) per
-    iteration."""
+    (difference, length, the XPBD update, two corrections) per iteration;
+    and the contacts against ``colliders = (spheres, boxes)`` (the config's
+    unless given) once per iteration (``collider_work``)."""
     from softbodysimulation_tpu_torch.core.config import LambdaMode
     n, fam = spec.n_particles, spec.n_families
     lam = 4 * fam * (1 if cfg.lambda_mode == LambdaMode.RESET else 2)
-    return n * (24 * 2 + 4 + lam), 30 * n * fam * cfg.iterations
+    counts = (max(colliders[0], len(cfg.sphere_colliders)),
+              max(colliders[1], len(cfg.box_colliders)))
+    cb, cops = collider_work(n, counts, cfg.iterations)
+    return (n * (24 * 2 + 4 + lam) + cb,
+            30 * n * fam * cfg.iterations + cops)
 
 
-def mesh_work(topo, cfg):
+def mesh_work(topo, cfg, colliders=(0, 0)):
     """(bytes, operations) of one mesh substep: the state read and written,
     the per-constraint tables and CSR incidence rows read once, the
     multipliers read and written; per iteration ~30 operations per edge,
     ~150 per hinge (normals, acos, sin, four gradients), ~120 per tet, ~10
-    per particle (the sums and contacts)."""
+    per particle (the sums and the floor); and the contacts against
+    ``colliders = (spheres, boxes)`` (the config's unless given) once per
+    iteration, twice with Chebyshev (``collider_work``)."""
+    from softbodysimulation_tpu_torch.solvers import general
     n, e, h, t = topo.n_particles, topo.n_edges, topo.n_hinges, topo.n_tets
     nbytes = (n * (24 * 2 + 4) + e * (8 + 16 + 8) + h * (16 + 12 + 8)
               + t * (16 + 12 + 8)
               + 4 * (n + 1 + 2 * e) + 4 * (n + 1 + 4 * h)       # CSR rows
               + (4 * (n + 1 + 4 * t) + 4 * n if t else 0))
     ops = cfg.iterations * (30 * e + 150 * h + 120 * t + 10 * n)
-    return nbytes, ops
+    counts = (max(colliders[0], len(cfg.sphere_colliders)),
+              max(colliders[1], len(cfg.box_colliders)))
+    passes = cfg.iterations * (2 if general.accelerated(cfg) else 1)
+    cb, cops = collider_work(n, counts, passes)
+    return nbytes + cb, ops + cops
 
 
 DIFF_DT = 1.0 / 240.0
@@ -438,19 +495,40 @@ B5_PARTICLE_ITER_OPS = 3 + 37 + 58 + 6
 B5_PARTICLE_SUB_OPS = 24 + 7 + 7 + 3 + 33
 
 
-def diff_work(topo, cfg, n_substeps):
+# B-5's kinematic pose cotangents, per particle, per sphere, per contact
+# VJP (once an iteration, twice with Chebyshev): sphere_bwd of
+# csrc/mesh_diff_xpbd.cu recomputes the projection's parts (37) and takes
+# its VJP with the seven pose-plane additions (72), after replaying the
+# floor before it (8); the replayed forward projects the sphere once per
+# contact pass too (SPHERE_OPS); the ground's cotangent is 4 more a floor
+# VJP; pose_sum_kernel adds each of the 1 + 7S planes over the particles
+B5_SPHERE_VJP_OPS = 37 + 72 + 8
+B5_GROUND_VJP_OPS = 4
+
+
+def diff_work(topo, cfg, n_substeps, kin_spheres=0):
     """(bytes, operations) of one B-5 chunk of ``n_substeps``.  Bytes: the
     inputs read once (the edges and three per-edge constants, the CSR rows,
     x, v, inverse masses and multipliers, the output cotangents) and the
     entry cotangents written once; the stash is the kernel's intermediate,
     not an input or an output, and is not counted.  Operations: the counts
-    above."""
+    above.  With ``kin_spheres`` (a ColliderSet's spheres): the collider
+    table read, the 1 + 7S pose cotangents written, and the pose VJPs and
+    sums (the B5_SPHERE_* counts); the static sphere VJP of a config's
+    spheres is not counted (the main path has none)."""
+    from softbodysimulation_tpu_torch.solvers import general
     n, e, k = topo.n_particles, topo.n_edges, cfg.iterations
     nbytes = (e * (8 + 12) + 4 * (n + 1 + 2 * e)    # edges, rest/alpha/relax
               + n * (12 + 12 + 4) + 4 * e          # x, v, w, lambda
               + 2 * (n * 24 + 4 * e))              # cotangents in and out
     ops = n_substeps * (k * (B5_EDGE_ITER_OPS * e + B5_PARTICLE_ITER_OPS * n)
                         + B5_PARTICLE_SUB_OPS * n)
+    if kin_spheres:
+        s = kin_spheres
+        passes = n_substeps * k * (2 if general.accelerated(cfg) else 1)
+        nbytes += (1 + s) * KIN_ROW_BYTES + 4 * (1 + 7 * s)
+        ops += passes * n * (s * (B5_SPHERE_VJP_OPS + SPHERE_OPS)
+                             + B5_GROUND_VJP_OPS) + (1 + 7 * s) * n
     return nbytes, ops
 
 
@@ -1523,6 +1601,409 @@ def spatial_phases(torch, np, spatial_build, lattice_build, smi,
                 profile=profile)
 
 
+SWEEP_RES = 40
+SWEEP_FRAMES = 240
+CLOTH_SWEEP_FRAMES = 240
+KIN_GRAD_SUBSTEPS = 40
+BOX_FRAMES = 120
+
+
+def paired_frames(kstep, pstep, state, animate, frames):
+    """The states after ``frames`` frames of a kernel step and of the plain
+    engine's, frame i's poses set by ``animate(i, state)``."""
+    k = p = state
+    for i in range(frames):
+        k = kstep(animate(i, k))
+        p = pstep(animate(i, p))
+    return k, p
+
+
+def inside_box(torch, p, box, margin=1e-4):
+    """How many of the positions ``p`` lie inside ``box`` (cx, cy, cz, hx,
+    hy, hz), ``margin`` in from its faces."""
+    c = torch.tensor(box[:3], device=p.device)
+    h = torch.tensor(box[3:], device=p.device)
+    return int(((p - c).abs() < h - margin).all(dim=1).sum())
+
+
+def box_sweeps(torch, what, kernel, plain, scene, is_finite, gate):
+    """A config box and a kinematic box with a velocity at a main path's
+    width, each ``BOX_FRAMES`` frames through a kernel step and the plain
+    engine's.  ``kernel(cfg, kin)`` and ``plain(cfg)`` make the steps;
+    ``scene`` = (cfg, state without colliders, the config box, the
+    ColliderSet state, its animation, the sweep's state at BOX_FRAMES
+    without the box).  Gates: finite, on the floor, max |dx| < ``gate``,
+    the config box emptied and the kinematic box moving the body off the
+    sweep without it.  Returns {label: max |dx|}."""
+    cfg, bare, cbox, kstate, animate, sweep_only = scene
+    bcfg = cfg.replace(box_colliders=(cbox,))
+    before = inside_box(torch, bare.positions, cbox)
+    runs = {"config box": (kernel(bcfg, None), plain(bcfg), bare,
+                           lambda i, s_: s_),
+            "kinematic box": (kernel(cfg, (1, 1)), plain(cfg), kstate,
+                              animate)}
+    errs = {}
+    for label, (kstep, pstep, s0, anim) in runs.items():
+        k, p = paired_frames(kstep, pstep, s0, anim, BOX_FRAMES)
+        dx = float((k.positions - p.positions).abs().max())
+        ymin = float(k.positions[:, 1].min())
+        if label == "config box":
+            after = inside_box(torch, k.positions, cbox)
+            acted = before > 0 and after == 0
+            note = f"particles inside the box {before} -> {after}"
+        else:
+            moved = float((k.positions - sweep_only.positions).abs().max())
+            acted = moved > 1e-2
+            note = f"moved {moved:.4f} off the sweep without the box"
+        print(f"# {what} with a {label}, {BOX_FRAMES} frames, kernel vs "
+              f"plain: max|dx| {dx:.3e} (gate {gate}); finite="
+              f"{is_finite(k)} ymin={ymin:.6f}; {note}")
+        if not (is_finite(k) and ymin > -1e-2 and dx < gate and acted):
+            raise RuntimeError(f"{what} with a {label} failed its gates")
+        errs[label] = dx
+    return errs
+
+
+def collider_phases(torch, np, smi, is_finite):
+    """Phases 26-28, the kinematic rigid world (config boxes, ColliderSet
+    poses and pose cotangents) in B-1, B-3 and B-5.  Returns the numbers
+    each kernel's JSON entry gains."""
+    import test_torch_collider_cases as K
+    from softbodysimulation_tpu_torch import make_colliders
+    from softbodysimulation_tpu_torch.core import scenes
+    from softbodysimulation_tpu_torch.core.colliders import ColliderSet
+    from softbodysimulation_tpu_torch.examples import \
+        config11_collider_control
+    from softbodysimulation_tpu_torch.kernels import diff as kd
+    from softbodysimulation_tpu_torch.kernels import lattice_cuda as lc
+    from softbodysimulation_tpu_torch.kernels import mesh_cuda as mc
+    from softbodysimulation_tpu_torch.kernels import mesh_diff as md
+    from softbodysimulation_tpu_torch.solvers import general
+    from softbodysimulation_tpu_torch.solvers import lattice as lat
+
+    out = {}
+
+    # 26. B-1 with the rigid world
+    t0 = time.perf_counter()
+    # the largest |dx| of the cases with a ColliderSet, and of those with
+    # boxes (the config's or kinematic)
+    errs = {"kin": 0.0, "box": 0.0}
+    for name, (cfg, kin, _, n_sub) in K.lattice_collider_cases().items():
+        runs = K.lattice_runs(name, "cuda", lambda sp, c, dt, n, k:
+                              lc.make_cuda_substep_runner(
+                                  sp, c, dt, n, kin_colliders=k),
+                              lat.run_substeps_plain)
+        for i, (got, ref, start) in enumerate(runs):
+            label = f"{name}{' moved, same runner' if i else ''} res 6"
+            err = compare(torch, label, got, ref, start, 1 / 480, n_sub,
+                          is_finite)
+            if kin is not None:
+                errs["kin"] = max(errs["kin"], err)
+            if cfg.box_colliders or (kin or {}).get("boxes"):
+                errs["box"] = max(errs["box"], err)
+        if len(runs) == 2 and torch.equal(runs[0][0].positions,
+                                          runs[1][0].positions):
+            raise RuntimeError(f"{name}: a moved pose changed nothing")
+    state, step, info = scenes.sphere_sweep(res=SWEEP_RES, device="cuda")
+    spec, cfg, dt = info["spec"], info["config"], info["dt"]
+    animate = info["animate"]
+    n = spec.n_particles
+    x0 = float(state.positions[:, 0].mean())
+    torch.cuda.synchronize()
+    lc.launches = 0
+    tk = time.perf_counter()
+    st = state
+    for i in range(SWEEP_FRAMES):
+        st = step(animate(i, st))
+        if i + 1 == BOX_FRAMES:
+            half = st
+    torch.cuda.synchronize()
+    tk = time.perf_counter() - tk
+    sweep_launches = lc.launches
+    sub = SWEEP_FRAMES * cfg.substeps
+    tp = time.perf_counter()
+    ref = state
+    for i in range(SWEEP_FRAMES):
+        ref = lat.step_fn(animate(i, ref), spec, cfg, dt)
+    torch.cuda.synchronize()
+    tp = time.perf_counter() - tp
+    p = st.positions
+    dx = float((p - ref.positions).abs().max())
+    ymin = float(p[:, 1].min())
+    shift = float(p[:, 0].mean()) - x0
+    print(f"# sphere_sweep res {SWEEP_RES} ({n} particles), "
+          f"{SWEEP_FRAMES} animated frames x {cfg.substeps} substeps "
+          f"through ONE runner (built once by the scene, kin_colliders="
+          f"{info['kin_colliders']}; each frame a new pose in the table): "
+          f"{tk:.3f} s wall, {sweep_launches} launches = "
+          f"{sweep_launches / sub:.2f} a substep; plain {tp:.3f} s; "
+          f"finite={is_finite(st)} ymin={ymin:.6f} slab pushed "
+          f"{shift:.4f} along +x; max|dx| vs plain {dx:.3e} (gate "
+          f"{DX_TOL})")
+    if not (is_finite(st) and ymin > -1e-2 and shift > 0.05
+            and dx < DX_TOL and sweep_launches > 0):
+        raise RuntimeError("sphere_sweep failed its gates")
+    errs["kin"] = max(errs["kin"], dx)
+    # boxes over the whole res-40 grid: a config box standing in the slab,
+    # and a box sweeping along -x against the sphere
+    kstate = state.replace(colliders=make_colliders(
+        spheres=state.colliders.spheres, boxes=[(1.6, 0.3, 0.0, 0.2, 0.2,
+                                                 0.2)],
+        box_velocities=[(-2.0, 0.0, 0.0)], ground_height=0.0,
+        device="cuda"))
+
+    def box_sweep(i, st_):
+        st_ = animate(i, st_)
+        return st_.replace(colliders=st_.colliders.with_box(
+            0, center=(1.6 - 2.0 * i * dt, 0.3, 0.0)))
+
+    box_dx = box_sweeps(
+        torch, f"sphere_sweep res {SWEEP_RES}",
+        lambda c, k: lc.make_cuda_step(spec, c, dt, kin_colliders=k),
+        lambda c: lambda s_: lat.step_fn(s_, spec, c, dt),
+        (cfg, state.replace(colliders=None), (0.0, 0.3, 0.0, 0.2, 0.3, 0.2),
+         kstate, box_sweep, half), is_finite, DX_TOL)
+    errs["kin"] = max(errs["kin"], box_dx["kinematic box"])
+    errs["box"] = max([errs["box"]] + list(box_dx.values()))
+    # ms per substep with poses and without (the same body, config, state
+    # at frame 30 with the sphere inside it), launches per substep of each
+    mid = state
+    for i in range(30):
+        mid = step(animate(i, mid))
+    mid = animate(30, mid)
+    bare = mid.replace(colliders=None)
+    n_k = 480
+    k_kin = lc.make_cuda_substep_runner(spec, cfg, dt / cfg.substeps, n_k,
+                                        kin_colliders=(1, 0))
+    k_bare = lc.make_cuda_substep_runner(spec, cfg, dt / cfg.substeps, n_k)
+    per = {}
+    for key, run, s_ in (("poses", k_kin, mid), ("no poses", k_bare, bare)):
+        lc.launches = 0
+        run(s_)
+        per[key] = lc.launches / n_k
+    times, reps = timed_windows(torch, {
+        "poses": (lambda: k_kin(mid), n_k),
+        "no poses": (lambda: k_bare(bare), n_k)})
+    print(f"# B-1 sweep config ({smi}): with poses "
+          f"{min(times['poses']):.5f} ms/substep, without "
+          f"{min(times['no poses']):.5f} ms/substep (best of two windows; "
+          f"{times}); launches per substep {per['poses']:.0f} with poses, "
+          f"{per['no poses']:.0f} without")
+    if per["poses"] != per["no poses"]:
+        raise RuntimeError(f"poses changed the launches per substep: {per}")
+    fstate, _, finfo = scenes.flagship_perf(res=SWEEP_RES, device="cuda")
+    fspec, fcfg = finfo["spec"], finfo["config"]
+    for key, st_, kin in (("poses", fstate.replace(colliders=make_colliders(
+            spheres=[(0.0, 0.2, 0.0, 0.3)], device="cuda")), (1, 0)),
+            ("no poses", fstate, None)):
+        lc.launches = 0
+        lc.make_cuda_substep_runner(fspec, fcfg, 1 / 480, 8,
+                                    kin_colliders=kin)(st_)
+        per[key] = lc.launches / 8
+    print(f"# B-1 at the main path's config (flagship_perf res "
+          f"{SWEEP_RES}): launches per substep {per['poses']:.0f} with a "
+          f"kinematic sphere, {per['no poses']:.0f} without")
+    if per["poses"] != per["no poses"]:
+        raise RuntimeError(f"poses changed the launches per substep: {per}")
+    out["lattice"] = dict(kin_err=errs["kin"], box_err=errs["box"],
+                          ms_poses=min(times["poses"]),
+                          ms_bare=min(times["no poses"]))
+    print(f"# time: phase 26 took {time.perf_counter() - t0:.1f} s")
+
+    # 27. B-3 with the rigid world
+    t0 = time.perf_counter()
+    merrs = {"kin": 0.0, "box": 0.0}
+    for name, (cfg, kin, _, frames) in K.mesh_collider_cases().items():
+        runs = K.mesh_runs(name, "cuda", lambda t, c, dt, f, k:
+                           mc.make_mesh_cuda_step(t, c, dt, n_steps=f,
+                                                  kin_colliders=k),
+                           general.multi_step_fn)
+        M = K._mesh_cases
+        gates = (M.dx_gate(cfg), M.DLAM_DIST, M.DLAM_BEND)
+        topo = M.case_inputs("sphere")[0]
+        for i, (got, ref, start) in enumerate(runs):
+            err = mesh_compare(torch, f"{name}{' moved' if i else ''}", got,
+                               ref, start, topo, cfg,
+                               frames * cfg.substeps, gates, is_finite)
+            if kin is not None:
+                merrs["kin"] = max(merrs["kin"], err)
+            if cfg.box_colliders or (kin or {}).get("boxes"):
+                merrs["box"] = max(merrs["box"], err)
+    cstate, _, cinfo = scenes.cloth_xl(device="cuda")
+    ctopo, ccfg, cdt = cinfo["topology"], cinfo["config"], cinfo["dt"]
+    pins = torch.as_tensor(cinfo["pinned"], device="cuda")
+    radius, speed, z0 = 0.25, 1.0, -0.8
+    cstate = cstate.replace(colliders=make_colliders(
+        spheres=[(0.0, 1.1, z0, radius)], ground_height=ccfg.ground_height,
+        device="cuda"))
+
+    def sweep(i, st_):
+        return st_.replace(colliders=st_.colliders.with_sphere(
+            0, center=(0.0, 1.1, z0 + speed * i * cdt),
+            velocity=(0.0, 0.0, speed)))
+
+    cstep = mc.make_mesh_cuda_step(ctopo, ccfg, cdt, kin_colliders=(1, 0))
+    torch.cuda.synchronize()
+    mc.launches = 0
+    tk = time.perf_counter()
+    ck = cstate
+    for i in range(CLOTH_SWEEP_FRAMES):
+        ck = cstep(sweep(i, ck))
+        if i + 1 == BOX_FRAMES:
+            half = ck
+    torch.cuda.synchronize()
+    tk = time.perf_counter() - tk
+    cloth_launches = mc.launches
+    tp = time.perf_counter()
+    cp = cstate
+    for i in range(CLOTH_SWEEP_FRAMES):
+        cp = general.step_fn(sweep(i, cp), ctopo, ccfg, cdt)
+    torch.cuda.synchronize()
+    tp = time.perf_counter() - tp
+    dx = float((ck.positions - cp.positions).abs().max())
+    zmax = float(ck.positions[:, 2].max())
+    pins_ok = torch.equal(ck.positions[pins], cstate.positions[pins])
+    print(f"# cloth_xl ({ctopo.n_particles} particles) with a kinematic "
+          f"sphere (r {radius}) sweeping along +z through it, "
+          f"{CLOTH_SWEEP_FRAMES} frames x {ccfg.substeps} substeps: B-3 "
+          f"{tk:.3f} s wall, {cloth_launches} launches = "
+          f"{cloth_launches / (CLOTH_SWEEP_FRAMES * ccfg.substeps):.2f} a "
+          f"substep; plain {tp:.3f} s; finite={is_finite(ck)} pinned row "
+          f"unmoved={pins_ok} ymin={float(ck.positions[:, 1].min()):.6f} "
+          f"max z {zmax:.4f} (pushed); max|dx| vs plain {dx:.3e} (gate "
+          f"{DRIFT_TOL})")
+    if not (is_finite(ck) and pins_ok and zmax > 0.05 and dx < DRIFT_TOL
+            and cloth_launches > 0):
+        raise RuntimeError("the cloth_xl sweep failed its gates")
+    merrs["kin"] = max(merrs["kin"], dx)
+    # boxes over the whole cloth: a config box the cloth hangs through,
+    # and a box sweeping along +z through it beside the sphere
+    kstate = cstate.replace(colliders=make_colliders(
+        spheres=cstate.colliders.spheres, boxes=[(0.3, 0.9, z0, 0.12, 0.12,
+                                                  0.12)],
+        box_velocities=[(0.0, 0.0, speed)], ground_height=ccfg.ground_height,
+        device="cuda"))
+
+    def box_sweep(i, st_):
+        st_ = sweep(i, st_)
+        return st_.replace(colliders=st_.colliders.with_box(
+            0, center=(0.3, 0.9, z0 + speed * i * cdt)))
+
+    box_dx = box_sweeps(
+        torch, f"cloth_xl ({ctopo.n_particles} particles)",
+        lambda c, k: mc.make_mesh_cuda_step(ctopo, c, cdt, kin_colliders=k),
+        lambda c: lambda s_: general.step_fn(s_, ctopo, c, cdt),
+        (ccfg, cstate.replace(colliders=None),
+         (0.0, 1.0, 0.05, 0.2, 0.15, 0.1), kstate, box_sweep, half),
+        is_finite, DRIFT_TOL)
+    merrs["kin"] = max(merrs["kin"], box_dx["kinematic box"])
+    merrs["box"] = max([merrs["box"]] + list(box_dx.values()))
+    n_k, n_p = 400, 20
+    mid = cstate
+    for i in range(60):
+        mid = cstep(sweep(i, mid))
+    mid = sweep(60, mid)
+    k_cloth = mc.make_mesh_cuda_substep_runner(ctopo, ccfg, cdt / 4, n_k,
+                                               kin_colliders=(1, 0))
+    mtimes, _ = timed_windows(torch, {
+        "plain": (lambda: general.run_substeps_plain(
+            mid, ctopo, ccfg, cdt / 4, n_p), n_p),
+        "kernel": (lambda: k_cloth(mid), n_k)})
+    print(f"# B-3 cloth_xl with a kinematic sphere ({smi}): kernel "
+          f"{min(mtimes['kernel']):.5f} ms/substep, plain "
+          f"{min(mtimes['plain']):.5f} ms/substep ({mtimes})")
+    out["mesh"] = dict(kin_err=merrs["kin"], box_err=merrs["box"],
+                       ms=min(mtimes["kernel"]),
+                       plain_ms=min(mtimes["plain"]))
+    print(f"# time: phase 27 took {time.perf_counter() - t0:.1f} s")
+
+    # 28. B-5's pose cotangents at the bench_diff scene
+    t0 = time.perf_counter()
+    topo, cfg, st, _ = diff_scene(torch, "cuda")
+    cfg = cfg.replace(ground_height=123.0)      # the ColliderSet's wins
+    # the sphere overlaps the shell's +x side and the ground (0.55) its
+    # bottom (0.5) from the first substep, so every pose cotangent fires
+    coll = make_colliders(spheres=[(0.6, 1.0, 0.0, 0.2)],
+                          sphere_velocities=[(0.4, 0.0, 0.1)],
+                          ground_height=0.55, device="cuda")
+    wts = torch.tensor(K.loss_weights(topo.n_particles), device="cuda")
+    ns = KIN_GRAD_SUBSTEPS
+    md.launches = 0
+    got = K.chunk_pose_grads(md.backward_chunk_cuda, topo, cfg, ns, st,
+                             coll, wts)
+    torch.cuda.synchronize()
+    kin_launches = md.launches
+    plain = K.chunk_pose_grads(md.backward_chunk_plain, topo, cfg, ns, st,
+                               coll, wts)
+    auto = K.autograd_pose_grads(topo, cfg, ns, st, coll, wts)
+    e_plain, scale = K.pose_error(got, plain)
+    e_auto, _ = K.pose_error(got, auto)
+
+    def runner_grads(chunk):
+        run = kd.make_differentiable_mesh_runner(
+            topo, cfg, DIFF_DT, ns, remat_chunk=chunk, backward="fused",
+            kin_colliders=(1, 0))
+        leaves = {k: getattr(coll, k).clone().requires_grad_()
+                  for k in ("spheres", "boxes", "ground_height",
+                            "sphere_velocities", "box_velocities")}
+        o = run(st.replace(colliders=ColliderSet(**leaves)))
+        keys = ("spheres", "sphere_velocities", "ground_height")
+        return dict(zip(keys, torch.autograd.grad(
+            (wts * o.positions).sum(), [leaves[k] for k in keys])))
+
+    flat, chunked = runner_grads(0), runner_grads(10)
+    chunk_ok = all(torch.allclose(chunked[k], flat[k], rtol=1e-5,
+                                  atol=1e-8) for k in flat)
+    print(f"# B-5 pose cotangents, bench_diff scene ({topo.n_particles} "
+          f"particles, a kinematic sphere overlapping the shell, "
+          f"{ns} substeps, random-weighted loss): kernel "
+          + ", ".join(f"{k} {got[k].numpy().round(5).tolist()}"
+                      for k in got)
+          + f"; vs backward_chunk_plain {e_plain:.3e}, vs autograd "
+          f"{e_auto:.3e} (max|dg| / max|g| on one scale, {scale:.4e}); "
+          f"runner in chunks of 10 vs flat within rtol 1e-5: {chunk_ok}; "
+          f"{kin_launches} launches")
+    if not (e_plain < 1e-5 and e_auto < 1e-4 and chunk_ok and scale > 1e-3
+            and kin_launches > 0
+            and all(float(g.abs().max()) > 0 for g in got.values())):
+        raise RuntimeError("B-5's pose cotangents disagree")
+    t11 = time.perf_counter()
+    _, hist = config11_collider_control.run(engine="fused", device="cuda",
+                                            verbose=False)
+    print(f"# config11 (fused B-3 + B-5, defaults): loss {hist[0]:.5f} -> "
+          f"{hist[-1]:.5f} over {len(hist) - 1} gradient steps "
+          f"({time.perf_counter() - t11:.1f} s)")
+    if not hist[-1] < hist[0]:
+        raise RuntimeError("config11's loss did not shrink")
+    z = torch.zeros_like(st.positions)
+    zl = torch.zeros_like(st.lambda_dist)
+    bare_cfg = cfg.replace(ground_height=0.55)
+
+    def chunk(c, cf):
+        return md.backward_chunk_cuda(topo, cf, DIFF_DT, ns, st.inv_mass,
+                                      st.positions, st.velocities,
+                                      st.lambda_dist, wts, z, zl,
+                                      colliders=c)
+
+    ms_kin = cuda_ms(torch, lambda: chunk(coll, cfg), 5)
+    ms_bare = cuda_ms(torch, lambda: chunk(None, bare_cfg), 5)
+    ms_plain = cuda_ms(torch, lambda: md.backward_chunk_plain(
+        topo, cfg, DIFF_DT, ns, st.inv_mass, st.positions, st.velocities,
+        st.lambda_dist, wts, z, zl, colliders=coll), 1, warm=False)
+    work = diff_work(topo, cfg, ns, kin_spheres=1)
+    bnd = bound_ms(*work)
+    print(f"# B-5 chunk of {ns} substeps ({smi}): with pose cotangents "
+          f"{ms_kin:.4f} ms, without (no ColliderSet, the config's floor "
+          f"at the same height) "
+          f"{ms_bare:.4f} ms; plain {ms_plain:.4f} ms; bound with poses "
+          f"{bnd[0]:.5f} ms ({bnd[1]}: {work[0]} bytes, {work[1]} "
+          f"operations), {ms_kin / bnd[0]:.0f}x it")
+    out["diff"] = dict(kin_grad_rel_err=e_plain, ms_kin=ms_kin,
+                       ms_bare=ms_bare)
+    print(f"# time: phase 28 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if "--f64-witness" in sys.argv[1:]:
         return f64_witness()
@@ -1546,7 +2027,7 @@ def main() -> int:
 
 
 def smoke(torch, witness) -> int:
-    """Phases 1-25 (module docstring)."""
+    """Phases 1-28 (module docstring)."""
     sys.path.insert(0, HERE)
     import numpy as np
 
@@ -1862,6 +2343,10 @@ def smoke(torch, witness) -> int:
                              is_finite, state_from_numpy, ms_k)
     lap("21-25")
 
+    # 26-28. the kinematic rigid world in B-1, B-3 and B-5
+    coll = collider_phases(torch, np, smi, is_finite)
+    lap("26-28")
+
     if "--profile" in sys.argv[1:]:
         profile_main_path(
             torch, lc.make_cuda_substep_runner(spec, cfg, dt_sub, 200),
@@ -1892,6 +2377,12 @@ def smoke(torch, witness) -> int:
         "with_tets": cfg.enable_tet_volume,
         "tet_launches": spatial["tet_launches"],
         "tet_max_abs_err": spatial["tet_err"],
+        # the rigid world (phase 26): parity with a ColliderSet and with
+        # boxes, and ms per substep of the sweep config with and without
+        "kin_max_abs_err": coll["lattice"]["kin_err"],
+        "box_max_abs_err": coll["lattice"]["box_err"],
+        "sweep_ms_poses": coll["lattice"]["ms_poses"],
+        "sweep_ms_no_poses": coll["lattice"]["ms_bare"],
     }, {
         "name": "mesh_xpbd",
         "route": "cuda",
@@ -1904,6 +2395,11 @@ def smoke(torch, witness) -> int:
         "bound_ms": mesh_bound[0],
         "bound_by": mesh_bound[1],
         "library_ms": None,
+        # the rigid world (phase 27), and cloth_xl with a kinematic sphere
+        "kin_max_abs_err": coll["mesh"]["kin_err"],
+        "box_max_abs_err": coll["mesh"]["box_err"],
+        "kin_sweep_ms": coll["mesh"]["ms"],
+        "kin_sweep_plain_ms": coll["mesh"]["plain_ms"],
     }, {
         "name": "contact_xpbd",
         "route": "cuda",
@@ -1928,6 +2424,11 @@ def smoke(torch, witness) -> int:
         "bound_ms": diff["bound"][0],
         "bound_by": diff["bound"][1],
         "library_ms": None,
+        # the pose cotangents (phase 28): vs backward_chunk_plain, and ms
+        # per 40-substep chunk with and without them
+        "kin_grad_rel_err": coll["diff"]["kin_grad_rel_err"],
+        "kin_chunk_ms": coll["diff"]["ms_kin"],
+        "no_kin_chunk_ms": coll["diff"]["ms_bare"],
     }, {
         "name": "spatial_xpbd",
         "route": "cuda",

@@ -25,6 +25,12 @@ package:
   ``kernels/mesh_diff.py``); ``examples/`` fits a launch velocity and
   rest lengths through them.
 
+A kinematic rigid world (``core/colliders.ColliderSet``: sphere and box
+poses, their velocities and the ground height as state tensors) reaches
+every engine and the lattice, mesh and fused-backward kernels;
+``interact/animator.py`` scripts it and ``examples/`` steers a collider
+trajectory by gradient descent.
+
 Scenes (``core/scenes.py``) run on the card unless the caller asks for
 the CPU.  It imports torch and numpy, never jax.
 """
@@ -35,6 +41,11 @@ from .core.config import (
     LambdaMode,
     SolveMode,
     SolverConfig,
+)
+from .core.colliders import (
+    ColliderSet,
+    colliders_from_config,
+    make_colliders,
 )
 from .core.state import (
     SimState,
@@ -69,6 +80,9 @@ __all__ = [
     "FloorMode",
     "SimState",
     "Topology",
+    "ColliderSet",
+    "make_colliders",
+    "colliders_from_config",
     "make_state",
     "state_from_topology",
     "topology_from_numpy",

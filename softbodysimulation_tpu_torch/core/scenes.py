@@ -1,9 +1,10 @@
 """Scenes, as build functions returning ``(state, step, info)``.
 
-Counterpart of nine scenes of ``softbodysimulation_tpu/core/scenes.py``:
+Counterpart of ten scenes of ``softbodysimulation_tpu/core/scenes.py``:
 the lattice scenes ``flagship`` (the reference's
 Scenes/SoftBodySimulator.unity), ``flagship_perf`` (the ``bench.py``
-workload) and ``solid_lattice`` (``flagship_perf`` with per-cell tets),
+workload), ``solid_lattice`` (``flagship_perf`` with per-cell tets) and
+``sphere_sweep`` (a scripted kinematic sphere through a slab),
 the mesh scenes ``cpu_mesh`` (Scenes/CpuMesh.unity), ``cloth``
 and ``cloth_xl``, the solids ``tet_cube`` and ``tet_ball``, and the
 multi-body contact scene ``ball_on_cloth``.  ``step`` is
@@ -35,6 +36,7 @@ from ..topology import lattice as _lattice
 from ..topology import mesh as _mesh
 from ..topology import tets as _tets
 from ..topology.objloader import load_obj
+from .colliders import make_colliders
 from .config import DampingMode, FloorMode, LambdaMode, SolveMode, SolverConfig
 from .state import on_device, state_from_topology
 
@@ -111,6 +113,42 @@ def solid_lattice(dt: float = 1 / 60, res: int = 40, device="cuda"):
                                            device=device)
     step = make_cuda_step(spec, cfg, dt)
     return state, step, {"spec": spec, "config": cfg, "dt": dt}
+
+
+def sphere_sweep(dt: float = 1 / 60, res: int = 8, speed: float = 2.0,
+                 device="cuda"):
+    """Kinematic rigid-collider scene: a scripted rigid sphere sweeps along
+    +x through a soft lattice slab resting on the floor (the reference's
+    moving PhysX colliders, ``SoftBodyController.cs:110-118``).  The
+    sphere's pose is a ColliderSet leaf of the state;
+    ``info["animate"](i, state)`` sets frame i's pose and velocity, and the
+    same step (the lattice kernel built with ``info["kin_colliders"] = (1,
+    0)`` on the card, its pose table read by every launch) serves every
+    pose."""
+    device = _device(device)
+    spec = _lattice.lattice_spec(res, braced=True)
+    cfg = SolverConfig(substeps=4, iterations=2, damping=0.02,
+                       solve_mode=SolveMode.JACOBI,
+                       lambda_mode=LambdaMode.RESET,
+                       gravity_is_acceleration=True,
+                       ground_height=0.0, friction=0.3)
+    state = _lat_engine.make_lattice_state(spec, center=(0.0, 0.55, 0.0),
+                                           mass=0.001, device=device)
+    radius, sy, x0 = 0.35, 0.5, -1.6
+    state = state.replace(colliders=make_colliders(
+        spheres=[(x0, sy, 0.0, radius)], ground_height=0.0, device=device))
+
+    def animate(i, st):
+        """Frame i's collider pose (host side; the scripted-trajectory
+        spelling is ``interact.animator.kinematic_rollout``)."""
+        x = x0 + speed * i * dt
+        return st.replace(colliders=st.colliders.with_sphere(
+            0, center=(x, sy, 0.0), velocity=(speed, 0.0, 0.0)))
+
+    kin = (1, 0)
+    step = make_cuda_step(spec, cfg, dt, kin_colliders=kin)
+    return state, step, {"spec": spec, "config": cfg, "dt": dt,
+                         "animate": animate, "kin_colliders": kin}
 
 
 def cpu_mesh(dt: float = 0.02, fallback_subdiv: int = 3, device="cuda"):

@@ -11,8 +11,10 @@ lattices (index = (x*res + y)*res + z).
 Tensors are never mutated in place by the solvers: every step returns a
 new ``SimState`` (``replace``), as the JAX package does.  The constructors
 put their tensors on the card unless the caller asks for the CPU
-(``device="cpu"``); without a CUDA device they raise (``on_device``).  Kinematic
-collider sets are not ported yet, so ``colliders`` stays ``None``.  The
+(``device="cpu"``); without a CUDA device they raise (``on_device``).
+``colliders`` is ``None`` or a kinematic rigid world
+(``core/colliders.ColliderSet``) on the positions' device; ``_map``,
+``snapshot`` and ``restore`` carry it.  The
 topology carries no one-hot window matrices (``windows``, ``bend_windows``,
 ``tet_windows``): they are a layout for the TPU's matrix unit, and the
 port's engines gather by index instead.
@@ -44,7 +46,7 @@ class SimState:
     lambda_bend: torch.Tensor        # (H,)   f32 (H may be 0)
     lambda_volume: torch.Tensor      # ()     f32
     lambda_tet: Optional[torch.Tensor] = None   # (T,) f32 or None
-    colliders: Optional[Any] = None  # kinematic rigid world: not ported
+    colliders: Optional[Any] = None  # core/colliders.ColliderSet or None
 
     @property
     def n_particles(self) -> int:
@@ -75,18 +77,41 @@ def on_device(device, who: str = "state") -> torch.device:
 
 
 def _map(state: SimState, fn) -> SimState:
-    return state.replace(**{
-        k: fn(getattr(state, k)) for k in _TENSOR_FIELDS
-        if getattr(state, k) is not None})
+    kw = {k: fn(getattr(state, k)) for k in _TENSOR_FIELDS
+          if getattr(state, k) is not None}
+    if state.colliders is not None:
+        kw["colliders"] = state.colliders.map(fn)
+    return state.replace(**kw)
+
+
+def check_colliders(state: SimState):
+    """Refuse a state whose ColliderSet lies on another device than its
+    positions (no engine moves it quietly)."""
+    c = state.colliders
+    if c is not None and c.device != state.device:
+        raise ValueError(f"state colliders on {c.device}, positions on "
+                         f"{state.device}: move both to one device "
+                         f"(SimState.to)")
 
 
 def state_from_numpy(fields: Dict[str, Any], device="cuda") -> SimState:
     """Build a state from a mapping of field name -> array-like (for example
     ``{k: np.asarray(getattr(jax_state, k)) ...}``).  ``lambda_tet`` may be
-    missing or None; ``colliders`` must be missing or None."""
-    if fields.get("colliders") is not None:
-        raise NotImplementedError("kinematic ColliderSets are not ported")
+    missing or None; ``colliders`` may be missing, None, or a mapping of
+    the five ColliderSet fields (``core/colliders.FIELDS``) to array-likes,
+    such as a JAX ColliderSet's leaves as numpy."""
+    from . import colliders as _colliders
+
     device = on_device(device, "state_from_numpy")
+    coll = fields.get("colliders")
+    if coll is not None:
+        unknown = set(coll) - set(_colliders.FIELDS)
+        if unknown:
+            raise ValueError(f"state_from_numpy: unknown collider fields "
+                             f"{sorted(unknown)}")
+        coll = _colliders.make_colliders(
+            **{k: np.array(coll[k], np.float32) for k in _colliders.FIELDS
+               if coll.get(k) is not None}, device=device)
     kw = {}
     for k in _TENSOR_FIELDS:
         a = fields.get(k)
@@ -95,15 +120,23 @@ def state_from_numpy(fields: Dict[str, Any], device="cuda") -> SimState:
                 raise ValueError(f"state_from_numpy: field {k!r} missing")
             continue
         kw[k] = torch.as_tensor(np.array(a, np.float32), device=device)
-    return SimState(**kw)
+    return SimState(**kw, colliders=coll)
 
 
-def state_to_numpy(state: SimState) -> Dict[str, Optional[np.ndarray]]:
-    """Field name -> float32 numpy array (None for an absent lambda_tet)."""
-    out: Dict[str, Optional[np.ndarray]] = {}
+def state_to_numpy(state: SimState) -> Dict[str, Any]:
+    """Field name -> float32 numpy array (None for an absent lambda_tet);
+    a state with colliders adds ``"colliders"``, a mapping of its five
+    fields to arrays (``state_from_numpy`` takes it back)."""
+    def arr(t):
+        return t.detach().cpu().numpy().copy()
+
+    out: Dict[str, Any] = {}
     for k in _TENSOR_FIELDS:
         t = getattr(state, k)
-        out[k] = None if t is None else t.detach().cpu().numpy().copy()
+        out[k] = None if t is None else arr(t)
+    if state.colliders is not None:
+        out["colliders"] = {f.name: arr(getattr(state.colliders, f.name))
+                            for f in dataclasses.fields(state.colliders)}
     return out
 
 
@@ -274,11 +307,12 @@ def snapshot(state: SimState) -> SimState:
 
 
 def restore(state_like: SimState, device=None) -> SimState:
-    """Re-upload a snapshot (to ``device``, default: where it lies) and zero
-    the multipliers and the force accumulator (RestartSimulation,
-    SoftBodyGPU.cs:188-212)."""
-    dev = _map(state_like, lambda t: t.to(
-        t.device if device is None else device, copy=True))
+    """Re-upload a snapshot to ``device`` (the card unless the caller asks
+    for the CPU, as the JAX package's ``restore`` re-uploads to its default
+    device) and zero the multipliers and the force accumulator
+    (RestartSimulation, SoftBodyGPU.cs:188-212)."""
+    device = on_device("cuda" if device is None else device, "restore")
+    dev = _map(state_like, lambda t: t.to(device, copy=True))
     return dev.replace(
         lambda_dist=torch.zeros_like(dev.lambda_dist),
         lambda_bend=torch.zeros_like(dev.lambda_bend),

@@ -22,9 +22,16 @@
 //     lambda reset / decay folded in (the tet multipliers' too);
 //   WARM_START: one pre-apply pass per family;
 //   per iteration: one pass per family (JACOBI) or two parity passes
-//     (COLORED), then the per-cell tet sweep (two launches), then the XPBD
-//     floor and sphere contacts; the last iteration's contacts share a
-//     launch with finalize (VELOCITY_REFLECT).
+//     (COLORED), then the per-cell tet sweep (two launches), then the
+//     contacts -- the XPBD floor, the boxes, the spheres, the order of
+//     solvers/lattice.py -- in one launch; the last iteration's contacts
+//     share it with finalize (VELOCITY_REFLECT).
+// The spheres and boxes come from the collider table of colliders.cuh (the
+// config's constants, or a ColliderSet's traced poses and velocities, whose
+// friction then acts on the velocity relative to the collider; the
+// set's ground height replaces the config's).  A new pose is a new table,
+// read by the next launch: the TPU kernel's box block
+// (lattice_pallas.py:1360-1409) and pose table (:576-589) in one.
 // A family pass is gather-only, with no atomics: thread a reads the
 // pass-entry positions from one buffer and writes another (ping-pong).  It
 // computes its own constraint (a, a+d) -- the lambda it writes -- and
@@ -298,25 +305,28 @@ __global__ void tet_apply_kernel(LatticeParams p, const float* __restrict__ w,
     pout[c * n + a] = pin[c * n + a] + coef * delta[c];
 }
 
-// Contacts of one iteration (XPBD floor, static spheres) on pred in place,
+// Contacts of one iteration (XPBD floor, boxes, spheres) on pred in place,
 // and, after the last iteration, finalize (velocity from the position
 // change, pinned particles held, VELOCITY_REFLECT floor) into x and v.
+// tab: the collider table (colliders.cuh).
 __global__ void contact_finalize_kernel(LatticeParams p, int do_contacts,
                                         int do_finalize,
                                         float* __restrict__ x,
                                         float* __restrict__ v,
                                         const float* __restrict__ w,
-                                        float* __restrict__ pred) {
+                                        float* __restrict__ pred,
+                                        const float* __restrict__ tab) {
   const int a = blockIdx.x * blockDim.x + threadIdx.x;
   const int n = p.n;
   if (a >= n) return;
   const float wa = w[a];
   float pc[3] = {pred[a], pred[n + a], pred[2 * n + a]};
   float xc[3] = {x[a], x[n + a], x[2 * n + a]};
+  const float gh = tab[0];
 
   if (do_contacts) {
     if (p.floor_mode == 1) {
-      const float pen = p.ground_height - pc[1];
+      const float pen = gh - pc[1];
       const float denom = wa + p.floor_alpha;
       const float dl = pen / fmaxf(denom, 1e-30f);
       const bool hit = pen > 0.f && wa >= p.static_eps &&
@@ -330,17 +340,22 @@ __global__ void contact_finalize_kernel(LatticeParams p, int do_contacts,
         pc[2] = p2;
       }
     }
+    for (int b = 0; b < p.n_boxes; ++b)
+      box_project(box_row(tab, p.n_spheres, b), wa, p.static_eps, p.dt,
+                  p.box_dt_fr, xc, pc);
     for (int s = 0; s < p.n_spheres; ++s) {
+      const float* r = sphere_row(tab, s);
       float dv[3], nrm[3], vel[3];
-      for (int c = 0; c < 3; ++c) dv[c] = pc[c] - p.spheres[s][c];
+      for (int c = 0; c < 3; ++c) dv[c] = pc[c] - r[c];
       const float dist = sqrtf(
           fmaxf(dv[0] * dv[0] + dv[1] * dv[1] + dv[2] * dv[2], 1e-24f));
       for (int c = 0; c < 3; ++c) nrm[c] = dv[c] / dist;
-      const float penet = p.spheres[s][3] - dist;
+      const float penet = r[3] - dist;
       const bool act = penet > 0.f && wa >= p.static_eps;
       if (act)
         for (int c = 0; c < 3; ++c) pc[c] = pc[c] + nrm[c] * penet;
-      for (int c = 0; c < 3; ++c) vel[c] = (pc[c] - xc[c]) / p.dt;
+      // friction relative to the collider's velocity (0 for the config's)
+      for (int c = 0; c < 3; ++c) vel[c] = (pc[c] - xc[c]) / p.dt - r[4 + c];
       const float vdot = vel[0] * nrm[0] + vel[1] * nrm[1] + vel[2] * nrm[2];
       if (act)
         for (int c = 0; c < 3; ++c)
@@ -359,7 +374,7 @@ __global__ void contact_finalize_kernel(LatticeParams p, int do_contacts,
     xc[c] = pinned ? xc[c] : pc[c];
   }
   if (p.floor_mode == 2) {
-    const float pen = p.ground_height - xc[1];
+    const float pen = gh - xc[1];
     const bool hit = pen > 0.f && wa > 0.f;
     const bool falling = hit && vc[1] < 0.f;
     const float vy = fabsf(vc[1]) * p.restitution + pen * p.penetration_kick;
@@ -371,7 +386,7 @@ __global__ void contact_finalize_kernel(LatticeParams p, int do_contacts,
     const float fmag =
         fminf(h_speed, normal_force * p.floor_friction_coeff * p.dt);
     const float scalef = (falling && moving) ? fmag / h_speed : 0.f;
-    if (hit) xc[1] = p.floor_rest;
+    if (hit) xc[1] = gh + p.floor_offset;
     vc[0] = vc[0] - vc[0] * scalef;
     vc[1] = v1;
     vc[2] = vc[2] - vc[2] * scalef;
@@ -394,15 +409,16 @@ const char* lattice_xpbd_error_string(int code) {
 // f: (3, N) ext force consumed on the first substep when ext_first, else
 // unused; lam: (nfam, N) in/out; lam_scratch: (nfam, N) and pred_a,
 // pred_b: (3, N) scratch; lam_t: (6, N) tet multipliers in/out, or null
-// when the state has none; tet_terms: (TET_PLANES, N) scratch when p.tets.
+// when the state has none; tet_terms: (TET_PLANES, N) scratch when p.tets;
+// colliders: the collider table (1 + n_spheres + n_boxes, KIN_W).
 // *n_launched counts the kernels launched.  Returns a cudaError_t;
 // nothing is synchronised.
 int lattice_xpbd_run(const LatticeParams* hp, int device, float* x, float* v,
                      const float* w, const float* f, int ext_first,
                      float* lam, float* lam_scratch, float* pred_a,
                      float* pred_b, float* lam_t, float* tet_terms,
-                     int n_substeps, long long* n_launched,
-                     void* stream_handle) {
+                     const float* colliders, int n_substeps,
+                     long long* n_launched, void* stream_handle) {
   const LatticeParams p = *hp;
   cudaStream_t stream = (cudaStream_t)stream_handle;
   long long launched = 0;
@@ -410,13 +426,15 @@ int lattice_xpbd_run(const LatticeParams* hp, int device, float* x, float* v,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (p.nfam > LX_MAX_FAM || p.n_spheres > LX_MAX_SPHERES ||
+      p.n_boxes > LX_MAX_BOXES || !colliders ||
       (p.tets && (!lam_t || !tet_terms)))
     return (int)cudaErrorInvalidValue;
 
   const dim3 grid((p.n + LX_THREADS - 1) / LX_THREADS);
   const dim3 block(LX_THREADS);
   const size_t plane = (size_t)p.n;
-  const bool has_contacts = p.floor_mode == 1 || p.n_spheres > 0;
+  const bool has_contacts =
+      p.floor_mode == 1 || p.n_spheres > 0 || p.n_boxes > 0;
   float* lam_buf[2] = {lam, lam_scratch};
   int bit = 0;  // the buffer holding every family's lambda between substeps
 
@@ -477,7 +495,7 @@ int lattice_xpbd_run(const LatticeParams* hp, int device, float* x, float* v,
       const bool last = it == p.iterations - 1;
       if (has_contacts || last) {
         contact_finalize_kernel<<<grid, block, 0, stream>>>(
-            p, has_contacts ? 1 : 0, last ? 1 : 0, x, v, w, pin);
+            p, has_contacts ? 1 : 0, last ? 1 : 0, x, v, w, pin, colliders);
         LX_CHECK();
       }
     }

@@ -3,14 +3,19 @@
 // bound through ctypes (kernels/lattice_cuda.LatticeParams), the family
 // masks from integer coordinates, one distance constraint's multiplier
 // step, the WARM_START pre-apply multiplier, and predict.  Each library is
-// built from its own .cu, so the kernels here compile into each.
+// built from its own .cu, so the kernels here compile into each.  The
+// colliders (spheres, boxes, a ColliderSet's ground) are not constants: the
+// lattice kernel reads them from a device table (colliders.cuh).
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "colliders.cuh"
+
 #define LX_MAX_FAM 16
 #define LX_MAX_SPHERES 16
+#define LX_MAX_BOXES 16
 
 // Every field is 4 bytes wide, so the ctypes mirror has no padding.
 struct LatticeParams {
@@ -24,7 +29,8 @@ struct LatticeParams {
   int gravity_acc;   // gravity_is_acceleration
   int floor_mode;    // 0 NONE, 1 XPBD_INEQUALITY, 2 VELOCITY_REFLECT
   int reference_bounds;
-  int n_spheres;
+  int n_spheres;            // sphere rows of the collider table
+  int n_boxes;              // box rows of the collider table
   int fam[LX_MAX_FAM][4];   // dx, dy, dz, kind
   float dt;
   float gravity[3];
@@ -40,11 +46,13 @@ struct LatticeParams {
   float eps_length;
   float eps_denominator;
   float static_eps;         // static_inv_mass_eps
-  float ground_height;
+  float ground_height;      // the slab kernel's (the lattice kernel reads
+                            // its collider table's row 0)
   float floor_alpha;        // collision_compliance / dt^2
   float friction;           // clamped to [0, 1]
-  float sphere_dt_fr;       // dt * friction
-  float floor_rest;         // ground_height + floor_offset
+  float sphere_dt_fr;       // dt * friction, rounded from double
+  float box_dt_fr;          // dt * friction, each rounded to float first
+  float floor_offset;
   float restitution;
   float penetration_kick;
   float normal_force_scale;
@@ -53,7 +61,6 @@ struct LatticeParams {
   float alpha[LX_MAX_FAM];     // max(compliance / dt^2, min_alpha_tilde)
   float dl_rel[LX_MAX_FAM];    // max_dlambda_rel * rest (0 = off)
   float warm_lim[LX_MAX_FAM];  // warm_start_clamp * rest (0 = off)
-  float spheres[LX_MAX_SPHERES][4];
   int tets;                  // enable_tet_volume
   int tet_off[6][3][3];      // Kuhn path p: corner k+1's (dx, dy, dz)
   float tet_alpha;           // tet_compliance / dt^2

@@ -5,9 +5,12 @@
 // _make_backward_chunk (:188, kernel body :278, pallas_call :895): the VJP
 // of C substeps of the mesh kernel (mesh_xpbd.cu) in its envelope -- JACOBI
 // distance sweeps (plain or Chebyshev), RESET / DECAY / WARM_START, the
-// XPBD floor and static spheres -- linearized at the chunk-entry state,
-// with optional per-edge rest-length and alpha cotangents (traced
-// materials).  Its plain version is kernels/mesh_diff.py::
+// XPBD floor and spheres (the config's, or a ColliderSet's traced poses)
+// -- linearized at the chunk-entry state, with optional per-edge
+// rest-length and alpha cotangents (traced materials) and, for a
+// ColliderSet, the pose cotangents of each sphere's center, radius and
+// velocity and of the ground height (mesh_diff_pallas.py:503-617; its
+// output layout :1076-1097).  Its plain version is kernels/mesh_diff.py::
 // backward_chunk_plain, which has the same phases in the same order.
 //
 // This source is built into the mesh library, beside mesh_xpbd.cu.  Phase A
@@ -31,7 +34,13 @@
 //   the WARM_START pre-apply's VJP (the same two passes);
 //   predict's VJP with the world_bounds / max_velocity masks and the
 //     multiplier lifecycle's (predict_bwd_kernel).
-// inv_mass and ext_force get no cotangent.
+// inv_mass and ext_force get no cotangent.  The pose is constant over the
+// chunk, so its cotangents are sums over every particle, iteration and
+// substep, taken without atomics: iter_bwd_kernel adds each particle's
+// terms into that particle's column of the gpose planes (its own entries
+// only), and after the chunk pose_sum_kernel sums each plane in one block,
+// in a fixed order (strided partial sums, then a tree), so the result is
+// the same on every run.
 //
 // The design is a simple one that is right: one launch per pass, about 32
 // per substep at 4 iterations; at a few thousand particles the launches,
@@ -61,6 +70,10 @@ struct DiffBuffers {
   float* gq;        // (3, N) post-sweep cotangent
   float* gcur;      // (3, N) Chebyshev entry cotangent
   float* gcontrib;  // (2E, 3) the sweep VJP's per-endpoint contributions
+  float* gpose;     // (1 + 7S, N) per-particle pose cotangents (ground,
+                    // then per sphere center x3, radius, velocity x3),
+                    // zero on entry; null without a ColliderSet
+  float* gpose_out; // (1 + 7S) their sums over the particles
 };
 
 __device__ __forceinline__ void copy3(const float* src, float* dst, int n,
@@ -119,11 +132,22 @@ __global__ void fin_bwd_kernel(MeshParams p, MeshBuffers b, DiffBuffers d) {
   }
 }
 
-// VJP of the floor at its input q: g in/out, the anchor's cotangent added
-// into ga.
-__device__ void floor_bwd(const MeshParams& p, float wa, const float q[3],
-                          float g[3], float ga[3]) {
-  const float pen = p.ground_height - q[1];
+// Adds v to particle i's entry of pose-cotangent plane row (no-op without
+// a ColliderSet): each thread touches only its own particle's column.
+__device__ __forceinline__ void pose_add(const DiffBuffers& d, int n, int i,
+                                         int row, float v) {
+  if (d.gpose) {
+    float* e = d.gpose + (size_t)row * n + i;
+    *e = *e + v;
+  }
+}
+
+// VJP of the floor at height gh at its input q: g in/out, the anchor's
+// cotangent added into ga, the ground's into pose plane 0.
+__device__ void floor_bwd(const MeshParams& p, const DiffBuffers& d, int i,
+                          float gh, float wa, const float q[3], float g[3],
+                          float ga[3]) {
+  const float pen = gh - q[1];
   const float denom = wa + p.floor_alpha;
   const bool active = pen > 0.f && wa >= p.static_eps &&
                       fabsf(denom) >= p.eps_denominator;
@@ -133,51 +157,66 @@ __device__ void floor_bwd(const MeshParams& p, float wa, const float q[3],
     ga[c] = ga[c] + -gu / p.dt;
     g[c] = g[c] + gu / p.dt;
   }
-  g[1] = g[1] - g[1] * wa / denom;
+  const float g_gh = g[1] * wa / denom;
+  pose_add(d, p.n, i, 0, g_gh);
+  g[1] = g[1] - g_gh;
 }
 
-// VJP of static sphere s at its input q.
-__device__ void sphere_bwd(const MeshParams& p, int s, float wa,
+// VJP of sphere s (table row r) at its input q; its center, radius and
+// velocity cotangents go into pose planes 1 + 7s ... 7 + 7s.
+__device__ void sphere_bwd(const MeshParams& p, const DiffBuffers& dd, int i,
+                           int s, const float* r, float wa,
                            const float xc[3], const float q[3], float g[3],
                            float ga[3]) {
   float d[3], nrm[3], p1[3], vel[3];
-  for (int c = 0; c < 3; ++c) d[c] = q[c] - p.spheres[s][c];
+  for (int c = 0; c < 3; ++c) d[c] = q[c] - r[c];
   const float dist = sqrtf(dot3(d, d));
   const float dmax = fmaxf(dist, 1e-12f);
   for (int c = 0; c < 3; ++c) nrm[c] = d[c] / dmax;
-  const float pen = p.spheres[s][3] - dist;
+  const float pen = r[3] - dist;
   if (!(pen > 0.f && wa >= p.static_eps)) return;
   for (int c = 0; c < 3; ++c) p1[c] = q[c] + nrm[c] * pen;
-  for (int c = 0; c < 3; ++c) vel[c] = (p1[c] - xc[c]) / p.dt;
+  for (int c = 0; c < 3; ++c) vel[c] = (p1[c] - xc[c]) / p.dt - r[4 + c];
   const float vn = dot3(vel, nrm);
-  float gvt[3], gvel[3], gn[3], gp1[3];
+  float gvt[3], g_vel[3], gvel[3], gn[3], gp1[3];
   for (int c = 0; c < 3; ++c) gvt[c] = -g[c] * p.friction_dt;
   const float gvtn = dot3(gvt, nrm);
   for (int c = 0; c < 3; ++c) {
-    gvel[c] = (gvt[c] - nrm[c] * gvtn) / p.dt;
+    g_vel[c] = gvt[c] - nrm[c] * gvtn;
+    gvel[c] = g_vel[c] / p.dt;
     gn[c] = -(vn * gvt[c] + vel[c] * gvtn);
     gp1[c] = g[c] + gvel[c];
     gn[c] = gn[c] + pen * gp1[c];
   }
-  float gdist = -dot3(gp1, nrm);
+  const float g_pen = dot3(gp1, nrm);
+  float gdist = -g_pen;
   if (dist >= 1e-12f) gdist = gdist + -dot3(gn, d) / (dmax * dmax);
+  const int row = 1 + 7 * s;
   for (int c = 0; c < 3; ++c) {
-    g[c] = gp1[c] + (gn[c] / dmax + d[c] * (gdist / dist));
+    const float gd = gn[c] / dmax + d[c] * (gdist / dist);
+    g[c] = gp1[c] + gd;
     ga[c] = ga[c] + -gvel[c];
+    pose_add(dd, p.n, i, row + c, -gd);
+    pose_add(dd, p.n, i, row + 4 + c, -g_vel[c]);
   }
+  pose_add(dd, p.n, i, row + 3, g_pen);
 }
 
 // VJP of the contact chain (floor, then each sphere) at its input q; the
 // chain's intermediate inputs are recomputed with the forward's stages.
-__device__ void contacts_bwd(const MeshParams& p, float wa, const float xc[3],
-                             const float q[3], float g[3], float ga[3]) {
+__device__ void contacts_bwd(const MeshParams& p, const MeshBuffers& b,
+                             const DiffBuffers& d, int i, float wa,
+                             const float xc[3], const float q[3], float g[3],
+                             float ga[3]) {
+  const float gh = b.colliders[0];
   for (int s = p.n_spheres - 1; s >= 0; --s) {
     float qs[3] = {q[0], q[1], q[2]};
-    if (p.floor_mode == 1) floor_project(p, wa, xc, qs);
-    for (int t = 0; t < s; ++t) sphere_project(p, t, wa, xc, qs);
-    sphere_bwd(p, s, wa, xc, qs, g, ga);
+    if (p.floor_mode == 1) floor_project(p, gh, wa, xc, qs);
+    for (int t = 0; t < s; ++t)
+      sphere_project(p, sphere_row(b.colliders, t), wa, xc, qs);
+    sphere_bwd(p, d, i, s, sphere_row(b.colliders, s), wa, xc, qs, g, ga);
   }
-  if (p.floor_mode == 1) floor_bwd(p, wa, q, g, ga);
+  if (p.floor_mode == 1) floor_bwd(p, d, i, gh, wa, q, g, ga);
 }
 
 // Phase B, per iteration: the contact and Chebyshev VJPs.  From gp (the
@@ -203,10 +242,10 @@ __global__ void iter_bwd_kernel(MeshParams p, MeshBuffers b, DiffBuffers d,
     load3(d.st_prev + o, n, i, pv);
     load3(d.gprev, n, i, gpv);
     for (int c = 0; c < 3; ++c) acc[c] = new0[c];
-    project_contacts(p, wa, xc, acc);
+    project_contacts(p, b.colliders, wa, xc, acc);
     for (int c = 0; c < 3; ++c)
       acc[c] = om * (p.gamma * (acc[c] - cur[c]) + cur[c] - pv[c]) + pv[c];
-    contacts_bwd(p, wa, xc, acc, g, ga);
+    contacts_bwd(p, b, d, i, wa, xc, acc, g, ga);
     for (int c = 0; c < 3; ++c) {
       gxi[c] = gxi[c] + ga[c];
       ga[c] = 0.f;
@@ -218,7 +257,7 @@ __global__ void iter_bwd_kernel(MeshParams p, MeshBuffers b, DiffBuffers d,
       g[c] = a_new * g[c];
     }
   }
-  contacts_bwd(p, wa, xc, new0, g, ga);
+  contacts_bwd(p, b, d, i, wa, xc, new0, g, ga);
   store3(d.gq, n, i, g);
   for (int c = 0; c < 3; ++c) gxi[c] = gxi[c] + ga[c];
   store3(d.gx, n, i, gxi);
@@ -361,6 +400,25 @@ __global__ void predict_bwd_kernel(MeshParams p, MeshBuffers b,
   }
 }
 
+// After the chunk: gpose_out[row] = the sum of pose plane `row` over the
+// particles, one block a plane, in a fixed order (thread t sums particles
+// t, t + MX_THREADS, ... in turn; then a tree over the threads).
+__global__ void pose_sum_kernel(int n, const float* __restrict__ gpose,
+                                float* __restrict__ out) {
+  __shared__ float part[MX_THREADS];
+  const float* plane = gpose + (size_t)blockIdx.x * n;
+  float s = 0.f;
+  for (int i = threadIdx.x; i < n; i += MX_THREADS) s = s + plane[i];
+  part[threadIdx.x] = s;
+  __syncthreads();
+  for (int h = MX_THREADS / 2; h > 0; h /= 2) {
+    if (threadIdx.x < h)
+      part[threadIdx.x] = part[threadIdx.x] + part[threadIdx.x + h];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = part[0];
+}
+
 extern "C" {
 
 int mesh_diff_xpbd_buffers_size(void) { return (int)sizeof(DiffBuffers); }
@@ -369,8 +427,10 @@ int mesh_diff_xpbd_buffers_size(void) { return (int)sizeof(DiffBuffers); }
 // buffers with x, v, lam holding the chunk-entry state (overwritten by the
 // replay) and pred, cur, prev, contrib scratch; hd: the stash and the
 // cotangents (gx, gv, glam in: the outputs', out: the entry state's; grest
-// and galpha accumulated when given).  om: the Chebyshev weight of each
-// iteration (host memory).  *n_launched counts the kernels launched.
+// and galpha accumulated when given; gpose, when given, zeroed by the
+// caller, and gpose_out its sums).  om: the Chebyshev weight
+// of each iteration (host memory).  *n_launched counts the kernels
+// launched.
 // Returns a cudaError_t; nothing is synchronised.
 int mesh_diff_xpbd_run(const MeshParams* hp, const MeshBuffers* hb,
                        const DiffBuffers* hd, int device, int n_substeps,
@@ -387,8 +447,10 @@ int mesh_diff_xpbd_run(const MeshParams* hp, const MeshBuffers* hb,
   // the envelope: JACOBI distance sweeps, no other family, no
   // self-collision or velocity-reflect floor
   if (p.colored || p.bending || p.tets_on || p.n_hinges || p.n_tets ||
-      p.sc_mode || p.floor_mode == 2 || p.n <= 0 || p.n_edges <= 0 ||
-      (p.accelerate && !d.st_prev) || (p.lambda_mode == 2 && !d.st_wx))
+      p.sc_mode || p.floor_mode == 2 || p.n_boxes || !b.colliders ||
+      p.n <= 0 || p.n_edges <= 0 || p.n_spheres > MX_MAX_SPHERES ||
+      (p.accelerate && !d.st_prev) || (p.lambda_mode == 2 && !d.st_wx) ||
+      (!d.gpose != !d.gpose_out))
     return (int)cudaErrorInvalidValue;
 
 #define MD_CHECK()            \
@@ -471,6 +533,11 @@ int mesh_diff_xpbd_run(const MeshParams* hp, const MeshBuffers* hb,
       MD_CHECK();
     }
     predict_bwd_kernel<<<g_all, block, 0, stream>>>(p, b, d, sub);
+    MD_CHECK();
+  }
+  if (d.gpose) {
+    pose_sum_kernel<<<1 + 7 * p.n_spheres, block, 0, stream>>>(n, d.gpose,
+                                                               d.gpose_out);
     MD_CHECK();
   }
 #undef MD_CHECK

@@ -10,14 +10,17 @@
 // Gauss-Seidel sweeps of all three families, self-collision (the in-kernel
 // dense all-pairs pass of mesh_pallas.py:1390-1494, or the blocked pass of
 // TPU kernel B-4, contact_xpbd.cu, linked into this library), the XPBD
-// floor and static spheres, finalize and the VELOCITY_REFLECT floor.  It
+// floor, sphere and box SDFs, finalize and the VELOCITY_REFLECT floor.  It
 // ports WHAT that kernel computes -- the semantics of
 // solvers/general.py::_substep -- and none of its TPU machinery: no signed
 // one-hot gather/scatter matrices, no bf16 split compensation, no window
 // bases, no VMEM budget, and acosf in place of the polynomial Mosaic
-// needed.  The global volume constraint, box and kinematic colliders and
-// ensembles are refused by the wrapper (kernels/mesh_cuda.py); traced
-// materials are per-call rest and alpha buffers.  The structs and the
+// needed.  The global volume constraint and ensembles are refused by the
+// wrapper (kernels/mesh_cuda.py); traced materials are per-call rest and
+// alpha buffers; the spheres and boxes (the config's, or a ColliderSet's
+// traced poses, velocities and ground: mesh_pallas.py:881-898,
+// :1566-1590) come from the collider table of colliders.cuh, read by every
+// launch, so a new pose rebuilds nothing.  The structs and the
 // arithmetic the fused backward (mesh_diff_xpbd.cu, built into the same
 // library) shares live in mesh_xpbd.cuh.
 //
@@ -469,7 +472,7 @@ __global__ void particle_kernel(MeshParams p, MeshBuffers b, SumSource src,
   if (sc.corr)
     for (int c = 0; c < 3; ++c)
       pc[c] = pc[c] + p.sc_omega * sc.corr[(size_t)c * sc.ld + t];
-  if (flags & PF_CONTACTS) project_contacts(p, wa, xc, pc);
+  if (flags & PF_CONTACTS) project_contacts(p, b.colliders, wa, xc, pc);
   if (flags & (PF_CHEBY | PF_CHEBY_SPLIT)) {
     float cu[3], pv[3];
     load3(b.cur, n, i, cu);
@@ -478,7 +481,7 @@ __global__ void particle_kernel(MeshParams p, MeshBuffers b, SumSource src,
       pc[c] = om * (p.gamma * (pc[c] - cu[c]) + cu[c] - pv[c]) + pv[c];
     store3(b.prev, n, i, cu);
     if (flags & PF_CHEBY) {
-      if (flags & PF_CONTACTS) project_contacts(p, wa, xc, pc);
+      if (flags & PF_CONTACTS) project_contacts(p, b.colliders, wa, xc, pc);
       store3(b.cur, n, i, pc);
     }
   }
@@ -498,9 +501,10 @@ __global__ void particle_kernel(MeshParams p, MeshBuffers b, SumSource src,
     xc[c] = pinned ? xc[c] : pc[c];
   }
   if (p.floor_mode == 2) {
-    const float pen = p.ground_height - xc[1];
+    const float gh = b.colliders[0];
+    const float pen = gh - xc[1];
     const bool hit = pen > 0.f && wa > 0.f;
-    if (hit) xc[1] = p.floor_rest;
+    if (hit) xc[1] = gh + p.floor_offset;
     const bool falling = hit && vc[1] < 0.f;
     const float vy = fabsf(vc[1]) * p.restitution + pen * p.penetration_kick;
     const float vel_y = falling ? vy : vc[1];
@@ -551,8 +555,9 @@ int mesh_xpbd_run(const MeshParams* hp, const MeshBuffers* hb,
   *n_contact = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (p.n_spheres > MX_MAX_SPHERES || p.n <= 0 || p.n_edges <= 0 ||
-      p.sc_every < 1 || (p.sc_mode == 2 && !(cp && cb)))
+  if (p.n_spheres > MX_MAX_SPHERES || p.n_boxes > MX_MAX_BOXES ||
+      !b.colliders || p.n <= 0 || p.n_edges <= 0 || p.sc_every < 1 ||
+      (p.sc_mode == 2 && !(cp && cb)))
     return (int)cudaErrorInvalidValue;
 
 #define MX_CHECK()            \
@@ -573,8 +578,9 @@ int mesh_xpbd_run(const MeshParams* hp, const MeshBuffers* hb,
   const bool warm = p.lambda_mode == 2;
   const bool bending = p.bending && p.n_hinges > 0;
   const bool tets = p.tets_on && p.n_tets > 0;
-  const int contacts = (p.floor_mode == 1 || p.n_spheres > 0)
-                           ? PF_CONTACTS : 0;
+  const int contacts =
+      (p.floor_mode == 1 || p.n_spheres > 0 || p.n_boxes > 0) ? PF_CONTACTS
+                                                               : 0;
   const int save = p.accelerate ? PF_SAVE : 0;
   const CorrSource no_corr = {nullptr, nullptr, 0};
   const SumSource no_sum = {nullptr, nullptr, nullptr, nullptr};

@@ -9,9 +9,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "colliders.cuh"
 #include "contact_xpbd.cuh"
 
 #define MX_MAX_SPHERES 16
+#define MX_MAX_BOXES 16
 #define MX_THREADS 256
 
 // Every field is 4 bytes wide, so the ctypes mirror has no padding.
@@ -25,7 +27,8 @@ struct MeshParams {
   int bending;         // bending family active
   int gravity_acc;     // gravity_is_acceleration
   int floor_mode;      // 0 NONE, 1 XPBD_INEQUALITY, 2 VELOCITY_REFLECT
-  int n_spheres;
+  int n_spheres;       // sphere rows of the collider table
+  int n_boxes;         // box rows of the collider table
   int accelerate;      // Chebyshev
   int n_colors;
   int col_width;
@@ -54,10 +57,9 @@ struct MeshParams {
   float skip_sin_eps;
   float soften_sin_eps;
   float soften_factor;
-  float ground_height;
   float floor_alpha;   // collision_compliance / dt^2
   float friction_dt;   // dt * clip(friction, 0, 1)
-  float floor_rest;    // ground_height + floor_offset
+  float floor_offset;
   float restitution;
   float penetration_kick;
   float normal_force_scale;
@@ -67,7 +69,6 @@ struct MeshParams {
   float tet_pressure;
   float sc_omega;      // self_collision_omega
   float sc_diam;       // 2 * particle_radius
-  float spheres[MX_MAX_SPHERES][4];
 };
 
 // Device pointers, all 8 bytes wide.
@@ -112,10 +113,11 @@ struct MeshBuffers {
   const float* tcol_valid;
   float* sc_corr;             // (3, N) dense self-collision correction
   float* sc_stats;            // (3) mean of pred (dense pass)
+  const float* colliders;     // (1 + S + B, KIN_W) collider table
 };
 
 enum {
-  PF_CONTACTS = 1,   // project floor and spheres
+  PF_CONTACTS = 1,   // project floor, spheres and boxes
   PF_CHEBY = 2,      // Chebyshev step (then contacts again)
   PF_SAVE = 4,       // cur = prev = pred (the first iteration's start)
   PF_FINALIZE = 8,   // velocities and positions from pred
@@ -200,12 +202,12 @@ __device__ __forceinline__ void predict_coord(const MeshParams& p, int c,
   *pc = pp;
 }
 
-// The XPBD floor with positional friction (ops/collision.py) on one
-// particle's predicted position pc, xc its substep-entry position.
-__device__ __forceinline__ void floor_project(const MeshParams& p, float wa,
-                                              const float xc[3],
+// The XPBD floor at height gh with positional friction (ops/collision.py)
+// on one particle's predicted position pc, xc its substep-entry position.
+__device__ __forceinline__ void floor_project(const MeshParams& p, float gh,
+                                              float wa, const float xc[3],
                                               float pc[3]) {
-  const float pen = p.ground_height - pc[1];
+  const float pen = gh - pc[1];
   const float denom = wa + p.floor_alpha;
   const bool active = pen > 0.f && wa >= p.static_eps &&
                       fabsf(denom) >= p.eps_denominator;
@@ -217,31 +219,39 @@ __device__ __forceinline__ void floor_project(const MeshParams& p, float wa,
   }
 }
 
-// Static sphere s with positional friction in its tangent plane.
-__device__ __forceinline__ void sphere_project(const MeshParams& p, int s,
-                                               float wa, const float xc[3],
+// Sphere row r (colliders.cuh) with positional friction in its tangent
+// plane, relative to the sphere's velocity (0 for the config's spheres).
+__device__ __forceinline__ void sphere_project(const MeshParams& p,
+                                               const float* r, float wa,
+                                               const float xc[3],
                                                float pc[3]) {
   float d[3], nrm[3], vel[3];
-  for (int c = 0; c < 3; ++c) d[c] = pc[c] - p.spheres[s][c];
+  for (int c = 0; c < 3; ++c) d[c] = pc[c] - r[c];
   const float dist = sqrtf(dot3(d, d));
   for (int c = 0; c < 3; ++c) nrm[c] = d[c] / fmaxf(dist, 1e-12f);
-  const float pen = p.spheres[s][3] - dist;
+  const float pen = r[3] - dist;
   const bool active = pen > 0.f && wa >= p.static_eps;
   if (active)
     for (int c = 0; c < 3; ++c) pc[c] = pc[c] + nrm[c] * pen;
-  for (int c = 0; c < 3; ++c) vel[c] = (pc[c] - xc[c]) / p.dt;
+  for (int c = 0; c < 3; ++c) vel[c] = (pc[c] - xc[c]) / p.dt - r[4 + c];
   const float vn = dot3(vel, nrm);
   if (active)
     for (int c = 0; c < 3; ++c)
       pc[c] = pc[c] - (vel[c] - vn * nrm[c]) * p.friction_dt;
 }
 
-// The floor, then each static sphere.
+// The floor, then each sphere, then each box of the collider table tab
+// (solvers/general.py's order).
 __device__ __forceinline__ void project_contacts(const MeshParams& p,
-                                                 float wa, const float xc[3],
+                                                 const float* tab, float wa,
+                                                 const float xc[3],
                                                  float pc[3]) {
-  if (p.floor_mode == 1) floor_project(p, wa, xc, pc);
-  for (int s = 0; s < p.n_spheres; ++s) sphere_project(p, s, wa, xc, pc);
+  if (p.floor_mode == 1) floor_project(p, tab[0], wa, xc, pc);
+  for (int s = 0; s < p.n_spheres; ++s)
+    sphere_project(p, sphere_row(tab, s), wa, xc, pc);
+  for (int k = 0; k < p.n_boxes; ++k)
+    box_project(box_row(tab, p.n_spheres, k), wa, p.static_eps, p.dt,
+                p.friction_dt, xc, pc);
 }
 
 // Where a particle pass takes a particle's constraint sum from: the

@@ -231,7 +231,7 @@ __global__ void slab_contact_finalize_kernel(LatticeParams p, int do_floor,
   if (p.floor_mode == 2) {
     const float pen = p.ground_height - xc[1];
     const bool hit = pen > 0.f && wa > 0.f;
-    if (hit) xc[1] = p.floor_rest;
+    if (hit) xc[1] = p.ground_height + p.floor_offset;
     const bool falling = hit && vc[1] < 0.f;
     const float vy = fabsf(vc[1]) * p.restitution + pen * p.penetration_kick;
     const float v1 = falling ? vy : vc[1];

@@ -1,10 +1,18 @@
-"""Interaction verbs: poke / pin, as ``SimState -> SimState`` updates.
+"""Interaction verbs: poke / drag / squeeze / pin, as ``SimState ->
+SimState`` updates.
 
 Counterpart of ``softbodysimulation_tpu/interact/forces.py`` (``add_force``,
-``add_uniform_force``, ``set_pinned``, ``pin_indices``).  Each verb
-computes against the live positions on the state's device and returns a
-new state; a poke lands in ``ext_force`` and is consumed by the next
-step's first substep.
+``add_uniform_force``, ``drag_force``, ``squeeze_impulse``, ``set_pinned``,
+``pin_indices``).  Each verb computes against the live positions on the
+state's device and returns a new state; a poke lands in ``ext_force`` and
+is consumed by the next step's first substep.
+
+Divisions by a radius or a norm divide by a tensor: a Python-float divisor
+is turned into a multiply by its reciprocal on CUDA, which rounds
+differently from the true division the JAX package does (its verbs are
+jitted with the radius traced), so a poke on the card would part from one
+on the CPU by an ulp.  Distances are ``sqrt(x^2 + y^2 + z^2)`` in that
+order on every device.
 """
 
 from __future__ import annotations
@@ -12,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..core.state import SimState
+from ..ops.distance import dot3
 
 
 def _vec(state: SimState, a) -> torch.Tensor:
@@ -19,13 +28,45 @@ def _vec(state: SimState, a) -> torch.Tensor:
                            device=state.device)
 
 
+def _falloff(dist: torch.Tensor, radius, state: SimState) -> torch.Tensor:
+    """1 - dist / radius inside the radius, else 0 (a true division)."""
+    r = _vec(state, radius)
+    return torch.where(dist < r, 1.0 - dist / r, 0.0)
+
+
 def add_force(state: SimState, force, position, radius=1.0) -> SimState:
     """Accumulate a radial linear-falloff force: falloff = 1 - d/radius for
     d < radius (``SoftBodySimulator.cs:930-937``)."""
     force = _vec(state, force)
-    d = torch.linalg.norm(state.positions - _vec(state, position), dim=1)
-    fall = torch.where(d < radius, 1.0 - d / radius, 0.0)
+    rel = state.positions - _vec(state, position)
+    fall = _falloff(torch.sqrt(dot3(rel, rel)), radius, state)
     return state.replace(ext_force=state.ext_force + fall[:, None] * force)
+
+
+def drag_force(state: SimState, target, strength=5.0,
+               radius=2.0) -> SimState:
+    """Continuous drag toward a cursor / target point
+    (``SoftBodyInteractor.cs:61-66``): the unit direction from the centre
+    of mass to the target, times ``strength``, applied with
+    ``add_force``'s falloff around the target."""
+    target = _vec(state, target)
+    direction = target - state.positions.mean(dim=0)
+    norm = torch.sqrt(dot3(direction, direction))
+    unit = torch.where(norm > 1e-9,
+                       direction / torch.clamp(norm, min=1e-9), 0.0)
+    return add_force(state, unit * _vec(state, strength), target, radius)
+
+
+def squeeze_impulse(state: SimState, center, intensity=1.0,
+                    radius=3.0) -> SimState:
+    """Inward radial squeeze (``SoftBodyAnimator.SqueezeEffect``,
+    ``SoftBodyAnimator.cs:76-94``): 50 x intensity x falloff along the
+    inward direction."""
+    d = state.positions - _vec(state, center)
+    dist = torch.sqrt(dot3(d, d))
+    inward = -d / torch.clamp(dist, min=1e-9)[:, None]
+    mag = _falloff(dist, radius, state) * _vec(state, intensity) * 50.0
+    return state.replace(ext_force=state.ext_force + inward * mag[:, None])
 
 
 def add_uniform_force(state: SimState, force) -> SimState:

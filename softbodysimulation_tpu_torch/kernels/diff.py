@@ -13,8 +13,9 @@ gradient of the plain engine at the same input:
               enabled, on the same device, then ``torch.autograd.grad``.
 
 ``pair_with_vjp`` and ``pair_with_vjp_params`` are that pairing as a
-``torch.autograd.Function`` over the ``SimState`` tensor leaves (and the
-materials).  ``remat_chunk = K`` runs the backward's replay as N/K chunks
+``torch.autograd.Function`` over the ``SimState`` tensor leaves, the
+tensors of its ColliderSet (so gradients reach the collider poses) and
+the materials.  ``remat_chunk = K`` runs the backward's replay as N/K chunks
 under ``torch.utils.checkpoint``, so it holds O(N/K + K) states instead of
 O(N).  ``make_differentiable_mesh_runner`` and
 ``make_differentiable_material_runner`` choose their backward:
@@ -33,17 +34,26 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..core.colliders import FIELDS as _COLLIDER_FIELDS
+from ..core.colliders import ColliderSet
 from ..core.state import SimState
 
 _LEAVES = ("positions", "velocities", "inv_mass", "ext_force", "lambda_dist",
            "lambda_bend", "lambda_volume", "lambda_tet")
 _PARAMS = ("rest_lengths", "compliance")
+# a ColliderSet's tensors, inputs of a rollout (its output state carries
+# the same set): gradients reach the poses
+COLLIDER_KEYS = tuple("colliders." + k for k in _COLLIDER_FIELDS)
 
 
 def _flatten(state: SimState, params=None):
-    """(keys, tensors) of a state's present leaves and the params."""
+    """(keys, tensors) of a state's present leaves, its ColliderSet's
+    tensors and the params."""
     keys = [k for k in _LEAVES if getattr(state, k) is not None]
     tensors = [getattr(state, k) for k in keys]
+    if state.colliders is not None:
+        keys += list(COLLIDER_KEYS)
+        tensors += [getattr(state.colliders, k) for k in _COLLIDER_FIELDS]
     if params is not None:
         keys += list(_PARAMS)
         tensors += [params[k] for k in _PARAMS]
@@ -56,6 +66,9 @@ def _unflatten(keys, tensors):
     params = None
     if _PARAMS[0] in fields:
         params = {k: fields.pop(k) for k in _PARAMS}
+    if COLLIDER_KEYS[0] in fields:
+        fields["colliders"] = ColliderSet(**{
+            k: fields.pop("colliders." + k) for k in _COLLIDER_FIELDS})
     return SimState(**fields), params
 
 

@@ -7,6 +7,13 @@ and ``make_pallas_substep_runner_streamed`` (one kernel covers both, the
 resident kernel's joint g + ext ``max_force`` clamp included), and
 ``make_cuda_step`` for ``make_pallas_step``.
 
+The rigid world reaches the kernel as a collider table
+(``ops/collision.RigidWorld.table``, ``csrc/colliders.cuh``): the config's
+ground, spheres and boxes, or, for a runner built with
+``kin_colliders=(S, B)``, the state's ColliderSet, read by every launch,
+so a new pose rebuilds nothing and syncs nothing; each launch takes its
+collider counts from that world.
+
 Device dispatch, with no fallback: a state on a CUDA device launches the
 kernel (or raises); a state on the CPU runs the kernel's plain version,
 ``solvers.lattice.run_substeps_plain`` — the only path a host without a card
@@ -24,9 +31,11 @@ import functools
 
 import torch
 
+from ..core.colliders import check_kin
 from ..core.config import (DampingMode, FloorMode, LambdaMode, SolveMode,
                            SolverConfig)
 from ..core.state import SimState
+from ..ops import collision as _collision
 from ..solvers import lattice as _lat
 from ..topology.lattice import LatticeSpec
 from . import _build
@@ -37,7 +46,9 @@ SOURCES = ("lattice_xpbd.cu",)
 # the plain engine's separate torch ops do
 NVCC_EXTRA = ("-fmad=false",)
 MAX_FAM = 16
+# rows of the collider table (csrc/lattice_xpbd.cuh LX_MAX_SPHERES, _BOXES)
 MAX_SPHERES = 16
+MAX_BOXES = 16
 
 launches = 0   # CUDA kernels launched by this module (plain int)
 TET_PLANES = 74   # csrc/lattice_xpbd.cu's tet scratch planes
@@ -53,6 +64,7 @@ class LatticeParams(ctypes.Structure):
         ("lambda_mode", ctypes.c_int), ("fast_math", ctypes.c_int),
         ("gravity_acc", ctypes.c_int), ("floor_mode", ctypes.c_int),
         ("reference_bounds", ctypes.c_int), ("n_spheres", ctypes.c_int),
+        ("n_boxes", ctypes.c_int),
         ("fam", (ctypes.c_int * 4) * MAX_FAM),
         ("dt", ctypes.c_float), ("gravity", ctypes.c_float * 3),
         ("max_force", ctypes.c_float), ("damp_factor", ctypes.c_float),
@@ -63,7 +75,8 @@ class LatticeParams(ctypes.Structure):
         ("eps_denominator", ctypes.c_float), ("static_eps", ctypes.c_float),
         ("ground_height", ctypes.c_float), ("floor_alpha", ctypes.c_float),
         ("friction", ctypes.c_float), ("sphere_dt_fr", ctypes.c_float),
-        ("floor_rest", ctypes.c_float), ("restitution", ctypes.c_float),
+        ("box_dt_fr", ctypes.c_float), ("floor_offset", ctypes.c_float),
+        ("restitution", ctypes.c_float),
         ("penetration_kick", ctypes.c_float),
         ("normal_force_scale", ctypes.c_float),
         ("floor_friction_coeff", ctypes.c_float),
@@ -71,7 +84,6 @@ class LatticeParams(ctypes.Structure):
         ("alpha", ctypes.c_float * MAX_FAM),
         ("dl_rel", ctypes.c_float * MAX_FAM),
         ("warm_lim", ctypes.c_float * MAX_FAM),
-        ("spheres", (ctypes.c_float * 4) * MAX_SPHERES),
         ("tets", ctypes.c_int),
         ("tet_off", ((ctypes.c_int * 3) * 3) * 6),
         ("tet_alpha", ctypes.c_float), ("tet_target", ctypes.c_float),
@@ -86,7 +98,8 @@ _FLOOR_MODE = {FloorMode.NONE: 0, FloorMode.XPBD_INEQUALITY: 1,
 
 
 def _check_supported(cfg: SolverConfig, spec: LatticeSpec,
-                     approx_math: bool = False, n_bodies: int = 1):
+                     approx_math: bool = False, n_bodies: int = 1,
+                     kin_colliders=None):
     """Build-time refusals: the plain engine's, plus the kernel's options
     that are not ported and its fixed table sizes."""
     _lat.check_supported(cfg, spec)
@@ -101,15 +114,19 @@ def _check_supported(cfg: SolverConfig, spec: LatticeSpec,
     if spec.n_families > MAX_FAM:
         raise NotImplementedError(
             f"lattice kernel: at most {MAX_FAM} offset families")
-    if len(cfg.sphere_colliders) > MAX_SPHERES:
+    n_sph, n_box = ((len(cfg.sphere_colliders), len(cfg.box_colliders))
+                    if kin_colliders is None else kin_colliders)
+    if n_sph > MAX_SPHERES or n_box > MAX_BOXES:
         raise NotImplementedError(
-            f"lattice kernel: at most {MAX_SPHERES} sphere colliders")
+            f"lattice kernel: at most {MAX_SPHERES} sphere and {MAX_BOXES} "
+            f"box colliders")
 
 
 def make_params(spec: LatticeSpec, cfg: SolverConfig,
                 dt: float) -> LatticeParams:
     """The kernel's constants, each rounded to float32 from the same double
-    expression the plain engine (and the JAX engine) evaluates."""
+    expression the plain engine (and the JAX engine) evaluates; the
+    collider counts are a launch's (``run_substeps_cuda``)."""
     p = LatticeParams()
     p.res = spec.res
     p.n = spec.n_particles
@@ -121,7 +138,6 @@ def make_params(spec: LatticeSpec, cfg: SolverConfig,
     p.gravity_acc = int(cfg.gravity_is_acceleration)
     p.floor_mode = _FLOOR_MODE[cfg.floor_mode]
     p.reference_bounds = int(spec.reference_bounds)
-    p.n_spheres = len(cfg.sphere_colliders)
     p.dt = dt
     p.gravity[:] = cfg.gravity
     p.max_force = cfg.max_force
@@ -144,7 +160,8 @@ def make_params(spec: LatticeSpec, cfg: SolverConfig,
     fr = min(max(cfg.friction, 0.0), 1.0)
     p.friction = fr
     p.sphere_dt_fr = dt * fr
-    p.floor_rest = cfg.ground_height + cfg.floor_offset
+    p.box_dt_fr = _collision.friction_step(cfg, dt)
+    p.floor_offset = cfg.floor_offset
     p.restitution = cfg.restitution
     p.penetration_kick = cfg.penetration_kick
     p.normal_force_scale = cfg.normal_force_scale
@@ -161,8 +178,6 @@ def make_params(spec: LatticeSpec, cfg: SolverConfig,
                         if cfg.max_dlambda_rel > 0 else 0.0)
         p.warm_lim[fi] = (cfg.warm_start_clamp * rest
                           if cfg.warm_start_clamp > 0 else 0.0)
-    for si, sphere in enumerate(cfg.sphere_colliders):
-        p.spheres[si][:] = sphere
     p.tets = int(cfg.enable_tet_volume)
     for pi, path in enumerate(_lat._tet_fields(spec)[0]):
         for k, off in enumerate(path[1:]):
@@ -183,7 +198,7 @@ def _library() -> ctypes.CDLL:
     vp = ctypes.c_void_p
     lib.lattice_xpbd_run.argtypes = [
         ctypes.POINTER(LatticeParams), ctypes.c_int, vp, vp, vp, vp,
-        ctypes.c_int, vp, vp, vp, vp, vp, vp, ctypes.c_int,
+        ctypes.c_int, vp, vp, vp, vp, vp, vp, vp, ctypes.c_int,
         ctypes.POINTER(ctypes.c_longlong), vp]
     lib.lattice_xpbd_run.restype = ctypes.c_int
     if lib.lattice_xpbd_params_size() != ctypes.sizeof(LatticeParams):
@@ -208,11 +223,15 @@ def run_substeps_cuda(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
                       dt_sub: float, n_substeps: int,
                       with_ext: bool = False) -> SimState:
     """Launch the kernel for ``n_substeps`` substeps of a CUDA state; the
-    semantics of ``solvers.lattice.run_substeps_plain``.  No host sync."""
+    semantics of ``solvers.lattice.run_substeps_plain``, the state's
+    ColliderSet (if any) replacing the config's rigid world.  No host
+    sync."""
     global launches
-    _check_supported(cfg, spec)
     _lat.check_state(state, cfg)
     dev = state.device
+    world = _collision.RigidWorld.of(cfg, state.colliders, dev)
+    rows = (world.n_spheres, world.n_boxes)
+    _check_supported(cfg, spec, kin_colliders=rows)
     if dev.type != "cuda":
         raise ValueError(f"lattice kernel: state on {dev}, not CUDA")
     n, nfam = spec.n_particles, spec.n_families
@@ -244,8 +263,11 @@ def run_substeps_cuda(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
             _ptr("lambda_dist", lam, (nfam * n,), dev),
             _ptr("lambda scratch", lam_scratch, (nfam * n,), dev),
             _ptr("pred", pred_a, (3, n), dev),
-            _ptr("pred", pred_b, (3, n), dev), lam_t_ptr, terms_ptr]
+            _ptr("pred", pred_b, (3, n), dev), lam_t_ptr, terms_ptr,
+            _ptr("colliders", world.table, (1 + sum(rows),
+                                             _collision.KIN_W), dev)]
     params = make_params(spec, cfg, dt_sub)
+    params.n_spheres, params.n_boxes = rows
     lib = _library()
     count = ctypes.c_longlong(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -281,24 +303,35 @@ def advance(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
 def make_cuda_substep_runner(spec: LatticeSpec, cfg: SolverConfig,
                              dt_sub: float, n_substeps: int,
                              with_ext: bool = False,
-                             approx_math: bool = False, n_bodies: int = 1):
+                             approx_math: bool = False, n_bodies: int = 1,
+                             kin_colliders=None):
     """``SimState -> SimState`` advancing ``n_substeps`` raw substeps.
     ``with_ext=False``: external forces are neither applied nor cleared
     (rollout semantics); ``with_ext=True``: ``state.ext_force`` is consumed
-    on the first substep and zeroed.  ``approx_math`` and ``n_bodies > 1``
-    are not ported and raise ``NotImplementedError`` here, at build time."""
-    _check_supported(cfg, spec, approx_math=approx_math, n_bodies=n_bodies)
+    on the first substep and zeroed.  ``kin_colliders=(S, B)``: the state's
+    ColliderSet of S spheres and B boxes replaces the config's rigid world,
+    its poses read by every launch (checked at call time: ``check_kin``; a
+    runner built without it refuses a state carrying colliders).
+    ``approx_math`` and ``n_bodies > 1`` are not ported and raise
+    ``NotImplementedError`` here, at build time."""
+    kin = None if kin_colliders is None else tuple(
+        int(k) for k in kin_colliders)
+    _check_supported(cfg, spec, approx_math=approx_math, n_bodies=n_bodies,
+                     kin_colliders=kin)
 
     def fn(state: SimState) -> SimState:
+        check_kin(kin, state.colliders, "lattice runner")
         return advance(state, spec, cfg, dt_sub, n_substeps, with_ext)
 
     return fn
 
 
 def make_cuda_step(spec: LatticeSpec, cfg: SolverConfig, dt: float,
-                   n_steps: int = 1):
+                   n_steps: int = 1, kin_colliders=None):
     """Full step semantics: ``n_steps`` frames of ``cfg.substeps`` substeps,
     ``state.ext_force`` consumed on the first substep and zeroed after
-    (drop-in for ``solvers.lattice.make_step``)."""
+    (drop-in for ``solvers.lattice.make_step``); ``kin_colliders`` as in
+    ``make_cuda_substep_runner``."""
     return make_cuda_substep_runner(spec, cfg, dt / cfg.substeps,
-                                    n_steps * cfg.substeps, with_ext=True)
+                                    n_steps * cfg.substeps, with_ext=True,
+                                    kin_colliders=kin_colliders)

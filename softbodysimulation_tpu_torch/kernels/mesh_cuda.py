@@ -4,8 +4,8 @@ runners.
 Counterpart of ``softbodysimulation_tpu/kernels/mesh_pallas.py``
 (``_check_supported``, ``make_mesh_substep_runner``,
 ``make_mesh_pallas_step``, ``make_mesh_hybrid_contact_step``) for the
-distance, dihedral-bending and per-tet volume families with floor, sphere
-and self-collision contacts: ``make_mesh_cuda_substep_runner``,
+distance, dihedral-bending and per-tet volume families with floor, sphere,
+box and self-collision contacts: ``make_mesh_cuda_substep_runner``,
 ``make_mesh_cuda_step`` and ``make_mesh_hybrid_contact_step``.  The TPU
 kernel's one-hot block plans have no counterpart: the CUDA kernel gathers
 by index, so any topology runs (a windowed one is not needed).
@@ -34,6 +34,13 @@ host round trip, and the ``max_dlambda_rel`` bound and the warm-start clamp
 follow them in the kernel; the topology's own values give the static path
 to the bit.
 
+The rigid world reaches the kernel as a collider table
+(``ops/collision.RigidWorld.table``, ``csrc/colliders.cuh``): the config's
+ground, spheres and boxes, or, for a runner built with
+``kin_colliders=(S, B)``, the state's ColliderSet (poses, velocities and
+ground), read by every launch; each launch takes its collider counts from
+that world (``launch_params``).
+
 ``launches`` counts the CUDA kernels this module has launched (the B-4
 pass's aside); callers may reset it to 0 to count one run.
 """
@@ -47,6 +54,7 @@ import functools
 import numpy as np
 import torch
 
+from ..core.colliders import check_kin
 from ..core.config import FloorMode, LambdaMode, SolveMode, SolverConfig
 from ..core.state import SimState, Topology
 from ..ops import collision as _collision
@@ -62,7 +70,9 @@ SOURCES = ("mesh_xpbd.cu", "contact_xpbd.cu", "mesh_diff_xpbd.cu")
 # every product and sum rounded as written (no FMA contraction): the
 # bending masks near flat hinges must see the plain engine's bits
 NVCC_EXTRA = ("-fmad=false",)
+# rows of the collider table (csrc/mesh_xpbd.cuh MX_MAX_SPHERES, _BOXES)
 MAX_SPHERES = 16
+MAX_BOXES = 16
 
 launches = 0   # CUDA kernels launched by this module (plain int)
 
@@ -77,7 +87,8 @@ class MeshParams(ctypes.Structure):
         ("colored", ctypes.c_int), ("lambda_mode", ctypes.c_int),
         ("bending", ctypes.c_int), ("gravity_acc", ctypes.c_int),
         ("floor_mode", ctypes.c_int), ("n_spheres", ctypes.c_int),
-        ("accelerate", ctypes.c_int), ("n_colors", ctypes.c_int),
+        ("n_boxes", ctypes.c_int), ("accelerate", ctypes.c_int),
+        ("n_colors", ctypes.c_int),
         ("col_width", ctypes.c_int), ("n_bend_colors", ctypes.c_int),
         ("bcol_width", ctypes.c_int), ("n_tets", ctypes.c_int),
         ("tets_on", ctypes.c_int), ("n_tet_colors", ctypes.c_int),
@@ -93,16 +104,14 @@ class MeshParams(ctypes.Structure):
         ("static_eps", ctypes.c_float), ("skip_sin_eps", ctypes.c_float),
         ("soften_sin_eps", ctypes.c_float),
         ("soften_factor", ctypes.c_float),
-        ("ground_height", ctypes.c_float), ("floor_alpha", ctypes.c_float),
-        ("friction_dt", ctypes.c_float), ("floor_rest", ctypes.c_float),
-        ("restitution", ctypes.c_float),
+        ("floor_alpha", ctypes.c_float), ("friction_dt", ctypes.c_float),
+        ("floor_offset", ctypes.c_float), ("restitution", ctypes.c_float),
         ("penetration_kick", ctypes.c_float),
         ("normal_force_scale", ctypes.c_float),
         ("floor_friction_coeff", ctypes.c_float),
         ("gamma", ctypes.c_float), ("omega", ctypes.c_float),
         ("tet_pressure", ctypes.c_float), ("sc_omega", ctypes.c_float),
         ("sc_diam", ctypes.c_float),
-        ("spheres", (ctypes.c_float * 4) * MAX_SPHERES),
     ]
 
 
@@ -113,7 +122,7 @@ _BUFFERS = ("x", "v", "w", "f", "pred", "cur", "prev", "lam", "blam",
             "bcol_ids",
             "bcol_valid", "tlam", "tcontrib", "tets", "trest", "talpha",
             "tdeg", "tinc_ptr", "tinc_cols", "tcol_ids", "tcol_valid",
-            "sc_corr", "sc_stats")
+            "sc_corr", "sc_stats", "colliders")
 
 
 class MeshBuffers(ctypes.Structure):
@@ -125,7 +134,7 @@ class MeshBuffers(ctypes.Structure):
 # the fused backward's stash, then its cotangents
 DIFF_BUFFERS = ("st_x", "st_v", "st_wx", "st_wlam", "st_pred", "st_new",
                 "st_prev", "st_lam", "gx", "gv", "glam", "grest", "galpha",
-                "gp", "gprev", "gq", "gcur", "gcontrib")
+                "gp", "gprev", "gq", "gcur", "gcontrib", "gpose", "gpose_out")
 
 
 class DiffBuffers(ctypes.Structure):
@@ -161,12 +170,12 @@ def _check_supported(cfg: SolverConfig, topo: Topology,
         raise NotImplementedError(
             "mesh kernel: stacked-body ensembles (n_bodies > 1) are not "
             "ported")
-    if kin_colliders is not None:
+    n_sph, n_box = ((len(cfg.sphere_colliders), len(cfg.box_colliders))
+                    if kin_colliders is None else kin_colliders)
+    if n_sph > MAX_SPHERES or n_box > MAX_BOXES:
         raise NotImplementedError(
-            "mesh kernel: kinematic collider poses are not ported")
-    if len(cfg.sphere_colliders) > MAX_SPHERES:
-        raise NotImplementedError(
-            f"mesh kernel: at most {MAX_SPHERES} sphere colliders")
+            f"mesh kernel: at most {MAX_SPHERES} sphere and {MAX_BOXES} box "
+            f"colliders")
     if topo.n_edges == 0:
         raise NotImplementedError("mesh kernel needs at least one edge")
 
@@ -189,7 +198,8 @@ def check_cuda(cfg: SolverConfig, topo: Topology):
 
 def make_params(topo: Topology, cfg: SolverConfig, dt: float) -> MeshParams:
     """The kernel's scalar constants, each rounded to float32 as the plain
-    engine rounds it."""
+    engine rounds it; the collider counts are a launch's
+    (``launch_params``)."""
     p = MeshParams()
     p.n = topo.n_particles
     p.n_edges = topo.n_edges
@@ -200,7 +210,6 @@ def make_params(topo: Topology, cfg: SolverConfig, dt: float) -> MeshParams:
     p.bending = int(cfg.enable_bending)
     p.gravity_acc = int(cfg.gravity_is_acceleration)
     p.floor_mode = _FLOOR_MODE[cfg.floor_mode]
-    p.n_spheres = len(cfg.sphere_colliders)
     p.accelerate = int(_general.accelerated(cfg))
     p.n_colors, p.col_width = topo.col_edge_ids.shape
     p.n_bend_colors, p.bcol_width = topo.bcol_hinge_ids.shape
@@ -228,10 +237,9 @@ def make_params(topo: Topology, cfg: SolverConfig, dt: float) -> MeshParams:
     p.skip_sin_eps = cfg.bend_skip_sin_eps
     p.soften_sin_eps = cfg.bend_soften_sin_eps
     p.soften_factor = cfg.bend_soften_factor
-    p.ground_height = cfg.ground_height
     p.floor_alpha = cfg.collision_compliance / (dt * dt)
     p.friction_dt = _collision.friction_step(cfg, dt)
-    p.floor_rest = cfg.ground_height + cfg.floor_offset
+    p.floor_offset = cfg.floor_offset
     p.restitution = cfg.restitution
     p.penetration_kick = cfg.penetration_kick
     p.normal_force_scale = cfg.normal_force_scale
@@ -241,8 +249,6 @@ def make_params(topo: Topology, cfg: SolverConfig, dt: float) -> MeshParams:
     p.tet_pressure = cfg.tet_pressure
     p.sc_omega = cfg.self_collision_omega
     p.sc_diam = 2.0 * cfg.particle_radius
-    for si, sphere in enumerate(cfg.sphere_colliders):
-        p.spheres[si][:] = sphere
     return p
 
 
@@ -366,6 +372,14 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def launch_params(tables: _DeviceTables, world) -> MeshParams:
+    """A launch's copy of the runner configuration's constants, with the
+    collider counts of its rigid world (``ops/collision.RigidWorld``)."""
+    p = MeshParams.from_buffer_copy(tables.params)
+    p.n_spheres, p.n_boxes = world.n_spheres, world.n_boxes
+    return p
+
+
 def _checked(name: str, t: torch.Tensor, shape, device) -> torch.Tensor:
     if t.device != device or t.dtype != torch.float32:
         raise ValueError(f"mesh kernel: {name} must be float32 on {device}, "
@@ -380,20 +394,23 @@ def run_substeps_cuda(state: SimState, topo: Topology, cfg: SolverConfig,
                       dt_sub: float, n_substeps: int,
                       with_ext: bool = False, materials=None) -> SimState:
     """Launch the kernel for ``n_substeps`` substeps of a CUDA state; the
-    semantics of ``solvers.general.run_substeps_plain``.  No host sync."""
+    semantics of ``solvers.general.run_substeps_plain``, the state's
+    ColliderSet (if any) replacing the config's rigid world.  No host
+    sync."""
     global launches
-    _check_supported(cfg, topo)
-    check_cuda(cfg, topo)
     _general.check_state(state)
     dev = state.device
+    world = _collision.RigidWorld.of(cfg, state.colliders, dev)
+    _check_supported(cfg, topo,
+                     kin_colliders=(world.n_spheres, world.n_boxes))
+    check_cuda(cfg, topo)
     if dev.type != "cuda":
         raise ValueError(f"mesh kernel: state on {dev}, not CUDA")
     n, e, h = topo.n_particles, topo.n_edges, topo.n_hinges
     tables = _device_tables(topo, cfg, dt_sub, str(dev))
-    params = tables.params
+    params = launch_params(tables, world)
     if state.lambda_tet is None and topo.n_tets:
         # no multipliers, no tet sweep (general._substep's has_tets)
-        params = MeshParams.from_buffer_copy(params)
         params.n_tets = params.tets_on = 0
 
     def f32(*shape):
@@ -409,7 +426,9 @@ def run_substeps_cuda(state: SimState, topo: Topology, cfg: SolverConfig,
     plane = f32(3, 3, n)
     work = dict(x=x, v=v, w=w, f=f, pred=plane[0], cur=plane[1],
                 prev=plane[2], lam=lam, blam=blam, contrib=f32(2 * e, 3),
-                bcontrib=f32(max(4 * h, 1), 3), **tables.tensors)
+                bcontrib=f32(max(4 * h, 1), 3),
+                colliders=world.table,
+                **tables.tensors)
     if materials is not None:
         work["rest"], work["alpha"] = material_constants(materials, cfg,
                                                          dt_sub, e, dev)
@@ -478,15 +497,21 @@ def make_mesh_cuda_substep_runner(topo: Topology, cfg: SolverConfig,
     self_collision_every == 0``; ``materials`` as the module docstring says.
     ``with_ext=False``: external forces are neither applied nor cleared
     (rollout semantics); ``with_ext=True``: ``state.ext_force`` is consumed
-    on the first substep and zeroed.  ``approx_math``, ``n_bodies > 1`` and
-    ``kin_colliders`` are not ported and raise ``NotImplementedError`` here,
+    on the first substep and zeroed.  ``kin_colliders=(S, B)``: the state's
+    ColliderSet of S spheres and B boxes replaces the config's rigid world,
+    its poses read by every launch (checked at call time; a runner built
+    without it refuses a state carrying colliders).  ``approx_math`` and
+    ``n_bodies > 1`` are not ported and raise ``NotImplementedError`` here,
     at build time, as do the configurations the plain engine refuses and,
     when ``device`` names a CUDA device, what a CUDA state is refused
     (``check_cuda``; a CUDA state is checked again when it arrives)."""
+    kin = None if kin_colliders is None else tuple(
+        int(k) for k in kin_colliders)
     _check_supported(cfg, topo, approx_math=approx_math, n_bodies=n_bodies,
-                     kin_colliders=kin_colliders, device=device)
+                     kin_colliders=kin, device=device)
 
     def fn(state: SimState, materials=None) -> SimState:
+        check_kin(kin, state.colliders, "mesh runner")
         return advance(state, topo, cfg, dt_sub, n_substeps, with_ext,
                        materials)
 
@@ -494,7 +519,7 @@ def make_mesh_cuda_substep_runner(topo: Topology, cfg: SolverConfig,
 
 
 def make_mesh_cuda_step(topo: Topology, cfg: SolverConfig, dt: float,
-                        n_steps: int = 1, device=None):
+                        n_steps: int = 1, device=None, kin_colliders=None):
     """Full step semantics: ``n_steps`` frames of ``cfg.substeps`` substeps,
     ``state.ext_force`` consumed on the first substep and zeroed after
     (drop-in for ``solvers.general.make_step``), routed as
@@ -502,11 +527,13 @@ def make_mesh_cuda_step(topo: Topology, cfg: SolverConfig, dt: float,
     library's loop, its cadence gated on the raw substep index, so a
     cadence that does not divide the frame is refused; the other backends
     with ``self_collision_every >= 2`` go to
-    ``make_mesh_hybrid_contact_step``."""
+    ``make_mesh_hybrid_contact_step``.  ``kin_colliders`` as in
+    ``make_mesh_cuda_substep_runner``."""
     if cfg.enable_self_collision and cfg.self_collision_every >= 2:
         if cfg.self_collision_backend != "dense":
-            return make_mesh_hybrid_contact_step(topo, cfg, dt, n_steps,
-                                                 device=device)
+            return make_mesh_hybrid_contact_step(
+                topo, cfg, dt, n_steps, device=device,
+                kin_colliders=kin_colliders)
         if cfg.substeps % cfg.self_collision_every != 0:
             raise NotImplementedError(
                 "fused dense contact cadence needs substeps % "
@@ -514,11 +541,13 @@ def make_mesh_cuda_step(topo: Topology, cfg: SolverConfig, dt: float,
                 "must equal the kernel's raw-substep gate)")
     return make_mesh_cuda_substep_runner(topo, cfg, dt / cfg.substeps,
                                          n_steps * cfg.substeps,
-                                         with_ext=True, device=device)
+                                         with_ext=True, device=device,
+                                         kin_colliders=kin_colliders)
 
 
 def make_mesh_hybrid_contact_step(topo: Topology, cfg: SolverConfig,
-                                  dt: float, n_steps: int = 1, device=None):
+                                  dt: float, n_steps: int = 1, device=None,
+                                  kin_colliders=None):
     """Contact-cadence step (``mesh_pallas.make_mesh_hybrid_contact_step``'s
     semantics): ``n_steps`` frames in which substep i of a frame projects
     self-collision iff ``i % self_collision_every == 0``, exactly
@@ -539,4 +568,5 @@ def make_mesh_hybrid_contact_step(topo: Topology, cfg: SolverConfig,
             "self_collision_every == 0 (use the plain engine otherwise)")
     return make_mesh_cuda_substep_runner(topo, cfg, dt / cfg.substeps,
                                          n_steps * cfg.substeps,
-                                         with_ext=True, device=device)
+                                         with_ext=True, device=device,
+                                         kin_colliders=kin_colliders)

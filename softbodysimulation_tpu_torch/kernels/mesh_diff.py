@@ -28,13 +28,16 @@ other device raises.  The kernel is built into the mesh library
 (``mesh_cuda.SOURCES``), so its replay runs the forward's very code.
 
 Cotangents reach positions, velocities and ``lambda_dist`` (and, for the
-material runner, both material vectors); ``inv_mass``, ``ext_force`` and
-the other multipliers get none (the runners are built without ext force).
-The envelope (``check_fused_backward_envelope``) is the JAX kernel's:
-JACOBI (plain or Chebyshev), RESET / DECAY / WARM_START, distance
-constraints only, the XPBD floor or none, static spheres, no boxes, no
-self-collision, single body; kinematic ColliderSets are not ported, so the
-pose cotangents of the JAX kernel are not either.
+material runner, both material vectors; with ``kin_colliders=(S, 0)``,
+the state's ColliderSet: each sphere's center, radius and velocity and
+the ground height, ``mesh_diff_pallas.py:503-617``); ``inv_mass``,
+``ext_force`` and the other multipliers get none (the runners are built
+without ext force).  The pose is constant over a rollout, so its
+cotangents SUM over the substeps, iterations and chunks.  The envelope
+(``check_fused_backward_envelope``) is the JAX kernel's: JACOBI (plain or
+Chebyshev), RESET / DECAY / WARM_START, distance constraints only, the
+XPBD floor or none, spheres (the config's or kinematic), no boxes (the
+config's or kinematic), no self-collision, single body.
 
 There is no VMEM here: the stash lives in the card's memory, and the chunk
 is the whole rollout whenever its stash fits ``STASH_BUDGET`` bytes, else
@@ -52,6 +55,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..core.colliders import check_kin, kin_counts
 from ..core.config import FloorMode, LambdaMode, SolveMode, SolverConfig
 from ..core.state import SimState, Topology
 from ..ops import collision as _collision
@@ -72,11 +76,12 @@ def check_fused_backward_envelope(cfg: SolverConfig, topo: Topology,
                                   materials: bool = False):
     """Raise ``NotImplementedError`` outside the fused backward's envelope
     (module docstring); ``materials=True`` adds the material runner's two
-    refusals (bounds that are functions of the rest lengths)."""
+    refusals (bounds that are functions of the rest lengths).
+    ``kin_colliders=(S, B)``: traced ColliderSet poses, which replace the
+    config's rigid world, so the config's boxes are not checked; kinematic
+    spheres are covered with pose cotangents, kinematic boxes are not."""
     why = None
-    if kin_colliders is not None:
-        why = "kinematic ColliderSets (not ported: general.check_state)"
-    elif cfg.solve_mode != SolveMode.JACOBI:
+    if cfg.solve_mode != SolveMode.JACOBI:
         why = f"solve mode {cfg.solve_mode} (JACOBI only)"
     elif cfg.lambda_mode not in (LambdaMode.RESET, LambdaMode.DECAY,
                                  LambdaMode.WARM_START):
@@ -91,7 +96,9 @@ def check_fused_backward_envelope(cfg: SolverConfig, topo: Topology,
         why = "self-collision"
     elif cfg.floor_mode == FloorMode.VELOCITY_REFLECT:
         why = "the velocity-reflect floor"
-    elif cfg.box_colliders:
+    elif kin_colliders is not None and int(kin_colliders[1]) > 0:
+        why = "kinematic box colliders"
+    elif kin_colliders is None and cfg.box_colliders:
         why = "box colliders"
     elif materials and cfg.max_dlambda_rel > 0:
         why = "max_dlambda_rel with materials (the bound is a function of rest)"
@@ -102,7 +109,8 @@ def check_fused_backward_envelope(cfg: SolverConfig, topo: Topology,
     if why is not None:
         raise NotImplementedError(
             f"fused mesh backward does not cover {why} -- use the paired "
-            "backward (kernels.diff, backward='xla')")
+            "backward (kernels.diff.make_differentiable_mesh_runner with "
+            "backward='xla')")
 
 
 def stash_bytes(topo: Topology, cfg: SolverConfig, chunk: int) -> int:
@@ -154,35 +162,60 @@ def fused_envelope_ok(topo: Topology, cfg: SolverConfig, n_substeps: int,
 
 
 # ------------------------------------------------------ the plain version
-def _contact_stages(cfg: SolverConfig):
+class PoseGrads:
+    """Per-particle accumulators of the pose cotangents of a kinematic
+    rigid world (ground height, each sphere's center, radius and
+    velocity), summed over particles by ``totals``: the kernel's
+    ``gpose`` planes, in the plain version."""
+
+    def __init__(self, n_spheres: int, like: torch.Tensor):
+        n = like.shape[0]
+        self.ground = like.new_zeros(n)
+        self.center = like.new_zeros((n_spheres, n, 3))
+        self.radius = like.new_zeros((n_spheres, n))
+        self.velocity = like.new_zeros((n_spheres, n, 3))
+
+    def totals(self):
+        """{"spheres": (S, 4), "sphere_velocities": (S, 3),
+        "ground_height": ()}."""
+        return {"spheres": torch.cat([self.center.sum(1),
+                                      self.radius.sum(1)[:, None]], 1),
+                "sphere_velocities": self.velocity.sum(1),
+                "ground_height": self.ground.sum()}
+
+
+def _contact_stages(cfg: SolverConfig, world):
     """The contact chain in forward order: the floor (None), then each
-    static sphere."""
+    sphere's index."""
     floor = [None] if cfg.floor_mode == FloorMode.XPBD_INEQUALITY else []
-    return floor + list(cfg.sphere_colliders)
+    return floor + list(range(world.n_spheres))
 
 
-def _stage_fwd(stage, p, anchor, w, dt, cfg):
+def _stage_fwd(stage, p, anchor, w, dt, cfg, world):
     if stage is None:
-        return _collision.floor_project_xpbd(p, anchor, w, dt, cfg)
+        return world.project_floor(p, anchor, w, dt, cfg)
     return _collision.sphere_sdf_project(
-        p, anchor, w, dt, cfg.replace(sphere_colliders=(stage,)))
+        p, anchor, w, dt, cfg, spheres=world.spheres[stage:stage + 1],
+        sphere_velocities=world.sphere_velocities[stage:stage + 1])
 
 
-def _contacts_fwd(p, anchor, w, dt, cfg):
-    for stage in _contact_stages(cfg):
-        p = _stage_fwd(stage, p, anchor, w, dt, cfg)
+def _contacts_fwd(p, anchor, w, dt, cfg, world):
+    for stage in _contact_stages(cfg, world):
+        p = _stage_fwd(stage, p, anchor, w, dt, cfg, world)
     return p
 
 
-def _floor_bwd(g, p, anchor, w, dt, cfg):
-    """VJP of the XPBD floor at input ``p``: (g_p, g_anchor)."""
-    pen = cfg.ground_height - p[:, 1]
+def _floor_bwd(g, p, anchor, w, dt, cfg, world, pose):
+    """VJP of the XPBD floor at input ``p``: (g_p, g_anchor); the ground
+    height's per-particle cotangent is added into ``pose`` when given."""
+    pen = world.ground - p[:, 1]
     denom = w + cfg.collision_compliance / (dt * dt)
     a = ((pen > 0) & (w >= cfg.static_inv_mass_eps)
          & (torch.abs(denom) >= cfg.eps_denominator))
     fdt = _collision.friction_step(cfg, dt)
     gu = -g * fdt
-    gy = g[:, 1] - g[:, 1] * w / denom
+    g_gh = g[:, 1] * w / denom
+    gy = g[:, 1] - g_gh
     g_p = torch.stack([torch.where(a, g[:, 0] + _integrate.over_dt(gu[:, 0], dt),
                                    g[:, 0]),
                        torch.where(a, gy, g[:, 1]),
@@ -192,14 +225,16 @@ def _floor_bwd(g, p, anchor, w, dt, cfg):
     zero = torch.zeros_like(pen)
     g_a = torch.stack([torch.where(a, ga[:, 0], zero), zero,
                        torch.where(a, ga[:, 2], zero)], dim=1)
+    if pose is not None:
+        pose.ground = pose.ground + torch.where(a, g_gh, zero)
     return g_p, g_a
 
 
-def _sphere_bwd(g2, p, anchor, w, dt, cfg, sphere):
-    """VJP of one static sphere's projection and friction at input ``p``:
-    (g_p, g_anchor)."""
-    cx, cy, cz, radius = sphere
-    center = torch.tensor([cx, cy, cz], dtype=p.dtype, device=p.device)
+def _sphere_bwd(g2, p, anchor, w, dt, cfg, world, k, pose):
+    """VJP of sphere ``k``'s projection and friction at input ``p``:
+    (g_p, g_anchor); its center, radius and velocity cotangents per
+    particle are added into ``pose`` when given."""
+    center, radius = world.spheres[k, :3], world.spheres[k, 3]
     d = p - center
     dist = torch.sqrt(dot3(d, d))
     dmax = torch.clamp(dist, min=1e-12)
@@ -207,34 +242,42 @@ def _sphere_bwd(g2, p, anchor, w, dt, cfg, sphere):
     pen = radius - dist
     a = ((pen > 0) & (w >= cfg.static_inv_mass_eps))[:, None]
     p1 = p + torch.where(a, n * pen[:, None], 0.0)
-    vel = _integrate.over_dt(p1 - anchor, dt)
+    vel = _integrate.over_dt(p1 - anchor, dt) - world.sphere_velocities[k]
     vn = dot3(vel, n)
     gvt = -g2 * _collision.friction_step(cfg, dt)
     gvtn = dot3(gvt, n)
-    gvel = _integrate.over_dt(gvt - n * gvtn[:, None], dt)
+    g_vel = gvt - n * gvtn[:, None]
+    gvel = _integrate.over_dt(g_vel, dt)
     gn = -(vn[:, None] * gvt + vel * gvtn[:, None])
     gp1 = g2 + gvel
     gn = gn + pen[:, None] * gp1
-    gdist = -dot3(gp1, n) + torch.where(dist >= 1e-12,
-                                        -dot3(gn, d) / (dmax * dmax), 0.0)
+    g_pen = dot3(gp1, n)
+    gdist = -g_pen + torch.where(dist >= 1e-12,
+                                 -dot3(gn, d) / (dmax * dmax), 0.0)
     gd = gn / dmax[:, None] + d * (gdist / dist)[:, None]
+    if pose is not None:
+        pose.center[k] = pose.center[k] + torch.where(a, -gd, 0.0)
+        pose.radius[k] = pose.radius[k] + torch.where(a[:, 0], g_pen, 0.0)
+        pose.velocity[k] = pose.velocity[k] + torch.where(a, -g_vel, 0.0)
     return (torch.where(a, gp1 + gd, g2),
             torch.where(a, -gvel, 0.0))
 
 
-def _contacts_bwd(g, p, anchor, w, dt, cfg):
+def _contacts_bwd(g, p, anchor, w, dt, cfg, world, pose):
     """VJP of the contact chain at input ``p``: the chain's intermediate
-    inputs recomputed, then walked backward.  (g_p, g_anchor)."""
-    stages = _contact_stages(cfg)
+    inputs recomputed, then walked backward.  (g_p, g_anchor); the pose
+    cotangents go into ``pose`` when given."""
+    stages = _contact_stages(cfg, world)
     vals = [p]
     for stage in stages[:-1]:
-        vals.append(_stage_fwd(stage, vals[-1], anchor, w, dt, cfg))
+        vals.append(_stage_fwd(stage, vals[-1], anchor, w, dt, cfg, world))
     ga = torch.zeros_like(g)
     for stage, val in reversed(list(zip(stages, vals))):
         if stage is None:
-            g, gs = _floor_bwd(g, val, anchor, w, dt, cfg)
+            g, gs = _floor_bwd(g, val, anchor, w, dt, cfg, world, pose)
         else:
-            g, gs = _sphere_bwd(g, val, anchor, w, dt, cfg, stage)
+            g, gs = _sphere_bwd(g, val, anchor, w, dt, cfg, world, stage,
+                                pose)
         ga = ga + gs
     return g, ga
 
@@ -353,13 +396,19 @@ def _cheby_weights(om: float, gamma: float):
 
 def backward_chunk_plain(topo: Topology, cfg: SolverConfig, dt: float,
                          chunk: int, inv_mass, x, v, lam, gx, gv, glam,
-                         materials=None):
+                         materials=None, colliders=None):
     """The VJP of ``chunk`` substeps linearized at the chunk-entry state
     ``(x, v, lam)`` ((N, 3), (N, 3), (E,)), given the output cotangents
-    ``(gx, gv, glam)``: returns ``(gx0, gv0, glam0)``, and with
-    ``materials`` also ``(g_rest, g_compliance)``.  The plain version of
-    the B-5 kernel: its phases in its order (module docstring)."""
-    check_fused_backward_envelope(cfg, topo, materials=materials is not None)
+    ``(gx, gv, glam)``: returns ``(gx0, gv0, glam0)``, with ``materials``
+    also ``(g_rest, g_compliance)``, and with ``colliders`` (a ColliderSet
+    of spheres, which replaces the config's rigid world) last the pose
+    cotangents ``{"spheres", "sphere_velocities", "ground_height"}``.  The
+    plain version of the B-5 kernel: its phases in its order (module
+    docstring)."""
+    check_fused_backward_envelope(cfg, topo, kin_counts(colliders),
+                                  materials=materials is not None)
+    world = _collision.RigidWorld.of(cfg, colliders, x.device)
+    pose = None if colliders is None else PoseGrads(colliders.n_spheres, x)
     T = _general._tables(topo, cfg, str(x.device))
     if materials is not None:
         T = _general.with_materials(T, materials)
@@ -391,10 +440,10 @@ def backward_chunk_plain(topo: Topology, cfg: SolverConfig, dt: float,
             new, lam = _general._solve_distance_jacobi(pred, lam, w, T, cfg,
                                                        dt)
             st_new.append(new)
-            new = _contacts_fwd(new, x, w, dt, cfg)
+            new = _contacts_fwd(new, x, w, dt, cfg, world)
             if accel:
                 acc = om * (gamma * (new - pred) + pred - prev) + prev
-                prev, pred = pred, _contacts_fwd(acc, x, w, dt, cfg)
+                prev, pred = pred, _contacts_fwd(acc, x, w, dt, cfg, world)
             else:
                 pred = new
         x, v = _integrate.finalize(x, pred, w, dt)
@@ -414,18 +463,20 @@ def backward_chunk_plain(topo: Topology, cfg: SolverConfig, dt: float,
             new0 = st_new[si]
             if accel:
                 om, cur, prv = oms[it], st_pred[si], st_prev[si]
-                new1 = _contacts_fwd(new0, anchor, w, dt, cfg)
+                new1 = _contacts_fwd(new0, anchor, w, dt, cfg, world)
                 acc = om * (gamma * (new1 - cur) + cur - prv) + prv
-                gacc, ga = _contacts_bwd(gp, acc, anchor, w, dt, cfg)
+                gacc, ga = _contacts_bwd(gp, acc, anchor, w, dt, cfg, world,
+                                         pose)
                 gx = gx + ga
                 a_new, a_cur, a_prev = _cheby_weights(om, gamma)
                 gcur = a_cur * gacc + gprev
                 gprev = a_prev * gacc
                 gq, ga = _contacts_bwd(a_new * gacc, new0, anchor, w, dt,
-                                       cfg)
+                                       cfg, world, pose)
             else:
                 gcur = None
-                gq, ga = _contacts_bwd(gp, new0, anchor, w, dt, cfg)
+                gq, ga = _contacts_bwd(gp, new0, anchor, w, dt, cfg, world,
+                                       pose)
             gx = gx + ga
             gp, glam = _sweep_bwd(gq, glam, st_pred[si], st_lam[si], w, T,
                                   cfg, dt, acc_mat)
@@ -440,11 +491,13 @@ def backward_chunk_plain(topo: Topology, cfg: SolverConfig, dt: float,
         gx = gx + g0
         glam = (torch.zeros_like(glam) if cfg.lambda_mode == LambdaMode.RESET
                 else glam * cfg.lambda_decay)
-    if materials is None:
-        return gx, gv, glam
-    return (gx, gv, glam, acc_mat[0],
-            compliance_cotangent(acc_mat[1], materials["compliance"], cfg,
-                                 dt))
+    out = (gx, gv, glam)
+    if materials is not None:
+        out += (acc_mat[0], compliance_cotangent(
+            acc_mat[1], materials["compliance"], cfg, dt))
+    if pose is not None:
+        out += (pose.totals(),)
+    return out
 
 
 def compliance_cotangent(g_alpha, compliance, cfg: SolverConfig, dt: float):
@@ -461,18 +514,28 @@ def compliance_cotangent(g_alpha, compliance, cfg: SolverConfig, dt: float):
 # ----------------------------------------------------------- the kernel
 def backward_chunk_cuda(topo: Topology, cfg: SolverConfig, dt: float,
                         chunk: int, inv_mass, x, v, lam, gx, gv, glam,
-                        materials=None):
+                        materials=None, colliders=None):
     """``backward_chunk_plain``'s contract, launched on the card (tensors
-    on one CUDA device); no host sync."""
+    on one CUDA device); no host sync.  The pose cotangents are summed
+    over the particles without atomics: each particle accumulates its own
+    column of the ``gpose`` planes (ground, then per sphere center x3,
+    radius, velocity x3), and one block per plane sums it in a fixed
+    order."""
     global launches
-    check_fused_backward_envelope(cfg, topo, materials=materials is not None)
-    _mesh._check_supported(cfg, topo)
+    check_fused_backward_envelope(cfg, topo, kin_counts(colliders),
+                                  materials=materials is not None)
     dev = x.device
+    world = _collision.RigidWorld.of(cfg, colliders, dev)
+    _mesh._check_supported(cfg, topo,
+                           kin_colliders=(world.n_spheres, world.n_boxes))
     if dev.type != "cuda":
         raise ValueError(f"fused mesh backward: state on {dev}, not CUDA")
+    if colliders is not None and colliders.device != dev:
+        raise ValueError(f"fused mesh backward: colliders on "
+                         f"{colliders.device}, state on {dev}")
     n, e, k = topo.n_particles, topo.n_edges, cfg.iterations
     tables = _mesh._device_tables(topo, cfg, dt, str(dev))
-    params = _mesh.MeshParams.from_buffer_copy(tables.params)
+    params = _mesh.launch_params(tables, world)
     # the replay runs the distance family alone (the envelope has no other)
     params.n_hinges = params.bending = params.n_tets = params.tets_on = 0
 
@@ -489,7 +552,9 @@ def backward_chunk_cuda(topo: Topology, cfg: SolverConfig, dt: float,
                 f=torch.zeros((3, n), dtype=torch.float32, device=dev),
                 pred=planes[0], cur=planes[1], prev=planes[2],
                 lam=_mesh._checked("lambda_dist", lam, (e,), dev).clone(),
-                contrib=f32(2 * e, 3), **tables.tensors)
+                contrib=f32(2 * e, 3),
+                colliders=world.table,
+                **tables.tensors)
     if materials is not None:
         work["rest"], work["alpha"] = _mesh.material_constants(
             materials, cfg, dt, e, dev)
@@ -511,6 +576,10 @@ def backward_chunk_cuda(topo: Topology, cfg: SolverConfig, dt: float,
     if materials is not None:
         grads.update(grest=torch.zeros(e, dtype=torch.float32, device=dev),
                      galpha=torch.zeros(e, dtype=torch.float32, device=dev))
+    if colliders is not None:
+        rows = pose_rows(colliders.n_spheres)
+        grads.update(gpose=torch.zeros((rows, n), dtype=torch.float32,
+                                       device=dev), gpose_out=f32(rows))
     dbufs = _mesh.DiffBuffers(**{f: ctypes.c_void_p(grads[f].data_ptr())
                                  for f in _mesh.DIFF_BUFFERS if f in grads})
     lib = _mesh._library()
@@ -526,23 +595,38 @@ def backward_chunk_cuda(topo: Topology, cfg: SolverConfig, dt: float,
         raise RuntimeError(f"fused mesh backward launch failed: {msg} ({rc})")
     out = (grads["gx"].t().contiguous(), grads["gv"].t().contiguous(),
            grads["glam"])
-    if materials is None:
-        return out
-    return out + (grads["grest"],
-                  compliance_cotangent(grads["galpha"],
-                                       materials["compliance"], cfg, dt))
+    if materials is not None:
+        out += (grads["grest"], compliance_cotangent(
+            grads["galpha"], materials["compliance"], cfg, dt))
+    if colliders is not None:
+        out += (pose_totals(grads["gpose_out"], colliders.n_spheres),)
+    return out
+
+
+def pose_rows(n_spheres: int) -> int:
+    """Planes of the kernel's pose cotangents: the ground, then per sphere
+    its center (3), radius and velocity (3)."""
+    return 1 + 7 * n_spheres
+
+
+def pose_totals(g: torch.Tensor, n_spheres: int):
+    """The kernel's ``gpose_out`` as ``PoseGrads.totals`` lays it out."""
+    sph = g[1:].reshape(n_spheres, 7)
+    return {"spheres": sph[:, :4].contiguous(),
+            "sphere_velocities": sph[:, 4:].contiguous(),
+            "ground_height": g[0]}
 
 
 def backward_chunk(topo, cfg, dt, chunk, inv_mass, x, v, lam, gx, gv, glam,
-                   materials=None):
+                   materials=None, colliders=None):
     """A CUDA state launches the B-5 kernel; a CPU state runs the plain
     version; any other device raises."""
     if x.device.type == "cuda":
         return backward_chunk_cuda(topo, cfg, dt, chunk, inv_mass, x, v, lam,
-                                   gx, gv, glam, materials)
+                                   gx, gv, glam, materials, colliders)
     if x.device.type == "cpu":
         return backward_chunk_plain(topo, cfg, dt, chunk, inv_mass, x, v,
-                                    lam, gx, gv, glam, materials)
+                                    lam, gx, gv, glam, materials, colliders)
     raise NotImplementedError(
         f"fused mesh backward: no path for a state on {x.device}")
 
@@ -565,29 +649,40 @@ class _FusedRollout(torch.autograd.Function):
     def backward(ctx, *g_out):
         topo, cfg, dt, n_substeps, chunk = ctx.spec
         state, mats = _unflatten(ctx.keys, ctx.saved_tensors)
+        coll = state.colliders
         g = dict(zip([k for k in ctx.keys if k in _LEAVES], g_out))
         bounds = [state]
         for _ in range(n_substeps // chunk - 1):
             bounds.append(_mesh.advance(bounds[-1], topo, cfg, dt, chunk,
                                         False, mats))
         gx, gv, glam = g["positions"], g["velocities"], g["lambda_dist"]
-        g_mat = None
+        g_mat, g_pose = None, None
         for b in reversed(bounds):
             outs = backward_chunk(topo, cfg, dt, chunk, b.inv_mass,
                                   b.positions, b.velocities, b.lambda_dist,
-                                  gx, gv, glam, mats)
+                                  gx, gv, glam, mats, coll)
             gx, gv, glam = outs[:3]
             if mats is not None:
-                g_mat = (outs[3:] if g_mat is None
-                         else tuple(a + c for a, c in zip(g_mat, outs[3:])))
+                g_mat = (outs[3:5] if g_mat is None
+                         else tuple(a + c for a, c in zip(g_mat, outs[3:5])))
+            if coll is not None:
+                # the pose is constant over the rollout: chunks sum
+                g_pose = (outs[-1] if g_pose is None else
+                          {key: g_pose[key] + outs[-1][key]
+                           for key in g_pose})
         grads = {"positions": gx, "velocities": gv, "lambda_dist": glam}
         if g_mat is not None:
             grads.update(rest_lengths=g_mat[0], compliance=g_mat[1])
+        if g_pose is not None:
+            grads.update({"colliders." + key: val
+                          for key, val in g_pose.items()})
         return (None, None) + tuple(grads.get(k) for k in ctx.keys)
 
 
-def _fused_apply(spec, state: SimState, materials=None) -> SimState:
+def _fused_apply(spec, state: SimState, materials=None,
+                 kin_colliders=None) -> SimState:
     _general.check_state(state)
+    check_kin(kin_colliders, state.colliders, "fused mesh runner")
     keys, tensors = _flatten(state, materials)
     outs = _FusedRollout.apply(spec, keys, *tensors)
     return state.replace(**dict(zip([k for k in keys if k in _LEAVES],
@@ -603,14 +698,19 @@ def make_fused_differentiable_mesh_runner(topo: Topology, cfg: SolverConfig,
     docstring).  ``chunk_substeps`` (must divide ``n_substeps``; default
     ``pick_chunk``) sets the substeps per backward chunk: only the chunk
     boundaries are kept, each chunk's stash lives for its own backward.
-    ``kin_colliders`` raises: ColliderSets are not ported."""
-    check_fused_backward_envelope(cfg, topo, kin_colliders)
-    _mesh._check_supported(cfg, topo)
+    ``kin_colliders=(S, 0)``: the state's ColliderSet of S spheres
+    replaces the config's rigid world, and its pose cotangents (each
+    sphere's center, radius and velocity, the ground height) come from the
+    kernel, summed over the chunks; kinematic boxes raise."""
+    kin = None if kin_colliders is None else tuple(
+        int(c) for c in kin_colliders)
+    check_fused_backward_envelope(cfg, topo, kin)
+    _mesh._check_supported(cfg, topo, kin_colliders=kin)
     chunk = _chunk_of(topo, cfg, n_substeps, chunk_substeps)
     spec = (topo, cfg, dt_sub, n_substeps, chunk)
 
     def fn(state: SimState) -> SimState:
-        return _fused_apply(spec, state)
+        return _fused_apply(spec, state, kin_colliders=kin)
 
     return fn
 

@@ -25,6 +25,7 @@ import functools
 
 import torch
 
+from ..core.colliders import check_kin
 from ..core.config import SolverConfig
 from ..ops import collision as _collision
 from ..ops import integrate as _integrate
@@ -64,7 +65,7 @@ def _check_supported(cfg: SolverConfig, spec: LatticeSpec, n_slabs: int):
     if cfg.enable_tet_volume:
         raise NotImplementedError(
             "spatial kernel: per-cell tets are not carried" + xla)
-    if cfg.sphere_colliders:
+    if cfg.sphere_colliders or cfg.box_colliders:
         raise NotImplementedError(
             "spatial kernel: SDF colliders are not carried" + xla)
     if spec.res // n_slabs < 2:
@@ -223,5 +224,11 @@ def make_spatial_cuda_substep(spec: LatticeSpec, cfg: SolverConfig,
     _check_supported(cfg, spec, len(devs))
     dt_sub = dt / cfg.substeps
     n_sub = n_steps * cfg.substeps
-    return _spatial.stepper(spec, devs, lambda sh: advance(
-        sh, spec, cfg, dt_sub, n_sub, with_ext=True))
+
+    def run(sh):
+        # the kernel carries no colliders: a collider state is refused
+        check_kin(None, sh.colliders and sh.colliders[0],
+                  "slab kernel step")
+        return advance(sh, spec, cfg, dt_sub, n_sub, with_ext=True)
+
+    return _spatial.stepper(spec, devs, run)

@@ -28,11 +28,19 @@ this engine takes ``dp = dl * (d / length)`` where the single-device
 engine takes ``d * (dl / length)``, as the two JAX engines do, and the
 sharded tet sweep adds the spill last.
 
+The rigid world (floor, spheres and boxes of the config, or a
+``core/colliders.ColliderSet``'s traced poses with ``kin_colliders=(S,
+B)``) is replicated: every slab holds its own copy of the collider
+tensors on its device, and projects its particles against the whole
+world in the order floor, spheres, boxes (JAX ``spatial.py:367-372``).
+
 ``make_spatial_lattice_step`` routes by the slabs' device: slabs on the
 CPU run this engine; slabs on CUDA devices launch the hand-written slab
 kernel (``kernels/spatial_cuda.py``, TPU kernel B-6) unless the caller asks
-for this engine with ``backend="xla"``.  Box SDFs, kinematic ColliderSets
-and self-collision raise ``NotImplementedError``.
+for this engine with ``backend="xla"``.  The slab kernel refuses SDF
+colliders, as JAX's does (``kernels/spatial_pallas.py:62-64``), so
+colliders on the card take ``backend="xla"``.  Self-collision raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,8 +50,9 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from ..core.colliders import ColliderSet, check_kin
 from ..core.config import FloorMode, LambdaMode, SolveMode, SolverConfig
-from ..core.state import SimState
+from ..core.state import SimState, check_colliders
 from ..ops import collision as _collision
 from ..ops import integrate as _integrate
 from ..solvers import lattice as _lat
@@ -79,6 +88,8 @@ class ShardedLatticeState:
     slabs: Tuple[Slab, ...]
     lambda_bend: torch.Tensor
     lambda_volume: torch.Tensor
+    # the rigid world replicated: one copy on each slab's device, or None
+    colliders: Optional[Tuple[ColliderSet, ...]] = None
 
     @property
     def devices(self) -> Tuple[torch.device, ...]:
@@ -109,10 +120,9 @@ def slab_devices(devices: Sequence, res: int) -> Tuple[torch.device, ...]:
 def shard_lattice_state(state: SimState, spec: LatticeSpec,
                         devices: Sequence) -> ShardedLatticeState:
     """Split a lattice ``SimState`` into x-slabs, slab s on ``devices[s]``
-    (each slab's tensors are copies)."""
-    if state.colliders is not None:
-        raise NotImplementedError(
-            "spatial port: kinematic ColliderSets are not ported")
+    (each slab's tensors are copies; a ColliderSet is copied to every
+    slab's device)."""
+    check_colliders(state)
     devs = slab_devices(devices, spec.res)
     n = spec.n_particles
     m = n // len(devs)
@@ -128,9 +138,13 @@ def shard_lattice_state(state: SimState, spec: LatticeSpec,
     lam = part(state.lambda_dist, spec.n_families)
     lam_t = (part(state.lambda_tet, 6) if state.lambda_tet is not None
              else [None] * len(devs))
+    coll = (None if state.colliders is None else
+            tuple(state.colliders.map(lambda t: t.to(d, copy=True))
+                  for d in devs))
     return ShardedLatticeState(
         slabs=tuple(Slab(*fields) for fields in zip(x, v, w, f, lam, lam_t)),
-        lambda_bend=state.lambda_bend, lambda_volume=state.lambda_volume)
+        lambda_bend=state.lambda_bend, lambda_volume=state.lambda_volume,
+        colliders=coll)
 
 
 def gather_lattice_state(sharded: ShardedLatticeState,
@@ -155,6 +169,8 @@ def gather_lattice_state(sharded: ShardedLatticeState,
         lambda_bend=sharded.lambda_bend.to(dev),
         lambda_volume=sharded.lambda_volume.to(dev),
         lambda_tet=None if lam_t is None else lam_t.reshape(-1),
+        colliders=(None if sharded.colliders is None
+                   else sharded.colliders[0].to(dev)),
     )
 
 
@@ -338,9 +354,10 @@ class _Static:
 
 
 def _substep(x, v, w, w_halo, f, lam, lam_t, st: _Static, spec, cfg, dt,
-             apply_ext, devices):
+             apply_ext, devices, worlds):
     """One substep of every slab.  x, v, f: per-slab (3, P, r2); w, w_halo:
-    (P, r2); lam: (nfam, P, r2); lam_t: (6, P, r2) or None."""
+    (P, r2); lam: (nfam, P, r2); lam_t: (6, P, r2) or None; worlds: each
+    slab's ``ops/collision.RigidWorld``."""
     res = spec.res
     pred, vel = [], []
     for xs, vs, ws, fs in zip(x, v, w, f):
@@ -391,20 +408,23 @@ def _substep(x, v, w, w_halo, f, lam, lam_t, st: _Static, spec, cfg, dt,
         if cfg.enable_tet_volume:
             pred, lam_t = _tet_sweep(pred, w, lam_t, st.tvalid, st.tdeg,
                                      spec, cfg, dt, devices)
-        for s in range(len(pred)):
+        for s, wd in enumerate(worlds):
             if cfg.floor_mode == FloorMode.XPBD_INEQUALITY:
-                pred[s], = _flat(lambda *a: (_collision.floor_project_xpbd(
+                pred[s], = _flat(lambda *a: (wd.project_floor(*a, dt, cfg),),
+                                 pred[s], x[s], w[s])
+            if wd.n_spheres:
+                pred[s], = _flat(lambda *a: (wd.project_spheres(
                     *a, dt, cfg),), pred[s], x[s], w[s])
-            if cfg.sphere_colliders:
-                pred[s], = _flat(lambda *a: (_collision.sphere_sdf_project(
-                    *a, dt, cfg),), pred[s], x[s], w[s])
+            if wd.n_boxes:
+                pred[s], = _flat(lambda *a: (wd.project_boxes(*a, dt, cfg),),
+                                 pred[s], x[s], w[s])
     out_x, out_v = [], []
-    for xs, p, ws in zip(x, pred, w):
+    for xs, p, ws, wd in zip(x, pred, w, worlds):
         xf, vf = _flat(lambda xa, pa, wa: _integrate.finalize(xa, pa, wa, dt),
                        xs, p, ws)
         if cfg.floor_mode == FloorMode.VELOCITY_REFLECT:
-            xf, vf = _flat(lambda *a: _collision.floor_velocity_reflect(
-                *a, dt, cfg), xf, vf, ws)
+            xf, vf = _flat(lambda *a: wd.reflect_floor(*a, dt, cfg), xf, vf,
+                           ws)
         out_x.append(xf)
         out_v.append(vf)
     return out_x, out_v, lam, lam_t
@@ -416,9 +436,6 @@ def check_supported(cfg: SolverConfig, spec: LatticeSpec):
         raise NotImplementedError(
             "spatial port: self-collision is not carried by the sharded "
             "engine")
-    if cfg.box_colliders:
-        raise NotImplementedError(
-            "spatial port: box SDF colliders are not ported")
     _lat.check_supported(cfg, spec)
 
 
@@ -450,6 +467,8 @@ def run_sharded_plain(sharded: ShardedLatticeState, spec: LatticeSpec,
     lam_t = [None if s.lambda_tet is None
              else s.lambda_tet.reshape(6, planes, r2) for s in slabs]
     st = _Static(spec, cfg, devices)
+    worlds = [_collision.RigidWorld.of(cfg, c, dev) for c, dev in zip(
+        sharded.colliders or (None,) * len(devices), devices)]
     # the inverse-mass halo is static: fetched once
     w_first = exchange([ws[0] for ws in w], devices, +1)
     w_halo = [torch.cat([ws[1:], h[None]], dim=0)
@@ -457,7 +476,7 @@ def run_sharded_plain(sharded: ShardedLatticeState, spec: LatticeSpec,
     for i in range(n_substeps):
         x, v, lam, lam_t = _substep(x, v, w, w_halo, f, lam, lam_t, st,
                                     spec, cfg, dt_sub, with_ext and i == 0,
-                                    devices)
+                                    devices, worlds)
     out = []
     for s, xs, vs, lf, lt in zip(slabs, x, v, lam, lam_t):
         out.append(s.replace(
@@ -502,25 +521,41 @@ def make_spatial_lattice_step(spec: LatticeSpec, cfg: SolverConfig,
     ``backend``: ``"auto"`` (default) launches the slab kernel B-6
     (``kernels/spatial_cuda.py``) for slabs on CUDA devices, and raises
     ``NotImplementedError`` outside its envelope; slabs on the CPU run this
-    engine.  ``"xla"`` runs this engine on any device (tets and static
-    spheres on the card).  ``"pallas"`` names the kernel route, as the JAX
-    package does."""
-    if kin_colliders is not None:
-        raise NotImplementedError(
-            "spatial port: kinematic ColliderSets (kin_colliders) are not "
-            "ported")
+    engine.  ``"xla"`` runs this engine on any device (tets, spheres, boxes
+    and kinematic colliders on the card).  ``"pallas"`` names the kernel
+    route, as the JAX package does.
+
+    ``kin_colliders=(S, B)``: the state's ColliderSet (S spheres, B boxes)
+    replaces the config's rigid world, replicated on every slab, so a
+    collider sweeps across the slabs with nothing rebuilt; the state must
+    carry one with those counts (checked at call time).  A step built
+    without it refuses a state that carries colliders.  The slab kernel
+    does not carry them (as in JAX): use ``backend="xla"``."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got "
                          f"{backend!r}")
     devs = slab_devices(devices, spec.res)
     check_supported(cfg, spec)
+    kin = None if kin_colliders is None else tuple(
+        int(k) for k in kin_colliders)
     if backend == "pallas" or (backend == "auto"
                                and devs[0].type == "cuda"):
+        if kin is not None:
+            raise NotImplementedError(
+                "kinematic colliders on the slab kernel are not fused (as "
+                "in the JAX package) -- use backend='xla' (same slabs, "
+                "traced poses)")
         from ..kernels import spatial_cuda
 
         return spatial_cuda.make_spatial_cuda_substep(spec, cfg, dt, devs,
                                                       n_steps=n_steps)
     dt_sub = dt / cfg.substeps
     n_sub = n_steps * cfg.substeps
-    return stepper(spec, devs, lambda sh: run_sharded_plain(
-        sh, spec, cfg, dt_sub, n_sub, with_ext=True))
+
+    def run(sh: ShardedLatticeState) -> ShardedLatticeState:
+        check_kin(kin, sh.colliders and sh.colliders[0], "spatial step")
+        return run_sharded_plain(sh, spec, cfg, dt_sub, n_sub,
+                                 with_ext=True)
+
+    return stepper(spec, devs, run)
+

@@ -31,9 +31,12 @@ kernel (``kernels/mesh_cuda.py``) is held against it.  ``make_step``
 dispatches on the state's device through the kernel wrapper (a CUDA state
 launches the kernel, a CPU state runs this engine); the plain loop on any
 device is ``run_substeps_plain`` (and ``step_fn`` / ``multi_step_fn``).
-The global volume constraint, box colliders, the windowed tet backend
-(``tet_backend="windowed"``) and kinematic ColliderSets raise
-``NotImplementedError`` (``check_supported``, ``check_state``).
+The rigid world is the config's (floor, spheres, boxes), or, when the
+state carries a ``core/colliders.ColliderSet``, that set's traced poses,
+which replace the config's spheres, boxes and ground height (JAX
+``general.py:552-580``).  The global volume constraint and the windowed
+tet backend (``tet_backend="windowed"``) raise ``NotImplementedError``
+(``check_supported``).
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ import numpy as np
 import torch
 
 from ..core.config import FloorMode, LambdaMode, SolveMode, SolverConfig
-from ..core.state import SimState, Topology
+from ..core.state import SimState, Topology, check_colliders
 from ..ops import bending as _bending
 from ..ops import collision as _collision
 from ..ops import distance as _distance
@@ -59,7 +62,6 @@ def check_supported(cfg: SolverConfig):
     """Refuse, at build time, what this slice of the port does not carry."""
     windowed_tets = cfg.enable_tet_volume and cfg.tet_backend == "windowed"
     for flag, what in ((cfg.enable_volume, "the global volume constraint"),
-                       (cfg.box_colliders, "box SDF colliders"),
                        (windowed_tets,
                         "the windowed tet backend (one-hot tet windows)")):
         if flag:
@@ -67,10 +69,9 @@ def check_supported(cfg: SolverConfig):
 
 
 def check_state(state: SimState):
-    """Refuse, at call time, a state the slice does not carry."""
-    if state.colliders is not None:
-        raise NotImplementedError(
-            "mesh port: kinematic ColliderSets are not ported")
+    """Refuse, at call time, a state whose colliders lie on another device
+    than its positions."""
+    check_colliders(state)
 
 
 def chebyshev_omegas(cfg: SolverConfig) -> List[float]:
@@ -373,10 +374,12 @@ def _warm_apply_distance(pred, lam, inv_mass, T: _Tables, cfg: SolverConfig):
 
 
 def _substep(x, v, w, f, lam, T: _Tables, cfg: SolverConfig, dt,
-             apply_ext: bool, contact_on: bool = True):
+             apply_ext: bool, contact_on: bool,
+             world: _collision.RigidWorld):
     """One substep on (N, 3) tensors; ``lam`` = (lambda_dist, lambda_bend,
     lambda_tet or None).  ``contact_on=False`` leaves self-collision out of
-    this substep (the contact cadence).  Returns (x, v, lam)."""
+    this substep (the contact cadence).  ``world``: the rigid world
+    (``ops/collision.RigidWorld``).  Returns (x, v, lam)."""
     lam_d, lam_b, lam_t = lam
     # lambda lifecycle: WARM_START carries only distance impulses (they are
     # pre-applied); bending and tets restart fresh except in DECAY
@@ -405,16 +408,18 @@ def _substep(x, v, w, f, lam, T: _Tables, cfg: SolverConfig, dt,
     sc_order = (_spatial_hash.morton_order(pred, cfg)
                 if sc_on and _spatial_hash.needs_morton_order(cfg) else None)
     has_contacts = (sc_on or cfg.floor_mode == FloorMode.XPBD_INEQUALITY
-                    or bool(cfg.sphere_colliders))
+                    or world.n_spheres > 0 or world.n_boxes > 0)
 
     def project_contacts(pred):
         if sc_on:
             pred = _spatial_hash.project_self_collision(pred, w, sc_order,
                                                         cfg)
         if cfg.floor_mode == FloorMode.XPBD_INEQUALITY:
-            pred = _collision.floor_project_xpbd(pred, x, w, dt, cfg)
-        if cfg.sphere_colliders:
-            pred = _collision.sphere_sdf_project(pred, x, w, dt, cfg)
+            pred = world.project_floor(pred, x, w, dt, cfg)
+        if world.n_spheres:
+            pred = world.project_spheres(pred, x, w, dt, cfg)
+        if world.n_boxes:
+            pred = world.project_boxes(pred, x, w, dt, cfg)
         return pred
 
     def project_all(pred, lam_d, lam_b, lam_t):
@@ -448,7 +453,7 @@ def _substep(x, v, w, f, lam, T: _Tables, cfg: SolverConfig, dt,
 
     x, v = _integrate.finalize(x, pred, w, dt)
     if cfg.floor_mode == FloorMode.VELOCITY_REFLECT:
-        x, v = _collision.floor_velocity_reflect(x, v, w, dt, cfg)
+        x, v = world.reflect_floor(x, v, w, dt, cfg)
     return x, v, (lam_d, lam_b, lam_t)
 
 
@@ -491,12 +496,13 @@ def run_substeps_plain(state: SimState, topo: Topology, cfg: SolverConfig,
     if materials is not None:
         T = with_materials(T, materials)
     every = contact_every(cfg)
+    world = _collision.RigidWorld.of(cfg, state.colliders, state.device)
     x, v = state.positions, state.velocities
     lam = (state.lambda_dist, state.lambda_bend, state.lambda_tet)
     for i in range(n_substeps):
         x, v, lam = _substep(x, v, state.inv_mass, state.ext_force, lam, T,
                              cfg, dt_sub, with_ext and i == 0,
-                             contact_on=i % every == 0)
+                             contact_on=i % every == 0, world=world)
     out = state.replace(positions=x, velocities=v, lambda_dist=lam[0],
                         lambda_bend=lam[1], lambda_tet=lam[2])
     if with_ext:
@@ -529,7 +535,11 @@ def make_step(topo: Topology, cfg: SolverConfig, dt: float,
     substep and zeroed after.  Since the accumulator is zero after the
     first substep, the frames run as one substep loop.  Dispatches on the
     state's device through the kernel wrapper (CUDA: the kernel; CPU: this
-    engine)."""
+    engine).  A state carrying a ColliderSet runs a kernel runner built for
+    its collider counts (``kin_colliders``), one per count, so animating
+    the poses rebuilds nothing."""
+    from ..core.colliders import per_collider_count
     from ..kernels import mesh_cuda
 
-    return mesh_cuda.make_mesh_cuda_step(topo, cfg, dt, n_steps)
+    return per_collider_count(lambda kin: mesh_cuda.make_mesh_cuda_step(
+        topo, cfg, dt, n_steps, kin_colliders=kin))

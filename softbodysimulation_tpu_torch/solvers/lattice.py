@@ -18,9 +18,12 @@ this engine, a CUDA state launches the kernel (or raises).  The plain loop
 on any device is ``run_substeps_plain`` (and ``step_fn`` /
 ``multi_step_fn``).
 
-The slice covers the lattice main path and the per-cell tet family (6
-Kuhn tets per cell, ``_tet_sweep``; ``solid_lattice``); self-collision,
-box colliders, kinematic ColliderSets and lane-folded ensembles raise
+The slice covers the lattice main path, the per-cell tet family (6 Kuhn
+tets per cell, ``_tet_sweep``; ``solid_lattice``) and the rigid world:
+the floor, sphere and box colliders of the config or, when the state
+carries a ``core/colliders.ColliderSet``, that set's traced poses (JAX
+``solvers/lattice.py:296-312``); contacts run floor, boxes, spheres, as
+there.  Self-collision and lane-folded ensembles raise
 ``NotImplementedError`` (``check_supported``).
 """
 
@@ -32,8 +35,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..core.colliders import per_collider_count
 from ..core.config import FloorMode, LambdaMode, SolveMode, SolverConfig
-from ..core.state import SimState, on_device
+from ..core.state import SimState, check_colliders, on_device
+from ..ops import collision as _collision
 from ..ops import integrate as _integrate
 from ..topology import tets as _tets
 from ..topology.lattice import LatticeSpec, lattice_points
@@ -73,17 +78,13 @@ def check_supported(cfg: SolverConfig, spec: LatticeSpec):
     if cfg.enable_self_collision:
         raise NotImplementedError(
             "lattice port: self-collision (hybrid contact) is not ported")
-    if cfg.box_colliders:
-        raise NotImplementedError(
-            "lattice port: box SDF colliders are not ported")
 
 
 def check_state(state: SimState, cfg: SolverConfig):
-    """Refuse, at call time, a state the slice does not carry, and a tet
-    config whose state has no tet multipliers."""
-    if state.colliders is not None:
-        raise NotImplementedError(
-            "lattice port: kinematic ColliderSets are not ported")
+    """Refuse, at call time, a state whose colliders lie on another device
+    than its positions, and a tet config whose state has no tet
+    multipliers."""
+    check_colliders(state)
     if cfg.enable_tet_volume and state.lambda_tet is None:
         raise ValueError("enable_tet_volume needs a state built with "
                          "tet_volume=True (make_lattice_state)")
@@ -307,11 +308,11 @@ def _tet_sweep(pred, w, lam_t, spec: LatticeSpec, cfg: SolverConfig, dt,
     return pred, torch.stack(lam_parts)
 
 
-def _floor_xpbd(pred, x, w, dt, cfg: SolverConfig):
-    """XPBD inequality floor + positional friction, componentwise on
-    (3,res,res^2) (semantics of ops/collision.floor_project_xpbd)."""
-    gh = cfg.ground_height
-    pen = gh - pred[1]
+def _floor_xpbd(pred, x, w, dt, cfg: SolverConfig, ground):
+    """XPBD inequality floor at height ``ground`` (a 0-dim tensor) +
+    positional friction, componentwise on (3,res,res^2) (semantics of
+    ops/collision.floor_project_xpbd)."""
+    pen = ground - pred[1]
     alpha_c = cfg.collision_compliance / (dt * dt)
     denom = w + alpha_c
     dl = pen / torch.clamp(denom, min=1e-30)
@@ -324,13 +325,13 @@ def _floor_xpbd(pred, x, w, dt, cfg: SolverConfig):
     return torch.stack([p0, p1, p2])
 
 
-def _spheres(pred, x, w, dt, cfg: SolverConfig):
-    """Static sphere SDF projection with positional friction."""
+def _spheres(pred, x, w, dt, cfg: SolverConfig, world):
+    """Sphere SDF projection with positional friction, relative to each
+    collider's velocity."""
     fr = min(max(cfg.friction, 0.0), 1.0)
-    for cx, cy, cz, radius in cfg.sphere_colliders:
-        center = torch.tensor([cx, cy, cz], dtype=x.dtype,
-                              device=x.device).reshape(3, 1, 1)
-        dvec = pred - center
+    for k in range(world.n_spheres):
+        center, radius = world.spheres[k, :3], world.spheres[k, 3]
+        dvec = pred - center.reshape(3, 1, 1)
         dist = torch.sqrt(torch.clamp(
             dvec[0] * dvec[0] + dvec[1] * dvec[1] + dvec[2] * dvec[2],
             min=1e-24))
@@ -338,7 +339,9 @@ def _spheres(pred, x, w, dt, cfg: SolverConfig):
         penet = radius - dist
         act = (penet > 0) & (w >= cfg.static_inv_mass_eps)
         pred = pred + torch.where(act[None], nrm * penet[None], 0.0)
-        vel = _integrate.over_dt(pred - x, dt)
+        # friction in the collider's frame
+        vel = (_integrate.over_dt(pred - x, dt)
+               - world.sphere_velocities[k].reshape(3, 1, 1))
         vn = (vel[0] * nrm[0] + vel[1] * nrm[1]
               + vel[2] * nrm[2])[None] * nrm
         vt = vel - vn
@@ -346,11 +349,21 @@ def _spheres(pred, x, w, dt, cfg: SolverConfig):
     return pred
 
 
+def _boxes(pred, x, w, dt, cfg: SolverConfig, world):
+    """Box SDF projection: ``ops/collision.box_sdf_project`` on the
+    flattened (N, 3) view, as the JAX engine applies it."""
+    flat = _collision.box_sdf_project(
+        pred.reshape(3, -1).T, x.reshape(3, -1).T, w.reshape(-1), dt, cfg,
+        boxes=world.boxes, box_velocities=world.box_velocities)
+    return flat.T.reshape(pred.shape)
+
+
 def _substep(x, v, w, f, lam, spec: LatticeSpec, cfg: SolverConfig, dt,
-             apply_ext: bool, masks_dev, lam_t=None, tet_dev=None):
+             apply_ext: bool, masks_dev, lam_t, tet_dev, world):
     """One substep in (3,res,res^2) layout.  x,v,f: (3,res,r2); w: (res,r2);
     lam: (nfam,res,r2); lam_t: (6,res,r2) or None (the tet sweep runs when
-    ``tet_dev`` is given).  Returns (x, v, lam, lam_t)."""
+    ``tet_dev`` is given); ``world``: the rigid world
+    (``ops/collision.RigidWorld``).  Returns (x, v, lam, lam_t)."""
     res = spec.res
 
     if cfg.lambda_mode == LambdaMode.RESET:
@@ -435,9 +448,11 @@ def _substep(x, v, w, f, lam, spec: LatticeSpec, cfg: SolverConfig, dt,
             pred, lam_t = _tet_sweep(pred, w, lam_t, spec, cfg, dt, tet_dev)
 
         if cfg.floor_mode == FloorMode.XPBD_INEQUALITY:
-            pred = _floor_xpbd(pred, x, w, dt, cfg)
-        if cfg.sphere_colliders:
-            pred = _spheres(pred, x, w, dt, cfg)
+            pred = _floor_xpbd(pred, x, w, dt, cfg, world.ground)
+        if world.n_boxes:
+            pred = _boxes(pred, x, w, dt, cfg, world)
+        if world.n_spheres:
+            pred = _spheres(pred, x, w, dt, cfg, world)
 
     # finalize
     pinned = (w == 0.0)[None]
@@ -446,10 +461,9 @@ def _substep(x, v, w, f, lam, spec: LatticeSpec, cfg: SolverConfig, dt,
 
     if cfg.floor_mode == FloorMode.VELOCITY_REFLECT:
         # flagship-style velocity-level floor (ops/collision semantics)
-        gh = cfg.ground_height
-        pen = gh - x[1]
+        pen = world.ground - x[1]
         hit = (pen > 0) & (w > 0)
-        x1 = torch.where(hit, gh + cfg.floor_offset, x[1])
+        x1 = torch.where(hit, world.ground + cfg.floor_offset, x[1])
         falling = hit & (v[1] < 0)
         vy = torch.abs(v[1]) * cfg.restitution + pen * cfg.penetration_kick
         v1 = torch.where(falling, vy, v[1])
@@ -507,11 +521,12 @@ def run_substeps_plain(state: SimState, spec: LatticeSpec,
     masks = _masks_dev(spec, state.device)
     tet_dev = (_tet_dev(spec, state.device) if cfg.enable_tet_volume
                else None)
+    world = _collision.RigidWorld.of(cfg, state.colliders, state.device)
     x, v, w, f, lam, lam_t = _to_grid(state, spec)
     for i in range(n_substeps):
         x, v, lam, lam_t = _substep(x, v, w, f, lam, spec, cfg, dt_sub,
                                     with_ext and i == 0, masks, lam_t,
-                                    tet_dev)
+                                    tet_dev, world)
     return _from_grid(state, x, v, lam, lam_t, zero_ext=with_ext)
 
 
@@ -537,15 +552,20 @@ def make_step(spec: LatticeSpec, cfg: SolverConfig, dt: float,
     substep and zeroed after.  Since the accumulator is zero after the
     first substep, the frames run as one substep loop.  Dispatches on the
     state's device through the kernel wrapper (CUDA: the kernel; CPU: this
-    engine)."""
+    engine).  A state carrying a ColliderSet runs a kernel runner built for
+    its collider counts (``kin_colliders``), one per count, so animating
+    the poses rebuilds nothing."""
     from ..kernels import lattice_cuda
 
-    return lattice_cuda.make_cuda_step(spec, cfg, dt, n_steps)
+    return per_collider_count(lambda kin: lattice_cuda.make_cuda_step(
+        spec, cfg, dt, n_steps, kin_colliders=kin))
 
 
 def make_batched_step(spec: LatticeSpec, cfg: SolverConfig, dt: float,
                       n_bodies: int, n_steps: int = 1):
-    """Lane-folded ensemble stepping: not ported (raises)."""
+    """Lane-folded ensemble stepping: not ported (raises).  Colliders on a
+    batched step stay refused in JAX too (``solvers/lattice.py:634-637``):
+    animate colliders on the general engine."""
     raise NotImplementedError(
         "lattice port: lane-folded ensembles are not ported")
 
@@ -557,8 +577,9 @@ def make_substep_runner(spec: LatticeSpec, cfg: SolverConfig, dt_sub: float,
     ``make_step``."""
     from ..kernels import lattice_cuda
 
-    run = lattice_cuda.make_cuda_substep_runner(spec, cfg, dt_sub,
-                                                n_substeps)
+    run = per_collider_count(
+        lambda kin: lattice_cuda.make_cuda_substep_runner(
+            spec, cfg, dt_sub, n_substeps, kin_colliders=kin))
 
     def fn(state: SimState) -> SimState:
         return run(state).replace(ext_force=torch.zeros_like(state.ext_force))

@@ -146,17 +146,18 @@ def test_mesh_scenes_match_jax(scene, kw):
 
 def test_refused_features_raise_at_build():
     """The plain engine refuses, at build time, what the slice does not
-    carry; a state with a ColliderSet is refused at call time."""
+    carry; a state whose ColliderSet lies on another device than its
+    positions is refused at call time."""
     _, _, ptopo, ps = jax_case("sphere")
     base = port_config(jconfig.SolverConfig(substeps=2, iterations=1))
     for kw in (dict(enable_volume=True),
                dict(enable_tet_volume=True, tet_backend="windowed"),
-               dict(box_colliders=((0.0, 0.3, 0.0, 0.5, 0.3, 0.5),)),
                # a dense contact cadence that does not divide the frame
                dict(enable_self_collision=True,
                     self_collision_backend="dense",
                     self_collision_every=3)):
         with pytest.raises(NotImplementedError):
             pgeneral.make_step(ptopo, base.replace(**kw), DT)
-    with pytest.raises(NotImplementedError):
-        pgeneral.make_step(ptopo, base, DT)(ps.replace(colliders=object()))
+    with pytest.raises(ValueError, match="colliders on meta"):
+        pgeneral.make_step(ptopo, base, DT)(ps.replace(
+            colliders=port.make_colliders(device="cpu").to("meta")))

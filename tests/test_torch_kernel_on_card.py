@@ -31,6 +31,15 @@ engine for every case of ``test_torch_spatial_cases.py`` it carries (up
 to four slabs on one card; |dx| < 1e-5, |dlambda| < 1e-6), run again to
 the bit; and the lattice kernel's tet sweep against the plain stencil
 engine on that module's tet cases (|dx| < 2e-5, |dlambda_tet| < 1e-5).
+The rigid world of ``test_torch_collider_cases.py``: the lattice and mesh
+kernels with config boxes and kinematic spheres, boxes and grounds
+(moved once on the same runner) against their plain versions (to the bit,
+under the gates above), and B-5's pose cotangents against
+``backward_chunk_plain`` (max |dg| / max |g| < 1e-5 on one scale across
+the pose leaves) and autograd through the plain engine (< 1e-4).  The
+two repairs: ``restore`` of a card state's snapshot re-uploads to the
+card, and ``add_force`` / ``drag_force`` / ``squeeze_impulse`` on a CUDA
+state equal the CPU result to the bit.
 """
 
 import pytest
@@ -49,6 +58,7 @@ from softbodysimulation_tpu_torch.ops import spatial_hash as psh
 from softbodysimulation_tpu_torch.topology import lattice as ptop
 
 import test_torch_cases as lattice_cases
+import test_torch_collider_cases as collider_cases
 import test_torch_contact_cases as contact_cases
 import test_torch_diff_cases as diff_cases
 import test_torch_mesh_cases as mesh_cases
@@ -365,3 +375,111 @@ def test_slab_kernel_refuses_what_it_does_not_carry_on_card(cuda):
     out = psp.make_spatial_lattice_step(spec, cfg, spatial_cases.DT,
                                         [cuda] * d, backend="xla")(state)
     assert out.device.type == "cuda" and out.lambda_tet is not None
+
+
+LATTICE_COLLIDER_CASES = list(collider_cases.lattice_collider_cases())
+MESH_COLLIDER_CASES = list(collider_cases.mesh_collider_cases())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", LATTICE_COLLIDER_CASES)
+def test_lattice_kernel_colliders_match_plain_on_card(cuda, name):
+    """B-1 with config boxes or a ColliderSet (its poses moved once on the
+    same runner) equals the plain engine to the bit."""
+    before = lc.launches
+    runs = collider_cases.lattice_runs(
+        name, cuda, lambda spec, cfg, dt, n, kin: lc.make_cuda_substep_runner(
+            spec, cfg, dt, n, kin_colliders=kin), plat.run_substeps_plain)
+    torch.cuda.synchronize()
+    assert lc.launches > before
+    for out, ref, start in runs:
+        assert torch.equal(out.positions, ref.positions), name
+        assert torch.equal(out.lambda_dist, ref.lambda_dist), name
+        assert float((out.positions - start.positions).abs().max()) > 1e-4
+    if len(runs) == 2:
+        assert not torch.equal(runs[0][0].positions, runs[1][0].positions)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", MESH_COLLIDER_CASES)
+def test_mesh_kernel_colliders_match_plain_on_card(cuda, name):
+    """B-3 with config boxes or a ColliderSet (moved once on the same
+    step) equals the plain engine to the bit."""
+    before = mc.launches
+    runs = collider_cases.mesh_runs(
+        name, cuda, lambda topo, cfg, dt, frames, kin: mc.make_mesh_cuda_step(
+            topo, cfg, dt, n_steps=frames, kin_colliders=kin),
+        pgeneral.multi_step_fn)
+    torch.cuda.synchronize()
+    assert mc.launches > before
+    for out, ref, start in runs:
+        assert torch.equal(out.positions, ref.positions), name
+        assert torch.equal(out.lambda_dist, ref.lambda_dist), name
+        assert float((out.positions - start.positions).abs().max()) > 1e-3
+    if len(runs) == 2:
+        assert not torch.equal(runs[0][0].positions, runs[1][0].positions)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_sub,iters,rho,_",
+                         collider_cases.KIN_DIFF_RUNS)
+def test_b5_pose_cotangents_match_plain_on_card(cuda, n_sub, iters, rho, _):
+    """B-5's pose cotangents (sphere center, radius, velocity; ground)
+    against ``backward_chunk_plain`` (< 1e-5) and autograd through the
+    plain engine (< 1e-4), on one scale across the pose leaves."""
+    topo, cfg, st, coll, wts = collider_cases.kin_diff_inputs(
+        cuda, iterations=iters, jacobi_rho=rho)
+    before = md.launches
+    got = collider_cases.chunk_pose_grads(md.backward_chunk_cuda, topo, cfg,
+                                          n_sub, st, coll, wts)
+    torch.cuda.synchronize()
+    assert md.launches > before
+    plain = collider_cases.chunk_pose_grads(md.backward_chunk_plain, topo,
+                                            cfg, n_sub, st, coll, wts)
+    auto = collider_cases.autograd_pose_grads(topo, cfg, n_sub, st, coll,
+                                              wts)
+    err, scale = collider_cases.pose_error(got, plain)
+    assert err < diff_cases.KERNEL_TOL and scale > 1e-3, err
+    assert collider_cases.pose_error(got, auto)[0] < diff_cases.GRAD_TOL
+
+
+@pytest.mark.gpu
+def test_restore_of_a_card_state_stays_on_the_card(cuda):
+    """A card state's snapshot lies on the host; ``restore`` re-uploads it
+    to the card (ColliderSet included), so the restarted state runs the
+    kernel, not the plain engine on the CPU."""
+    import softbodysimulation_tpu_torch as port
+
+    spec = ptop.lattice_spec(4, braced=True)
+    st = plat.make_lattice_state(spec, device=cuda).replace(
+        colliders=port.make_colliders(ground_height=0.0, device=cuda))
+    snap = port.snapshot(st)
+    assert snap.positions.device.type == "cpu"
+    rec = port.restore(snap)
+    assert rec.positions.device.type == "cuda"
+    assert rec.colliders.device.type == "cuda"
+    assert torch.equal(rec.positions.cpu(), st.positions.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("verb", ["add_force", "drag_force",
+                                  "squeeze_impulse"])
+def test_pokes_on_the_card_equal_the_cpu(cuda, verb):
+    """A poke on a CUDA state writes the CPU's ext_force to the bit (the
+    verbs divide by tensors: a Python-float divisor becomes a reciprocal
+    multiply on CUDA)."""
+    from softbodysimulation_tpu_torch.interact import forces as pforces
+
+    fields = lattice_cases.seeded_inputs(6, center=(0.0, 1.0, 0.0))
+    calls = {
+        "add_force": lambda s: pforces.add_force(
+            s, (3.0, -1.0, 2.0), (0.2, 1.1, 0.0), radius=0.6),
+        "drag_force": lambda s: pforces.drag_force(
+            s, (1.0, 1.5, -0.5), strength=4.0, radius=0.7),
+        "squeeze_impulse": lambda s: pforces.squeeze_impulse(
+            s, (0.1, 1.0, 0.0), intensity=0.7, radius=0.45),
+    }
+    on_card = calls[verb](state_from_numpy(fields, device=cuda))
+    on_cpu = calls[verb](state_from_numpy(fields, device="cpu"))
+    assert torch.equal(on_card.ext_force.cpu(), on_cpu.ext_force)
+    assert float(on_cpu.ext_force.abs().max()) > 0.1

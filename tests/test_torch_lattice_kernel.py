@@ -21,6 +21,7 @@ from jax.experimental.pallas import tpu as pltpu
 from softbodysimulation_tpu import SolverConfig
 from softbodysimulation_tpu.kernels import lattice_pallas as lp
 
+import softbodysimulation_tpu_torch as port
 from softbodysimulation_tpu_torch.kernels import _build
 from softbodysimulation_tpu_torch.kernels import lattice_cuda as lc
 from softbodysimulation_tpu_torch.solvers import lattice as plat
@@ -95,7 +96,9 @@ def test_runner_without_ext_keeps_the_accumulator():
 def test_unsupported_features_refused_at_build(what):
     """What the slice does not carry raises ``NotImplementedError`` when the
     runner is built.  The per-cell tets are carried: a tet config builds,
-    and only a state without tet multipliers is refused, when it arrives."""
+    and only a state without tet multipliers is refused, when it arrives.
+    Box colliders are carried up to the kernel's table size: more are
+    refused, config or kinematic."""
     spec = ptop.lattice_spec(4, braced=True)
     cfg = port_config(SolverConfig(substeps=2, iterations=1))
     kw = {}
@@ -109,7 +112,11 @@ def test_unsupported_features_refused_at_build(what):
         cfg = cfg.replace(enable_self_collision=True,
                           self_collision_every=2)
     elif what == "box_colliders":
-        cfg = cfg.replace(box_colliders=((0.0, 0.3, 0.0, 0.5, 0.3, 0.5),))
+        cfg = cfg.replace(box_colliders=((0.0, 0.3, 0.0, 0.5, 0.3, 0.5),)
+                          * (lc.MAX_BOXES + 1))
+        with pytest.raises(NotImplementedError):
+            build(spec, cfg.replace(box_colliders=()), DT_SUB, 4,
+                  kin_colliders=(0, lc.MAX_BOXES + 1))
     elif what == "approx_math":
         kw = dict(approx_math=True)
     elif what == "ensemble_runner":
@@ -121,22 +128,28 @@ def test_unsupported_features_refused_at_build(what):
         if what == "batched_step":
             plat.make_batched_step(spec, cfg, 1 / 60, n_bodies=2)
         elif what == "solver_step":
-            plat.make_step(spec, cfg.replace(
-                box_colliders=((0.0, 0.3, 0.0, 0.5, 0.3, 0.5),)), 1 / 60)
+            plat.make_step(spec, cfg.replace(enable_self_collision=True),
+                           1 / 60)
         else:
             build(spec, cfg, DT_SUB, 4, **kw)
 
 
 def test_state_with_colliders_refused_at_call():
+    """Runners built without ``kin_colliders`` refuse a state carrying a
+    ColliderSet; the engine's step builds one per collider count, and
+    refuses colliders on another device than the state."""
     spec = ptop.lattice_spec(3, braced=True)
     cfg = port_config(SolverConfig(substeps=2, iterations=1))
+    coll = port.make_colliders(ground_height=0.0, device="cpu")
     state = plat.make_lattice_state(spec, device="cpu").replace(
-        colliders=object())
+        colliders=coll)
     for fn in (lc.make_cuda_substep_runner(spec, cfg, DT_SUB, 2),
-               lc.make_cuda_step(spec, cfg, 1 / 60),
-               plat.make_step(spec, cfg, 1 / 60)):
+               lc.make_cuda_step(spec, cfg, 1 / 60)):
         with pytest.raises(NotImplementedError):
             fn(state)
+    with pytest.raises(ValueError, match="colliders on meta"):
+        plat.make_step(spec, cfg, 1 / 60)(state.replace(
+            colliders=coll.to("meta")))
 
 
 def test_params_mirror_the_cuda_struct():

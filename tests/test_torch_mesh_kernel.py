@@ -118,7 +118,9 @@ REFUSED = ["volume", "tet_volume", "box_colliders", "kin_colliders",
 @pytest.mark.parametrize("what", REFUSED)
 def test_unsupported_features_refused_at_build(what):
     """B-3's features the port does not carry raise at build time, in both
-    the kernel's runners and the plain engine's step."""
+    the kernel's runners and the plain engine's step.  Box and kinematic
+    colliders are carried up to the kernel's table size: more are
+    refused."""
     _, _, ptopo, _ = both("sphere")
     cfg = port_config(C.SolverConfig(substeps=2, iterations=1))
     kw = {}
@@ -128,9 +130,10 @@ def test_unsupported_features_refused_at_build(what):
         # tets run; their windowed (one-hot) backend is not ported
         cfg = cfg.replace(enable_tet_volume=True, tet_backend="windowed")
     elif what == "box_colliders":
-        cfg = cfg.replace(box_colliders=((0.0, 0.3, 0.0, 0.5, 0.3, 0.5),))
+        cfg = cfg.replace(box_colliders=((0.0, 0.3, 0.0, 0.5, 0.3, 0.5),)
+                          * (mc.MAX_BOXES + 1))
     elif what == "kin_colliders":
-        kw = dict(kin_colliders=(1, 0))
+        kw = dict(kin_colliders=(mc.MAX_SPHERES + 1, 0))
     elif what == "self_collision":
         # self-collision runs; the hash backend only in the plain engine,
         # so a runner built for the card refuses it
@@ -157,8 +160,9 @@ def test_state_with_colliders_or_other_device_refused_at_call():
     _, _, ptopo, ps = both("sphere")
     cfg = port_config(C.SolverConfig(substeps=2, iterations=1))
     run = mc.make_mesh_cuda_substep_runner(ptopo, cfg, DT / 2, 2)
+    # a runner built without kin_colliders refuses a collider state
     with pytest.raises(NotImplementedError):
-        run(ps.replace(colliders=object()))
+        run(ps.replace(colliders=port.make_colliders(device="cpu")))
     with pytest.raises(NotImplementedError):
         run(ps.to("meta"))
 

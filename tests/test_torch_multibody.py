@@ -177,11 +177,13 @@ def test_slice_refusals_at_build(what):
         elif what == "volume":
             mc.make_mesh_cuda_step(topo, cfg.replace(enable_volume=True), DT)
         elif what == "box_colliders":
+            # carried up to the kernel's table size
             mc.make_mesh_cuda_step(topo, cfg.replace(
-                box_colliders=((0.0, 0.3, 0.0, 0.5, 0.3, 0.5),)), DT)
+                box_colliders=((0.0, 0.3, 0.0, 0.5, 0.3, 0.5),)
+                * (mc.MAX_BOXES + 1)), DT)
         elif what == "kin_colliders":
-            mc.make_mesh_cuda_substep_runner(topo, cfg, DT / 4, 4,
-                                             kin_colliders=(1, 0))
+            mc.make_mesh_cuda_substep_runner(
+                topo, cfg, DT / 4, 4, kin_colliders=(0, mc.MAX_BOXES + 1))
         elif what == "ensembles":
             mc.make_mesh_cuda_substep_runner(topo, cfg, DT / 4, 4,
                                              n_bodies=2)
@@ -281,16 +283,22 @@ def _constructor_calls():
         "state_from_numpy": lambda **kw: port.state_from_numpy(fields, **kw),
         "topology_from_numpy": lambda **kw: port.topology_from_numpy(
             tfields, **kw),
+        # restore re-uploads a (host) snapshot, to the card by default
+        "restore": lambda **kw: port.restore(port.snapshot(
+            port.state_from_numpy(fields, device="cpu")), **kw),
     }
 
 
 @pytest.mark.parametrize("name", ["make_lattice_state", "make_state",
                                   "state_from_topology", "state_from_numpy",
-                                  "topology_from_numpy"])
+                                  "topology_from_numpy", "restore"])
 def test_state_constructors_default_to_the_card(monkeypatch, name):
     """Without a CUDA device a state constructor called without ``device``
     raises, naming ``device='cpu'``; with ``device="cpu"`` it builds on the
-    CPU.  Nothing falls back to the CPU silently."""
+    CPU.  Nothing falls back to the CPU silently: ``restore`` of a snapshot
+    (which lies on the host) re-uploads to the card, as the JAX package's
+    re-uploads to its default device, so a card state's restart does not
+    quietly run the plain engine on the CPU."""
     make = _constructor_calls()[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -298,3 +306,36 @@ def test_state_constructors_default_to_the_card(monkeypatch, name):
     out = make(device="cpu")
     t = out.positions if hasattr(out, "positions") else out.edges
     assert t.device.type == "cpu"
+
+
+def test_interaction_verbs_divide_by_tensors():
+    """``add_force``, ``drag_force`` and ``squeeze_impulse`` divide by a
+    tensor, never by a Python float: on CUDA, PyTorch turns a division by a
+    Python float into a multiply by its reciprocal, which rounds otherwise
+    than the true division of the JAX package and of the CPU, so a poke on
+    the card would part from one on the CPU by an ulp.  Every division
+    the verbs make is recorded and its divisor checked."""
+    from torch.overrides import TorchFunctionMode
+
+    from softbodysimulation_tpu_torch.interact import forces as pforces
+
+    divs = {torch.Tensor.__truediv__, torch.Tensor.div, torch.div,
+            torch.true_divide, torch.Tensor.__rtruediv__}
+    scalar_divisors = []
+
+    class Record(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func in divs and len(args) > 1 and not isinstance(
+                    args[1], torch.Tensor):
+                scalar_divisors.append((func.__name__, args[1]))
+            return func(*args, **(kwargs or {}))
+
+    state = plat.make_lattice_state(ptop.lattice_spec(3), device="cpu")
+    with Record():
+        pforces.add_force(state, (1.0, 2.0, 3.0), (0.1, 0.0, 0.0),
+                          radius=0.6)
+    assert scalar_divisors == [], scalar_divisors
+    with Record():
+        pforces.drag_force(state, (1.0, 1.0, 0.0), radius=0.7)
+        pforces.squeeze_impulse(state, (0.0, 0.1, 0.0), radius=0.9)
+    assert scalar_divisors == [], scalar_divisors

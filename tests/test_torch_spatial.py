@@ -190,10 +190,11 @@ def test_routing_on_cpu_slabs():
                                   "kernel_x_offset"])
 def test_refusals(what):
     """What the spatial path refuses: a lattice that does not split into
-    the slabs (ValueError, as JAX), box SDFs, kinematic colliders (built or
-    carried), self-collision; and on the kernel route fewer than 2 planes
-    a slab, tets, spheres (naming ``backend="xla"``) and family x-offsets
-    other than 0 and 1."""
+    the slabs (ValueError, as JAX), self-collision, a state carrying
+    colliders on a step built without ``kin_colliders``; and on the kernel
+    route fewer than 2 planes a slab, tets, spheres and boxes (naming
+    ``backend="xla"``), kinematic colliders (as JAX's slab kernel) and
+    family x-offsets other than 0 and 1."""
     spec = ptop.lattice_spec(8, braced=True)
     cfg = port.SolverConfig(substeps=2, iterations=1)
     build = psp.make_spatial_lattice_step
@@ -204,15 +205,17 @@ def test_refusals(what):
         return
     if what == "state_colliders":
         st = plat.make_lattice_state(spec, device="cpu").replace(
-            colliders=object())
-        with pytest.raises(NotImplementedError):
+            colliders=port.make_colliders(device="cpu"))
+        with pytest.raises(NotImplementedError, match="kin_colliders"):
             build(spec, cfg, DT, cpu4)(st)
         return
     kw, match = {}, None
     if what == "box_colliders":
+        build = sc.make_spatial_cuda_substep
+        match = 'backend="xla"'
         cfg = cfg.replace(box_colliders=((0.0, 0.0, 0.0, 0.5, 0.5, 0.5),))
     elif what == "kin_colliders":
-        kw = dict(kin_colliders=(1, 0))
+        kw = dict(kin_colliders=(1, 0), backend="pallas")
     elif what == "self_collision":
         cfg = cfg.replace(enable_self_collision=True)
     else:

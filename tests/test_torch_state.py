@@ -108,8 +108,10 @@ def test_state_numpy_round_trip(with_tet):
 def test_state_from_numpy_refuses_colliders_and_missing_fields():
     _, js = jax_lattice_state(3)
     fields = {k: np.asarray(getattr(js, k)) for k in FIELDS[:-1]}
-    with pytest.raises(NotImplementedError):
-        port.state_from_numpy(dict(fields, colliders=object()),
+    # colliders are carried as a mapping of the ColliderSet's five fields
+    # (test_torch_colliders.py); anything else is refused
+    with pytest.raises(ValueError, match="collider fields"):
+        port.state_from_numpy(dict(fields, colliders={"planes": [0.0]}),
                               device="cpu")
     del fields["inv_mass"]
     with pytest.raises(ValueError):
@@ -130,7 +132,7 @@ def test_is_finite_snapshot_restore():
     assert not port.is_finite(bad)
     assert not bool(jstate_mod.is_finite(
         js.replace(positions=js.positions.at[5, 1].set(jnp.nan))))
-    rec = port.restore(snap)
+    rec = port.restore(snap, device="cpu")
     ref = jstate_mod.restore(jstate_mod.snapshot(js))
     assert port.is_finite(rec)
     for k in FIELDS[:-1]:
