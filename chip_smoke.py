@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's lattice, mesh, contact, differentiable, spatial and
-kinematic-collider main paths through the entry points a user calls and
-fails (nonzero exit) if any phase fails:
+Drives the port's lattice, mesh, contact, differentiable, spatial,
+kinematic-collider and ensemble main paths through the entry points a user
+calls and fails (nonzero exit) if any phase fails:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch / CUDA
    versions;
@@ -156,17 +156,19 @@ fails (nonzero exit) if any phase fails:
    (config boxes; kinematic spheres and boxes with velocities; an
    animated ground in both floor modes; each pose moved once on the same
    runner); ``sphere_sweep`` at res 40 (64,000 particles) for 240
-   animated frames through one runner and through the plain engine
-   (finite, ymin > -1e-2, the slab pushed along +x, max |dx| < 1e-5);
+   animated frames through one runner (finite, ymin > -1e-2, the slab
+   pushed along +x), its first 60 frames also through the plain engine
+   (max |dx| < 1e-5 at frame 60);
    at that width a config box standing in the slab and a kinematic box
-   sweeping against the sphere, 120 frames each through the kernel and
+   sweeping against the sphere, 60 frames each through the kernel and
    the plain engine (the same gates, the box emptied or the slab moved);
    ms per substep of that config with poses and without, and launches
    per substep with and without (equal, also at ``flagship_perf``);
 27. the mesh kernel with the rigid world against the plain engine for the
    mesh cases of that module at phase 8's gates; ``cloth_xl`` with a
-   kinematic sphere sweeping through it for 240 frames, kernel and plain
-   (finite, pinned row unmoved, the cloth pushed, drift < 1e-3), timed;
+   kinematic sphere sweeping through it for 240 frames through the kernel
+   (finite, pinned row unmoved, the cloth pushed), its first 60 against
+   the plain engine (drift < 1e-3), timed;
    a config box and a kinematic box at that width, as in phase 26;
 28. B-5's pose cotangents on the ``bench_diff`` scene with a kinematic
    sphere overlapping the shell, 40 substeps, a random-weighted loss:
@@ -174,7 +176,51 @@ fails (nonzero exit) if any phase fails:
    scale across the pose leaves; the runner's chunks of 10 against one
    chunk (rtol 1e-5); ``config11_collider_control.run(engine="fused")``
    at its defaults (its loss shrinks); ms per 40-substep chunk with and
-   without the pose cotangents, and the bound with them.
+   without the pose cotangents, and the bound with them;
+29. the B-1 ensembles (``n_bodies > 1``): every case of
+   ``tests/test_torch_ensemble_cases.py`` at res 6 (WARM_START JACOBI with
+   an ext force on one body, COLORED, RESET, tets, a shared kinematic
+   sphere, the batched contract at one body) against the lane-folded plain
+   engine at phase 3's gates, every row equal to the single-body kernel to
+   the bit; example 5 at its defaults (1,024 res-4 bodies, 120 frames x 4
+   substeps) through ``config5_batch_1024.run`` (``make_batched_step``,
+   the launches read around it): finite, ymin > -1e-2, unit normals,
+   bodies 0, 511 and 1023 equal to the single-body kernel to the bit,
+   launches a substep equal to one body's, 480-substep drift against the
+   plain engine < 1e-3;
+30. the B-3 ensembles: every mesh case of that module (shared and per-body
+   masses, per-body materials, bending, COLORED, tets, dense contact, a
+   shared kinematic sphere) against the plain engine body by body at phase
+   8's gates, rows equal to the single-body kernel; the farm of
+   ``scripts/bench_mesh_ensemble.py`` (``icosphere(4, 0.5)`` x 32, JACOBI
+   x 4, 4 substeps, floor) for 240 frames through
+   ``make_batched_general_step`` with shared and with per-body masses:
+   finite, ymin, drift < 1e-3 against the plain engine on bodies 0, 7, 19,
+   31 (shared) and 0, 31 (per-body), rows 0 and 31 equal to the
+   single-body kernel; the contact farm of
+   ``scripts/bench_ensemble_contact.py`` (``ball_on_cloth`` x 8, 120
+   frames): every ball above 0.55 on a cloth below 0.99, rows 0, 3, 7
+   equal to the single-body kernel;
+31. the material ensemble x 16 and the per-body-mass ensemble x 8 on the
+   ``bench_diff`` scene at 40 substeps (the mass ensemble launched with a
+   seeded velocity field, without which a uniform body's loss hardly
+   depends on its masses): their gradients against autograd through the
+   plain engine on the last body (< 1e-4); a float64 witness on the card
+   that does not share that backward: autograd through the plain engine
+   in float64 against a central difference of the loss along a seeded
+   direction (< 1e-4), and the float32 gradient along that direction
+   against the difference (< 0.1; the float32 gradient's own rounding,
+   printed with its largest element's error); four
+   shards on one card equal to one shard to the bit for the lattice
+   rollout at example 5's geometry and for the mesh farm, and their
+   ensemble diagnostics equal;
+32. particle-substeps/s of each ensemble (example 5, the mesh farm, the
+   contact farm), its plain twin and the single-body kernel looped over
+   its bodies, timed as phase 10 times (CUDA events, windows in turns,
+   of at least half a second);
+   launches a substep (the ensemble's equal to one body's); the bounds
+   (``lattice_work`` x B, ``mesh_work`` with B bodies' state and the
+   shared tables once).
 
 Prints one JSON line of kernels (with each kernel's bound, the least time
 the card could take for the same work, from ``bound_ms``), the card's name
@@ -436,26 +482,34 @@ def lattice_work(spec, cfg, colliders=(0, 0)):
             30 * n * fam * cfg.iterations + cops)
 
 
-def mesh_work(topo, cfg, colliders=(0, 0)):
+def mesh_work(topo, cfg, colliders=(0, 0), bodies=1):
     """(bytes, operations) of one mesh substep: the state read and written,
-    the per-constraint tables and CSR incidence rows read once, the
-    multipliers read and written; per iteration ~30 operations per edge,
+    the per-constraint tables and CSR incidence rows read once (those of a
+    family the mesh lacks not at all), the multipliers written, and read
+    unless the mode is RESET (which zeroes them in the predict and never
+    reads them); per iteration ~30 operations per edge,
     ~150 per hinge (normals, acos, sin, four gradients), ~120 per tet, ~10
     per particle (the sums and the floor); and the contacts against
     ``colliders = (spheres, boxes)`` (the config's unless given) once per
-    iteration, twice with Chebyshev (``collider_work``)."""
+    iteration, twice with Chebyshev (``collider_work``).  An ensemble of
+    ``bodies`` moves each body's state and multipliers and does each
+    body's operations, and reads the shared tables (and inverse masses)
+    once."""
+    from softbodysimulation_tpu_torch.core.config import LambdaMode
     from softbodysimulation_tpu_torch.solvers import general
     n, e, h, t = topo.n_particles, topo.n_edges, topo.n_hinges, topo.n_tets
-    nbytes = (n * (24 * 2 + 4) + e * (8 + 16 + 8) + h * (16 + 12 + 8)
-              + t * (16 + 12 + 8)
-              + 4 * (n + 1 + 2 * e) + 4 * (n + 1 + 4 * h)       # CSR rows
+    lam = 4 * (1 if cfg.lambda_mode == LambdaMode.RESET else 2)
+    per_body = n * 24 * 2 + lam * (e + h + t)
+    shared = (4 * n + e * (8 + 16) + h * (16 + 12) + t * (16 + 12)
+              + 4 * (n + 1 + 2 * e)                             # CSR rows
+              + (4 * (n + 1 + 4 * h) if h else 0)
               + (4 * (n + 1 + 4 * t) + 4 * n if t else 0))
     ops = cfg.iterations * (30 * e + 150 * h + 120 * t + 10 * n)
     counts = (max(colliders[0], len(cfg.sphere_colliders)),
               max(colliders[1], len(cfg.box_colliders)))
     passes = cfg.iterations * (2 if general.accelerated(cfg) else 1)
     cb, cops = collider_work(n, counts, passes)
-    return nbytes + cb, ops + cops
+    return bodies * per_body + shared + cb, bodies * (ops + cops)
 
 
 DIFF_DT = 1.0 / 240.0
@@ -557,6 +611,13 @@ def diff_scene(torch, device):
             torch.tensor([0.1, 0.0, 0.0], device=device))
 
 
+def as_f64(st):
+    """A one-body mesh state in float64."""
+    return st.replace(**{k: getattr(st, k).double() for k in (
+        "positions", "velocities", "inv_mass", "ext_force", "lambda_dist",
+        "lambda_bend", "lambda_volume")})
+
+
 def f64_witness() -> int:
     """``--f64-witness``: the gradient of sum(x^2) w.r.t. the launch
     velocity over LONG_GRAD_SUBSTEPS of the bench_diff scene, in float64 on
@@ -573,9 +634,7 @@ def f64_witness() -> int:
     torch.set_num_threads(2)
     t0 = time.perf_counter()
     topo, cfg, st, v0 = diff_scene(torch, "cpu")
-    st = st.replace(**{k: getattr(st, k).double() for k in (
-        "positions", "velocities", "inv_mass", "ext_force", "lambda_dist",
-        "lambda_bend", "lambda_volume")})
+    st = as_f64(st)
     ns, n, v0 = LONG_GRAD_SUBSTEPS, topo.n_particles, v0.double()
     v = v0.clone().requires_grad_()
     out = general.run_substeps_plain(st.replace(velocities=v.expand(n, 3)),
@@ -1605,7 +1664,10 @@ SWEEP_RES = 40
 SWEEP_FRAMES = 240
 CLOTH_SWEEP_FRAMES = 240
 KIN_GRAD_SUBSTEPS = 40
-BOX_FRAMES = 120
+# the box sweeps, and the depth at which the two kinematic sweeps are held
+# against the plain engine (their kernels run SWEEP_FRAMES and
+# CLOTH_SWEEP_FRAMES); 60 frames keep the whole smoke near 400 s
+BOX_FRAMES = 60
 
 
 def paired_frames(kstep, pstep, state, animate, frames):
@@ -1723,12 +1785,12 @@ def collider_phases(torch, np, smi, is_finite):
     sub = SWEEP_FRAMES * cfg.substeps
     tp = time.perf_counter()
     ref = state
-    for i in range(SWEEP_FRAMES):
+    for i in range(BOX_FRAMES):
         ref = lat.step_fn(animate(i, ref), spec, cfg, dt)
     torch.cuda.synchronize()
     tp = time.perf_counter() - tp
     p = st.positions
-    dx = float((p - ref.positions).abs().max())
+    dx = float((half.positions - ref.positions).abs().max())
     ymin = float(p[:, 1].min())
     shift = float(p[:, 0].mean()) - x0
     print(f"# sphere_sweep res {SWEEP_RES} ({n} particles), "
@@ -1736,10 +1798,10 @@ def collider_phases(torch, np, smi, is_finite):
           f"through ONE runner (built once by the scene, kin_colliders="
           f"{info['kin_colliders']}; each frame a new pose in the table): "
           f"{tk:.3f} s wall, {sweep_launches} launches = "
-          f"{sweep_launches / sub:.2f} a substep; plain {tp:.3f} s; "
-          f"finite={is_finite(st)} ymin={ymin:.6f} slab pushed "
-          f"{shift:.4f} along +x; max|dx| vs plain {dx:.3e} (gate "
-          f"{DX_TOL})")
+          f"{sweep_launches / sub:.2f} a substep; finite={is_finite(st)} "
+          f"ymin={ymin:.6f} slab pushed {shift:.4f} along +x; at frame "
+          f"{BOX_FRAMES} max|dx| vs plain {dx:.3e} (gate {DX_TOL}, plain "
+          f"{tp:.3f} s)")
     if not (is_finite(st) and ymin > -1e-2 and shift > 0.05
             and dx < DX_TOL and sweep_launches > 0):
         raise RuntimeError("sphere_sweep failed its gates")
@@ -1856,11 +1918,11 @@ def collider_phases(torch, np, smi, is_finite):
     cloth_launches = mc.launches
     tp = time.perf_counter()
     cp = cstate
-    for i in range(CLOTH_SWEEP_FRAMES):
+    for i in range(BOX_FRAMES):
         cp = general.step_fn(sweep(i, cp), ctopo, ccfg, cdt)
     torch.cuda.synchronize()
     tp = time.perf_counter() - tp
-    dx = float((ck.positions - cp.positions).abs().max())
+    dx = float((half.positions - cp.positions).abs().max())
     zmax = float(ck.positions[:, 2].max())
     pins_ok = torch.equal(ck.positions[pins], cstate.positions[pins])
     print(f"# cloth_xl ({ctopo.n_particles} particles) with a kinematic "
@@ -1868,10 +1930,10 @@ def collider_phases(torch, np, smi, is_finite):
           f"{CLOTH_SWEEP_FRAMES} frames x {ccfg.substeps} substeps: B-3 "
           f"{tk:.3f} s wall, {cloth_launches} launches = "
           f"{cloth_launches / (CLOTH_SWEEP_FRAMES * ccfg.substeps):.2f} a "
-          f"substep; plain {tp:.3f} s; finite={is_finite(ck)} pinned row "
-          f"unmoved={pins_ok} ymin={float(ck.positions[:, 1].min()):.6f} "
-          f"max z {zmax:.4f} (pushed); max|dx| vs plain {dx:.3e} (gate "
-          f"{DRIFT_TOL})")
+          f"substep; finite={is_finite(ck)} pinned row unmoved={pins_ok} "
+          f"ymin={float(ck.positions[:, 1].min()):.6f} max z {zmax:.4f} "
+          f"(pushed); at frame {BOX_FRAMES} max|dx| vs plain {dx:.3e} "
+          f"(gate {DRIFT_TOL}, plain {tp:.3f} s)")
     if not (is_finite(ck) and pins_ok and zmax > 0.05 and dx < DRIFT_TOL
             and cloth_launches > 0):
         raise RuntimeError("the cloth_xl sweep failed its gates")
@@ -2004,6 +2066,512 @@ def collider_phases(torch, np, smi, is_finite):
     return out
 
 
+ENSEMBLE_RES = 6
+# example 5 at its defaults: 1,024 res-4 bodies, 120 frames x 4 substeps
+EXAMPLE5_FRAMES = 120
+EXAMPLE5_ROWS = (0, 511, 1023)
+# the farm of scripts/bench_mesh_ensemble.py (its icosphere(4, 0.5)
+# fallback, the bench_diff scene's body and config) x 32
+FARM_BODIES = 32
+FARM_FRAMES = 240
+FARM_DRIFT_ROWS = (0, 7, 19, 31)
+# the per-body-mass farm's drift rows: the lightest and the heaviest body
+# (four rows there would add some 10 s of plain engine to the smoke)
+MASS_FARM_DRIFT_ROWS = (0, 31)
+# the contact farm of scripts/bench_ensemble_contact.py: ball_on_cloth x 8
+CONTACT_FARM_BODIES = 8
+CONTACT_FARM_ROWS = (0, 3, 7)
+MAT_ENSEMBLE_BODIES = 16
+MASS_ENSEMBLE_BODIES = 8
+SHARDS = 4
+SHARD_SUBSTEPS = 40
+ENSEMBLE_LEAVES = ("positions", "velocities", "lambda_dist", "lambda_bend",
+                   "lambda_tet")
+
+
+def rows_equal(torch, what, out, start, single, rows, materials=None):
+    """Rows ``rows`` of an ensemble result against the single-body runner
+    ``single`` on those bodies of ``start``: raises unless every leaf is
+    equal to the bit."""
+    import test_torch_ensemble_cases as E
+    from softbodysimulation_tpu_torch.core.state import body_of
+
+    singles = []
+    for i in rows:
+        mat = (None if materials is None
+               else {k: v[i] for k, v in materials.items()})
+        singles.append(single(body_of(start, i)) if mat is None
+                       else single(body_of(start, i), mat))
+    picked = out.replace(**{k: getattr(out, k)[list(rows)]
+                            for k in ENSEMBLE_LEAVES
+                            if getattr(out, k) is not None})
+    bad = E.row_mismatches(picked, singles, ENSEMBLE_LEAVES)
+    print(f"# {what}: rows {list(rows)} equal to the single-body kernel to "
+          f"the bit: {not bad}")
+    if bad:
+        raise RuntimeError(f"{what}: ensemble rows differ from the "
+                           f"single-body kernel: {bad[:6]}")
+
+
+def farm_state(torch, np, state, n_bodies, spread, seed=1):
+    """``n_bodies`` copies of a one-body state (its inv_mass shared),
+    scattered by seeded offsets: x and z in [-spread[0], spread[0]), y in
+    [0, spread[1]) (``scripts/bench_mesh_ensemble.py``'s batch_states)."""
+    from softbodysimulation_tpu_torch.parallel import batch as pbatch
+
+    rng = np.random.RandomState(seed)
+    offs = np.stack([rng.uniform(-spread[0], spread[0], n_bodies),
+                     rng.uniform(0.0, spread[1], n_bodies),
+                     rng.uniform(-spread[0], spread[0], n_bodies)],
+                    1).astype(np.float32)
+    farm = pbatch.replicate_state(state, n_bodies)
+    return farm.replace(inv_mass=state.inv_mass,
+                        positions=farm.positions + torch.as_tensor(
+                            offs, device=farm.device)[:, None, :])
+
+
+def grad_rel(torch, got, ref):
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+# phase 31's float64 witness: the central difference's step along the
+# seeded direction d (d_k = z_k theta_k, z standard normal), per leaf, and
+# its gates
+GRAD_FD_EPS = {"rest_lengths": 1e-6, "inv_mass": 1e-4}
+GRAD_FD_TOL = 1e-4
+GRAD_F32_TOL = 0.1
+
+
+def grad_witness(torch, topo, cfg, st, leaf, g32, compliance=None):
+    """A witness of one body's float32 ensemble gradient ``g32`` of
+    sum(x^2) over GRAD_SUBSTEPS w.r.t. ``leaf`` (``"rest_lengths"``, with
+    the body's ``compliance``, or ``"inv_mass"``) that does not share its
+    backward: a central difference of the loss along a seeded direction d,
+    the plain engine in float64 on the body's device.  Returns the
+    autograd-through-plain float64 gradient's error along d, the float32
+    one's, both relative to the difference, and max|g32 - g64| /
+    max|g64|."""
+    from softbodysimulation_tpu_torch.solvers import general
+
+    st = as_f64(st)
+    comp = None if compliance is None else compliance.double()
+
+    def loss(theta):
+        if leaf == "inv_mass":
+            s_, tp = st.replace(inv_mass=theta), topo
+        else:
+            s_, tp = st, topo.replace(rest_lengths=theta, compliance=comp)
+        return (general.run_substeps_plain(s_, tp, cfg, DIFF_DT,
+                                           GRAD_SUBSTEPS).positions
+                ** 2).sum()
+
+    theta = (st.inv_mass if leaf == "inv_mass"
+             else topo.rest_lengths.to(st.device).double())
+    th = theta.clone().requires_grad_()
+    (g64,) = torch.autograd.grad(loss(th), th)
+    gen = torch.Generator().manual_seed(7)
+    d = torch.randn(tuple(theta.shape), generator=gen,
+                    dtype=torch.float64).to(theta.device) * theta
+    eps = GRAD_FD_EPS[leaf]
+    with torch.no_grad():
+        fd = float((loss(theta + eps * d) - loss(theta - eps * d))
+                   / (2.0 * eps))
+    along = [abs(float((g * d).sum()) - fd) / abs(fd)
+             for g in (g64, g32.double())]
+    return along[0], along[1], grad_rel(torch, g32.double(), g64)
+
+
+def ensemble_phases(torch, np, smi, is_finite):
+    """Phases 29-32: the ensembles of B-1 and B-3, their differentiable
+    and sharded forms, and their throughput.  Returns the two JSON entries
+    ("kernels") and the runs ``--profile`` traces ("profile")."""
+    import test_torch_ensemble_cases as E
+    import test_torch_mesh_cases as mesh_cases
+    from softbodysimulation_tpu_torch.core import scenes
+    from softbodysimulation_tpu_torch.core.state import body_of
+    from softbodysimulation_tpu_torch.examples import config5_batch_1024
+    from softbodysimulation_tpu_torch.kernels import diff as kd
+    from softbodysimulation_tpu_torch.kernels import lattice_cuda as lc
+    from softbodysimulation_tpu_torch.kernels import mesh_cuda as mc
+    from softbodysimulation_tpu_torch.parallel import batch as pbatch
+    from softbodysimulation_tpu_torch.solvers import general
+    from softbodysimulation_tpu_torch.solvers import lattice as lat
+
+    # 29. B-1 ensembles: every case, then example 5 at its defaults
+    t0 = time.perf_counter()
+    lat_err = 0.0
+    for name in E.lattice_ensemble_cases():
+        spec, cfg, st, frames, kin, batched = E.lattice_case(
+            name, ENSEMBLE_RES, "cuda")
+        nb = st.positions.shape[0]
+        n_sub = frames * cfg.substeps
+        ens = lc.make_cuda_step(spec, cfg, E.DT, frames, kin_colliders=kin,
+                                n_bodies=nb, batched=batched)(st)
+        ref = lat.run_substeps_plain_batched(st, spec, cfg,
+                                             E.DT / cfg.substeps, n_sub,
+                                             with_ext=True)
+        lat_err = max(lat_err, compare(
+            torch, f"B-1 ensemble {name} x {nb} res {ENSEMBLE_RES}", ens,
+            ref, st, E.DT / cfg.substeps, n_sub, is_finite))
+        rows_equal(torch, f"B-1 ensemble {name}", ens, st,
+                   lc.make_cuda_step(spec, cfg, E.DT, frames,
+                                     kin_colliders=kin), range(nb))
+    torch.cuda.synchronize()
+    lc.launches = 0
+    t1 = time.perf_counter()
+    ex5, normals = config5_batch_1024.run(steps=EXAMPLE5_FRAMES,
+                                          verbose=False)
+    torch.cuda.synchronize()
+    ex5_s = time.perf_counter() - t1
+    ex5_launches = lc.launches
+    spec5, cfg5, start5 = config5_batch_1024.make_ensemble()
+    nb5, n5 = start5.positions.shape[:2]
+    ex5_sub = EXAMPLE5_FRAMES * cfg5.substeps
+    p = ex5.positions
+    ymin = float(p[..., 1].min())
+    unit = bool(torch.allclose(torch.linalg.norm(normals, dim=-1),
+                               torch.ones_like(normals[..., 0]), atol=1e-3))
+    print(f"# example 5: {nb5} bodies x {n5} particles, {EXAMPLE5_FRAMES} "
+          f"frames x {cfg5.substeps} substeps through make_batched_step in "
+          f"{ex5_s:.3f} s wall, {ex5_launches} launches "
+          f"({ex5_launches / ex5_sub:.3f} a substep); finite="
+          f"{is_finite(ex5)} ymin={ymin:.6f} normals unit={unit}")
+    if not (is_finite(ex5) and ymin > -1e-2 and unit and ex5_launches > 0):
+        raise RuntimeError("example 5 failed its health gates")
+    single5 = lc.make_cuda_step(spec5, cfg5, 1 / 60, EXAMPLE5_FRAMES)
+    lc.launches = 0
+    rows_equal(torch, "example 5", ex5, start5, single5, EXAMPLE5_ROWS)
+    one_launches = lc.launches / len(EXAMPLE5_ROWS)
+    print(f"# example 5 launches a substep: ensemble "
+          f"{ex5_launches / ex5_sub:.3f}, one body {one_launches / ex5_sub:.3f}")
+    if ex5_launches != one_launches:
+        raise RuntimeError("the ensemble's launches grow with its bodies")
+    plain5 = lat.run_substeps_plain_batched(start5, spec5, cfg5,
+                                            1 / 60 / cfg5.substeps, ex5_sub,
+                                            with_ext=True)
+    ex5_drift = float((p - plain5.positions).abs().max())
+    print(f"# example 5 drift vs the lane-folded plain engine, {ex5_sub} "
+          f"substeps: {ex5_drift:.3e} (gate {DRIFT_TOL})")
+    if not ex5_drift < DRIFT_TOL:
+        raise RuntimeError(f"example 5 drifts from plain: {ex5_drift}")
+    print(f"# time: phase 29 took {time.perf_counter() - t0:.1f} s")
+
+    # 30. B-3 ensembles: every case, the mesh farm, the contact farm
+    t0 = time.perf_counter()
+    mesh_err = 0.0
+    for name in E.mesh_ensemble_cases():
+        topo, cfg, st, mats, frames, opts = E.mesh_case(name, "cuda")
+        nb = st.positions.shape[0]
+        kin = opts.get("kin")
+        ens = mc.make_mesh_cuda_step(
+            topo, cfg, E.DT, frames, kin_colliders=kin, n_bodies=nb,
+            per_body_mass=bool(opts.get("per_body_mass")))(st, mats)
+        ref = general.run_substeps_plain_batched(
+            st, topo, cfg, E.DT / cfg.substeps, frames * cfg.substeps,
+            with_ext=True, materials=mats)
+        torch.cuda.synchronize()
+        dx = float((ens.positions - ref.positions).abs().max())
+        d = {k: float((getattr(ens, k) - getattr(ref, k)).abs().max())
+             for k in ("lambda_dist", "lambda_bend")
+             if getattr(ref, k).numel()}
+        big = {k: float(getattr(ref, k).abs().max()) for k in d}
+        gates = {"lambda_dist": mesh_cases.DLAM_DIST,
+                 "lambda_bend": mesh_cases.DLAM_BEND}
+        print(f"# B-3 ensemble {name} x {nb}: max|dx|={dx:.3e} (gate "
+              f"{E.dx_gate(cfg)}) " + " ".join(
+                  f"max|d{k}|={d[k]:.3e} (max {big[k]:.3e})" for k in d))
+        if not (is_finite(ens) and dx < E.dx_gate(cfg)
+                and all(d[k] <= LAM_REL * big[k] for k in d)
+                and (cfg.enable_self_collision
+                     or all(d[k] < gates[k] for k in d))):
+            raise RuntimeError(f"B-3 ensemble {name} disagrees with plain")
+        mesh_err = max(mesh_err, dx)
+        rows_equal(torch, f"B-3 ensemble {name}", ens, st,
+                   mc.make_mesh_cuda_step(topo, cfg, E.DT, frames,
+                                          kin_colliders=kin), range(nb),
+                   mats)
+
+    ftopo, fcfg, fstate, _ = diff_scene(torch, "cuda")
+    farm = farm_state(torch, np, fstate, FARM_BODIES, (4.0, 2.0))
+    fdt_sub = 1 / 60 / fcfg.substeps
+    f_sub = FARM_FRAMES * fcfg.substeps
+    fstep = pbatch.make_batched_general_step(ftopo, fcfg, 1 / 60,
+                                             n_steps=FARM_FRAMES)
+    farm_single = mc.make_mesh_cuda_step(ftopo, fcfg, 1 / 60, FARM_FRAMES)
+    farm_launches = None
+    for label, start, drift_rows in (
+            ("shared masses", farm, FARM_DRIFT_ROWS),
+            ("per-body masses", farm.replace(inv_mass=farm.inv_mass[None]
+                                             * torch.linspace(
+                                                 0.5, 1.5, FARM_BODIES,
+                                                 device="cuda")[:, None]),
+             MASS_FARM_DRIFT_ROWS)):
+        torch.cuda.synchronize()
+        mc.launches = 0
+        t1 = time.perf_counter()
+        fout = fstep(start)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        if farm_launches is None:
+            farm_launches = mc.launches
+        ymin = float(fout.positions[..., 1].min())
+        drift = max(float((fout.positions[i] - general.run_substeps_plain(
+            body_of(start, i), ftopo, fcfg, fdt_sub, f_sub,
+            with_ext=True).positions).abs().max())
+            for i in drift_rows)
+        print(f"# mesh farm ({label}): {FARM_BODIES} x {ftopo.n_particles} "
+              f"particles, {FARM_FRAMES} frames x {fcfg.substeps} substeps "
+              f"in {wall:.3f} s wall, {mc.launches} launches; finite="
+              f"{is_finite(fout)} ymin={ymin:.6f}; drift vs plain on bodies "
+              f"{list(drift_rows)}: {drift:.3e} (gate {DRIFT_TOL})")
+        if not (is_finite(fout) and ymin > -1e-2 and drift < DRIFT_TOL
+                and mc.launches > 0):
+            raise RuntimeError(f"mesh farm ({label}) failed its gates")
+        mesh_err = max(mesh_err, drift)
+        rows_equal(torch, f"mesh farm ({label})", fout, start, farm_single,
+                   (0, FARM_BODIES - 1))
+
+    cstate, _, cinfo = scenes.ball_on_cloth(device="cuda")
+    ctopo, ccfg, cdt = cinfo["topology"], cinfo["config"], cinfo["dt"]
+    nc = cinfo["n_cloth"]
+    cfarm = farm_state(torch, np, cstate, CONTACT_FARM_BODIES, (0.02, 0.0))
+    torch.cuda.synchronize()
+    mc.launches = 0
+    cout = pbatch.make_batched_general_step(ctopo, ccfg, cdt,
+                                            n_steps=CATALOG_FRAMES)(cfarm)
+    torch.cuda.synchronize()
+    contact_launches = mc.launches
+    ball = cout.positions[:, nc:, 1].amin(dim=1)
+    cloth = cout.positions[:, :nc, 1].amin(dim=1)
+    print(f"# contact farm: ball_on_cloth x {CONTACT_FARM_BODIES}, "
+          f"{CATALOG_FRAMES} frames, {contact_launches} launches: ball min "
+          f"y {float(ball.min()):.4f}-{float(ball.max()):.4f}, cloth min y "
+          f"{float(cloth.min()):.4f}-{float(cloth.max()):.4f}")
+    if not (is_finite(cout) and bool((ball > 0.55).all())
+            and bool((cloth < 0.99).all())):
+        raise RuntimeError("contact farm failed its physics")
+    rows_equal(torch, "contact farm", cout, cfarm,
+               mc.make_mesh_cuda_step(ctopo, ccfg, cdt, CATALOG_FRAMES),
+               CONTACT_FARM_ROWS)
+    print(f"# time: phase 30 took {time.perf_counter() - t0:.1f} s")
+
+    # 31. differentiable and sharded ensembles
+    t0 = time.perf_counter()
+    dtopo, dcfg, dstate, v0 = diff_scene(torch, "cuda")
+    dstate = dstate.replace(velocities=dstate.velocities + v0)
+    grad_err = 0.0
+
+    def plain_grad(st, leaf, mats=None):
+        out = general.run_substeps_plain(st, dtopo, dcfg, DIFF_DT,
+                                         GRAD_SUBSTEPS, materials=mats)
+        return torch.autograd.grad((out.positions ** 2).sum(), leaf)[0]
+
+    nb = MAT_ENSEMBLE_BODIES
+    scale = torch.linspace(1.0, 1.05, nb, device="cuda")[:, None]
+    mats = {"rest_lengths": (dtopo.rest_lengths.to("cuda")[None]
+                             * scale).requires_grad_(),
+            "compliance": dtopo.compliance.to("cuda")[None].expand(
+                nb, -1) * (1.0 + 3.0 * (scale - 1.0) / 0.05)}
+    batched = pbatch.replicate_state(dstate, nb).replace(
+        inv_mass=dstate.inv_mass)
+    run = kd.make_differentiable_material_ensemble_runner(
+        dtopo, dcfg, DIFF_DT, GRAD_SUBSTEPS, n_bodies=nb)
+    g = torch.autograd.grad((run(batched, mats).positions ** 2).sum(),
+                            mats["rest_lengths"])[0]
+    for i in (nb - 1,):
+        rest = mats["rest_lengths"][i].detach().requires_grad_()
+        ref = plain_grad(body_of(batched, i), rest,
+                         {"rest_lengths": rest,
+                          "compliance": mats["compliance"][i]})
+        grad_err = max(grad_err, grad_rel(torch, g[i], ref))
+    witness = {"materials": grad_witness(
+        torch, dtopo.replace(rest_lengths=mats["rest_lengths"][-1].detach()),
+        dcfg, body_of(batched, nb - 1), "rest_lengths", g[-1],
+        mats["compliance"][-1])}
+    nb = MASS_ENSEMBLE_BODIES
+    im = (dstate.inv_mass[None] * torch.linspace(1.0, 1.5, nb,
+                                                 device="cuda")[:, None])
+    im = im.requires_grad_()
+    gen = torch.Generator().manual_seed(3)
+    batched = pbatch.replicate_state(dstate.replace(
+        velocities=dstate.velocities + 0.05 * torch.randn(
+            tuple(dstate.velocities.shape), generator=gen).to("cuda")), nb)
+    run = kd.make_differentiable_mesh_ensemble_runner(
+        dtopo, dcfg, DIFF_DT, GRAD_SUBSTEPS, n_bodies=nb)
+    g = torch.autograd.grad((run(batched.replace(inv_mass=im)).positions
+                             ** 2).sum(), im)[0]
+    for i in (nb - 1,):
+        w = im[i].detach().requires_grad_()
+        ref = plain_grad(body_of(batched, i).replace(inv_mass=w), w)
+        grad_err = max(grad_err, grad_rel(torch, g[i], ref))
+    witness["per-body masses"] = grad_witness(
+        torch, dtopo, dcfg, body_of(batched, nb - 1).replace(
+            inv_mass=im[-1].detach()), "inv_mass", g[-1])
+    print(f"# ensemble gradients (bench_diff scene, {GRAD_SUBSTEPS} "
+          f"substeps): materials x {MAT_ENSEMBLE_BODIES} and per-body masses"
+          f" x {MASS_ENSEMBLE_BODIES} vs autograd through the plain engine "
+          f"on their last bodies: max |dg| / max |g| = "
+          f"{grad_err:.3e} (gate 1e-4)")
+    if not grad_err < 1e-4:
+        raise RuntimeError("ensemble gradients disagree with autograd")
+    for what, (e64, e32, emax) in witness.items():
+        print(f"# ensemble gradient ({what}), last body, along a seeded "
+              f"direction vs a float64 central difference: float64 "
+              f"autograd through the plain engine {e64:.3e} (gate "
+              f"{GRAD_FD_TOL}), the float32 ensemble {e32:.3e} (gate "
+              f"{GRAD_F32_TOL}); float32 vs float64 gradient max|dg|/max|g| "
+              f"= {emax:.3e}")
+        if not (e64 < GRAD_FD_TOL and e32 < GRAD_F32_TOL):
+            raise RuntimeError(f"ensemble gradient ({what}) disagrees with "
+                               f"its finite difference")
+
+    def sharded(make, start, n_shards):
+        mesh = pbatch.make_mesh(n_shards)
+        shards = pbatch.shard_batched_state(start, mesh)
+        res = make(mesh)(shards)
+        diag = pbatch.make_sharded_ensemble_diagnostics(mesh)(res)
+        return pbatch.gather_batched_state(res), [float(x) for x in diag]
+
+    for what, make, start in (
+            ("example 5 lattice rollout", lambda m: (
+                pbatch.make_sharded_pallas_rollout(
+                    spec5, cfg5, 1 / 60 / cfg5.substeps, SHARD_SUBSTEPS, m,
+                    nb5)), start5),
+            ("mesh farm rollout", lambda m: (
+                pbatch.make_sharded_mesh_pallas_rollout(
+                    ftopo, fcfg, fdt_sub, SHARD_SUBSTEPS, m, FARM_BODIES)),
+             farm)):
+        one, d1 = sharded(make, start, 1)
+        four, d4 = sharded(make, start, SHARDS)
+        same = all(torch.equal(getattr(one, k), getattr(four, k))
+                   for k in ("positions", "velocities", "lambda_dist"))
+        diag_ok = (d1[0] == d4[0] and d1[1] == d4[1] == 0 and d1[3] == d4[3]
+                   and abs(d1[2] - d4[2]) <= 1e-6 * abs(d1[2]))
+        print(f"# {what}: {SHARDS} shards on one card equal one shard to "
+              f"the bit: {same}; diagnostics (vmax, bad, height, on ground) "
+              f"one shard {d1}, {SHARDS} shards {d4}")
+        if not (same and diag_ok):
+            raise RuntimeError(f"sharded {what} differs from one shard")
+    print(f"# time: phase 31 took {time.perf_counter() - t0:.1f} s")
+
+    # 32. throughput: each ensemble, its plain twin, the single-body kernel
+    # looped over its bodies
+    t0 = time.perf_counter()
+    results = {}
+
+    def loop_of(runner, start, rows):
+        bodies = [body_of(start, i) for i in rows]
+        return lambda: [runner(b) for b in bodies]
+
+    for key, spec_runs, n_bodies_, n_part in (
+            ("lattice", lambda: {
+                "plain": (lambda: lat.run_substeps_plain_batched(
+                    start5, spec5, cfg5, 1 / 240, 20), 20),
+                "ensemble": (lambda e=lc.make_cuda_substep_runner(
+                    spec5, cfg5, 1 / 240, 480, n_bodies=nb5): e(start5),
+                    480),
+                "loop": (loop_of(lc.make_cuda_substep_runner(
+                    spec5, cfg5, 1 / 240, 4), start5, range(nb5)), 4)},
+             nb5, n5),
+            ("mesh", lambda: {
+                "plain": (lambda: general.run_substeps_plain_batched(
+                    farm, ftopo, fcfg, fdt_sub, 4), 4),
+                "ensemble": (lambda e=mc.make_mesh_cuda_substep_runner(
+                    ftopo, fcfg, fdt_sub, 400, n_bodies=FARM_BODIES):
+                    e(farm), 400),
+                "loop": (loop_of(mc.make_mesh_cuda_substep_runner(
+                    ftopo, fcfg, fdt_sub, 40), farm, range(FARM_BODIES)),
+                    40)}, FARM_BODIES, ftopo.n_particles),
+            ("contact", lambda: {
+                "plain": (lambda: general.run_substeps_plain_batched(
+                    cout, ctopo, ccfg, cdt / ccfg.substeps, 1), 1),
+                "ensemble": (lambda e=mc.make_mesh_cuda_substep_runner(
+                    ctopo, ccfg, cdt / ccfg.substeps, 60,
+                    n_bodies=CONTACT_FARM_BODIES): e(cout), 60),
+                "loop": (loop_of(mc.make_mesh_cuda_substep_runner(
+                    ctopo, ccfg, cdt / ccfg.substeps, 6), cout,
+                    range(CONTACT_FARM_BODIES)), 6)},
+             CONTACT_FARM_BODIES, ctopo.n_particles)):
+        runs = spec_runs()
+        counter = lc if key == "lattice" else mc
+        per_sub = {}
+        for name in ("ensemble", "loop"):
+            counter.launches = 0
+            runs[name][0]()
+            per_sub[name] = counter.launches / runs[name][1] / (
+                1 if name == "ensemble" else n_bodies_)
+        times, reps = timed_windows(torch, runs, min_s=0.5)
+        total = n_bodies_ * n_part
+        best = {k: min(v) for k, v in times.items()}
+        for k in runs:
+            print(f"# throughput {key} ensemble ({smi}), {k}: best "
+                  f"{best[k]:.5f} ms/substep = {total / best[k] * 1e3:.4e} "
+                  f"particle-substeps/s (windows in turn order: {times[k]}, "
+                  f"{reps[k]} calls each)")
+        print(f"# {key} ensemble launches a substep: {per_sub['ensemble']:.3f}"
+              f" for {n_bodies_} bodies, {per_sub['loop']:.3f} for one body; "
+              f"the ensemble {best['loop'] / best['ensemble']:.1f}x the loop")
+        if per_sub["ensemble"] != per_sub["loop"]:
+            raise RuntimeError(f"{key} ensemble launches grow with bodies")
+        results[key] = (best, times, per_sub)
+    print(f"# time: phase 32 took {time.perf_counter() - t0:.1f} s")
+
+    lat_bound = bound_ms(*[nb5 * x for x in lattice_work(spec5, cfg5)])
+    mesh_bound = bound_ms(*mesh_work(ftopo, fcfg, bodies=FARM_BODIES))
+    contact_bound = bound_ms(*mesh_work(ctopo, ccfg,
+                                        bodies=CONTACT_FARM_BODIES))
+    lb, mb, cb = (results[k][0] for k in ("lattice", "mesh", "contact"))
+    print(f"# ensemble bounds ({smi}): example 5 {lat_bound[0]:.5f} ms "
+          f"({lat_bound[1]}), B-1 ensemble at {lb['ensemble'] / lat_bound[0]:.1f}"
+          f"x; mesh farm {mesh_bound[0]:.5f} ms ({mesh_bound[1]}), B-3 at "
+          f"{mb['ensemble'] / mesh_bound[0]:.1f}x; contact farm "
+          f"{contact_bound[0]:.5f} ms ({contact_bound[1]}, contact passes "
+          f"not counted)")
+    kernels = [{
+        "name": "lattice_xpbd_ensemble",
+        "route": "cuda",
+        "source": "softbodysimulation_tpu_torch/csrc/lattice_xpbd.cu",
+        "replaces": "softbodysimulation_tpu/kernels/lattice_pallas.py:501",
+        "launches": ex5_launches,
+        "max_abs_err": max(lat_err, ex5_drift),
+        "ms": lb["ensemble"],
+        "plain_ms": lb["plain"],
+        "bound_ms": lat_bound[0],
+        "bound_by": lat_bound[1],
+        "library_ms": None,
+        "bodies": nb5,
+        "loop_ms": lb["loop"],
+        "launches_per_substep": results["lattice"][2]["ensemble"],
+    }, {
+        "name": "mesh_xpbd_ensemble",
+        "route": "cuda",
+        "source": "softbodysimulation_tpu_torch/csrc/mesh_xpbd.cu",
+        "replaces": "softbodysimulation_tpu/kernels/mesh_pallas.py:789",
+        "launches": farm_launches,
+        "max_abs_err": mesh_err,
+        "ms": mb["ensemble"],
+        "plain_ms": mb["plain"],
+        "bound_ms": mesh_bound[0],
+        "bound_by": mesh_bound[1],
+        "library_ms": None,
+        "bodies": FARM_BODIES,
+        "loop_ms": mb["loop"],
+        "launches_per_substep": results["mesh"][2]["ensemble"],
+        "contact_farm_ms": cb["ensemble"],
+        "contact_farm_plain_ms": cb["plain"],
+        "contact_farm_loop_ms": cb["loop"],
+        "contact_farm_launches": contact_launches,
+        "grad_rel_err": grad_err,
+        "grad_fd_rel_err": {k: {"float64": v[0], "float32": v[1]}
+                            for k, v in witness.items()},
+    }]
+    profile = [(lc.make_cuda_substep_runner(spec5, cfg5, 1 / 240, 200,
+                                            n_bodies=nb5), start5),
+               (mc.make_mesh_cuda_substep_runner(
+                   ftopo, fcfg, fdt_sub, 200, n_bodies=FARM_BODIES), farm)]
+    return {"kernels": kernels, "profile": profile}
+
+
 def main() -> int:
     if "--f64-witness" in sys.argv[1:]:
         return f64_witness()
@@ -2027,7 +2595,7 @@ def main() -> int:
 
 
 def smoke(torch, witness) -> int:
-    """Phases 1-28 (module docstring)."""
+    """Phases 1-32 (module docstring)."""
     sys.path.insert(0, HERE)
     import numpy as np
 
@@ -2347,6 +2915,10 @@ def smoke(torch, witness) -> int:
     coll = collider_phases(torch, np, smi, is_finite)
     lap("26-28")
 
+    # 29-32. ensembles in B-1 and B-3
+    ensembles = ensemble_phases(torch, np, smi, is_finite)
+    lap("29-32")
+
     if "--profile" in sys.argv[1:]:
         profile_main_path(
             torch, lc.make_cuda_substep_runner(spec, cfg, dt_sub, 200),
@@ -2355,7 +2927,7 @@ def smoke(torch, witness) -> int:
             torch, mc.make_mesh_cuda_substep_runner(ctopo, ccfg, cdt_sub,
                                                     200), cstate)
         for run, st in (contact["profile"] + diff["profile"]
-                        + spatial["profile"]):
+                        + spatial["profile"] + ensembles["profile"]):
             profile_main_path(torch, run, st)
 
     lat_bound = bound_ms(*lattice_work(spec, cfg))
@@ -2442,7 +3014,7 @@ def smoke(torch, witness) -> int:
         "bound_by": spatial["bound"][1],
         "library_ms": None,
         "exchange_bytes_per_substep": spatial["exchange_bytes"],
-    }]}))
+    }] + ensembles["kernels"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

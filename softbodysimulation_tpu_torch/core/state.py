@@ -14,7 +14,10 @@ put their tensors on the card unless the caller asks for the CPU
 (``device="cpu"``); without a CUDA device they raise (``on_device``).
 ``colliders`` is ``None`` or a kinematic rigid world
 (``core/colliders.ColliderSet``) on the positions' device; ``_map``,
-``snapshot`` and ``restore`` carry it.  The
+``snapshot`` and ``restore`` carry it.  An ensemble is a state whose
+leaves carry a leading body axis (``LEAF_RANK``, ``body_of``,
+``stack_bodies``); every function here that maps leaves takes one as it
+is, one shared ColliderSet acting on every body.  The
 topology carries no one-hot window matrices (``windows``, ``bend_windows``,
 ``tet_windows``): they are a layout for the TPU's matrix unit, and the
 port's engines gather by index instead.
@@ -23,7 +26,7 @@ port's engines gather by index instead.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -94,12 +97,83 @@ def check_colliders(state: SimState):
                          f"(SimState.to)")
 
 
+# ---- ensembles: leaves with a leading body axis ---------------------------
+
+# a tensor leaf's rank in a one-body state; a leaf of one more dimension
+# carries a leading body axis (JAX ``kernels/diff.py:_LEAF_RANK``).  An
+# ensemble's dynamic leaves are always batched; ``inv_mass`` may stay a
+# shared ``(N,)`` leaf (the JAX mesh ensemble's default,
+# ``mesh_pallas.py:814-830``), and ``lambda_volume`` a shared scalar.
+LEAF_RANK = {"positions": 2, "velocities": 2, "inv_mass": 1,
+             "ext_force": 2, "lambda_dist": 1, "lambda_bend": 1,
+             "lambda_volume": 0, "lambda_tet": 1}
+
+
+def body_count(state: SimState) -> int:
+    """The body count of a batched state (positions ``(B, N, 3)``)."""
+    if state.positions.ndim != 3:
+        raise ValueError(f"not a batched state: positions have shape "
+                         f"{tuple(state.positions.shape)}")
+    return state.positions.shape[0]
+
+
+def shared_leaves(state: SimState) -> Tuple[str, ...]:
+    """The leaves of a batched state that lack the body axis (shared by
+    every body)."""
+    return tuple(k for k, r in LEAF_RANK.items()
+                 if getattr(state, k) is not None
+                 and getattr(state, k).ndim == r)
+
+
+def body_of(state: SimState, i: int) -> SimState:
+    """Body ``i`` of a batched state as a one-body state: its row of every
+    batched leaf, the shared leaves and the ColliderSet as they are."""
+    shared = shared_leaves(state)
+    return state.replace(**{k: getattr(state, k)[i] for k in LEAF_RANK
+                            if getattr(state, k) is not None
+                            and k not in shared})
+
+
+def stack_bodies(like: SimState, bodies) -> SimState:
+    """The one-body states ``bodies`` as one batched state: every leaf that
+    is batched in ``like`` stacked along a new leading axis, the leaves
+    ``like`` shares kept from ``like`` (``body_of``'s inverse)."""
+    shared = shared_leaves(like)
+    return like.replace(**{
+        k: torch.stack([getattr(b, k) for b in bodies]) for k in LEAF_RANK
+        if getattr(like, k) is not None and k not in shared})
+
+
+def body_contract(n_bodies: int, batched) -> bool:
+    """Whether a runner for ``n_bodies`` takes batched ``(B, ...)`` leaves:
+    ``batched=None`` means iff ``n_bodies > 1``; ``batched=True`` at one
+    body is a one-body shard of an ensemble (``mesh_pallas.py:846-852``)."""
+    if n_bodies < 1:
+        raise ValueError("n_bodies must be >= 1")
+    if batched is None:
+        return n_bodies > 1
+    if not batched and n_bodies > 1:
+        raise ValueError("n_bodies > 1 requires the batched contract")
+    return bool(batched)
+
+
+def check_bodies(state: SimState, count: int, who: str):
+    """Refuse, at call time, a state that is not a batch of ``count``
+    bodies."""
+    if state.positions.ndim != 3 or state.positions.shape[0] != count:
+        raise ValueError(f"{who}: built for {count} bodies, got positions "
+                         f"of shape {tuple(state.positions.shape)}")
+
+
 def state_from_numpy(fields: Dict[str, Any], device="cuda") -> SimState:
     """Build a state from a mapping of field name -> array-like (for example
     ``{k: np.asarray(getattr(jax_state, k)) ...}``).  ``lambda_tet`` may be
     missing or None; ``colliders`` may be missing, None, or a mapping of
     the five ColliderSet fields (``core/colliders.FIELDS``) to array-likes,
-    such as a JAX ColliderSet's leaves as numpy."""
+    such as a JAX ColliderSet's leaves as numpy.  The leaves of a batched
+    state carry a leading body axis ``(B, ...)``, as a JAX ensemble's do
+    (``inv_mass`` shared ``(N,)`` or per body ``(B, N)``); they cross
+    unchanged."""
     from . import colliders as _colliders
 
     device = on_device(device, "state_from_numpy")

@@ -16,6 +16,19 @@
 // and the family's validity mask, computed from integer coordinates, kills
 // the wrapped constraints exactly as it does there.
 //
+// Ensembles (lattice_pallas.py n_bodies > 1, :545, :692, :868,
+// :1596-1641): B bodies of one spec lie one after another, particle l of
+// body b at a = b * res^3 + l in every plane (x, v, pred, w, ext, each
+// lambda plane, the tet planes), so n = B * res^3 threads run one launch
+// per pass for the whole ensemble.  cell_of and shift_cell take a
+// particle's coordinates within its body, and its neighbours with the
+// rolls' wrap inside that body: the CUDA form of the TPU kernel's lane
+// index taken mod res^2.  The family masks and the tet tables are the one
+// body's, so no pass reads across a body boundary, and each body's
+// arithmetic is the single-body kernel's to the bit.  The collider table
+// is shared: every body sees the same rigid world.  The TPU kernel's
+// 128-lane padding has no counterpart.
+//
 // Each substep is one launch per pass on the caller's stream, with no host
 // sync inside the loop:
 //   predict (gravity, first-substep ext force, damping, clamps) with the
@@ -72,34 +85,41 @@
 #define TET_VALID 73
 #define TET_PLANES 74
 
+// A particle of an ensemble of bodies stored one after another (body b's
+// particle l at a = b * body_n + l), and its lattice coordinates within
+// its body.
 struct Cell {
-  int a, x, c, y, z;
+  int a, base, x, c, y, z;
 };
 
 __device__ __forceinline__ Cell cell_of(const LatticeParams& p, int a) {
   const int r2 = p.res * p.res;
   Cell q;
   q.a = a;
-  q.x = a / r2;
-  q.c = a - q.x * r2;
+  q.base = (a / p.body_n) * p.body_n;
+  const int l = a - q.base;
+  q.x = l / r2;
+  q.c = l - q.x * r2;
   q.y = q.c / p.res;
   q.z = q.c - q.y * p.res;
   return q;
 }
 
-// Roll-consistent neighbour at offset step * (dx, dy, dz): x mod res, the
-// lane y*res+z mod res^2, as the plain engine's rolls wrap.
+// Roll-consistent neighbour at offset step * (dx, dy, dz) in the same
+// body: x mod res, the lane y*res+z mod res^2, as the plain engine's rolls
+// wrap, so no pass reads across a body boundary.
 __device__ __forceinline__ Cell shift_cell(const LatticeParams& p,
                                            const Cell& q, int dx, int dy,
                                            int dz, int step) {
   const int res = p.res, r2 = res * res;
   const int k = dy * res + dz;
   Cell o;
+  o.base = q.base;
   o.x = (q.x + step * dx + res) % res;
   o.c = (q.c + step * k + r2) % r2;
   o.y = o.c / res;
   o.z = o.c - o.y * res;
-  o.a = o.x * r2 + o.c;
+  o.a = q.base + o.x * r2 + o.c;
   return o;
 }
 
@@ -426,8 +446,8 @@ int lattice_xpbd_run(const LatticeParams* hp, int device, float* x, float* v,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (p.nfam > LX_MAX_FAM || p.n_spheres > LX_MAX_SPHERES ||
-      p.n_boxes > LX_MAX_BOXES || !colliders ||
-      (p.tets && (!lam_t || !tet_terms)))
+      p.n_boxes > LX_MAX_BOXES || !colliders || p.body_n <= 0 ||
+      p.n % p.body_n != 0 || (p.tets && (!lam_t || !tet_terms)))
     return (int)cudaErrorInvalidValue;
 
   const dim3 grid((p.n + LX_THREADS - 1) / LX_THREADS);

@@ -20,7 +20,8 @@
 // Every field is 4 bytes wide, so the ctypes mirror has no padding.
 struct LatticeParams {
   int res;
-  int n;             // particles: res^3 (a slab's P*res^2 in B-6)
+  int n;             // particles: res^3, B * res^3 for an ensemble of B
+                     // bodies (a slab's P*res^2 in B-6)
   int nfam;
   int iterations;
   int colored;       // SolveMode.COLORED (else JACOBI)
@@ -66,6 +67,8 @@ struct LatticeParams {
   float tet_alpha;           // tet_compliance / dt^2
   float tet_target;          // tet_pressure * 6 x rest volume
   float tet_omega;           // omega if > 0 else 1
+  int body_n;                // particles of one body (res^3): an ensemble
+                             // of B bodies runs n = B * body_n threads
 };
 
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {

@@ -15,8 +15,8 @@
 // solvers/general.py::_substep -- and none of its TPU machinery: no signed
 // one-hot gather/scatter matrices, no bf16 split compensation, no window
 // bases, no VMEM budget, and acosf in place of the polynomial Mosaic
-// needed.  The global volume constraint and ensembles are refused by the
-// wrapper (kernels/mesh_cuda.py); traced materials are per-call rest and
+// needed.  The global volume constraint is refused by the wrapper
+// (kernels/mesh_cuda.py); traced materials are per-call rest and
 // alpha buffers; the spheres and boxes (the config's, or a ColliderSet's
 // traced poses, velocities and ground: mesh_pallas.py:881-898,
 // :1566-1590) come from the collider table of colliders.cuh, read by every
@@ -30,6 +30,20 @@
 // are uploaded once per device by the wrapper, the incidence tables as CSR
 // rows (the topology's padded rows without their pads, in the same column
 // order, so the sums are unchanged).
+//
+// Ensembles (mesh_pallas.py n_bodies > 1, :814-861, :1405-1422,
+// :1921-2001): B instances of one topology lie one after another in every
+// per-body buffer (x, v, pred, ext, the multipliers, the contribution
+// buffers, the dense pass's scratch; the inverse masses with per_body_mass,
+// rest and alpha with (B, E) materials).  Every launch carries one row of
+// blocks per body (blockIdx.y), and each kernel first takes its body's
+// view (body_buffers), so a substep costs the launches of one body and each
+// body's arithmetic, sums in CSR column order and dense-contact mean
+// included, is the single-body kernel's to the bit.  The per-edge,
+// per-hinge and per-tet tables are shared.  Dense self-collision is
+// body-local: one mean and one Gram sweep per body, so no pair crosses
+// bodies.  The blocked pass (B-4) takes one body only.  The TPU kernel's
+// 8-sublane padding of the body axis has no counterpart.
 //
 // One launch per pass on the caller's stream, no host sync in the loop:
 //   predict (+ the lambda lifecycle of all three families);
@@ -150,8 +164,9 @@ __device__ float bending_dl(const MeshParams& p, float pp[4][3],
 // The lambda lifecycle of the three families, and predict (gravity, the
 // first substep's ext force, damping, clamps).  Grid: max(N, E, H, T)
 // threads.
-__global__ void predict_kernel(MeshParams p, MeshBuffers b, int use_ext,
+__global__ void predict_kernel(MeshParams p, MeshBuffers bb, int use_ext,
                                int save) {
+  const MeshBuffers b = body_buffers(p, bb);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < p.n_edges)
     b.lam[i] = p.lambda_mode == 0 ? 0.f : b.lam[i] * p.lambda_decay;
@@ -178,7 +193,8 @@ __global__ void predict_kernel(MeshParams p, MeshBuffers b, int use_ext,
 // One thread per edge: the JACOBI projection (warm = 0) or the WARM_START
 // pre-apply (warm = 1) of the edge, its lambda updated in place and its two
 // position contributions written to contrib rows e (a side) and E + e.
-__global__ void edge_kernel(MeshParams p, MeshBuffers b, int warm) {
+__global__ void edge_kernel(MeshParams p, MeshBuffers bb, int warm) {
+  const MeshBuffers b = body_buffers(p, bb);
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= p.n_edges) return;
   const int n = p.n, ne = p.n_edges;
@@ -215,7 +231,8 @@ __global__ void edge_kernel(MeshParams p, MeshBuffers b, int warm) {
 
 // One thread per hinge: the JACOBI projection; contributions in rows
 // k*H + h for endpoint k.
-__global__ void hinge_kernel(MeshParams p, MeshBuffers b) {
+__global__ void hinge_kernel(MeshParams p, MeshBuffers bb) {
+  const MeshBuffers b = body_buffers(p, bb);
   const int h = blockIdx.x * blockDim.x + threadIdx.x;
   if (h >= p.n_hinges) return;
   const int n = p.n, nh = p.n_hinges;
@@ -238,8 +255,9 @@ __global__ void hinge_kernel(MeshParams p, MeshBuffers b) {
 // colour pass (every pass but the first of a substep's first iteration),
 // as general._solve_distance_colored clamps the whole array after each
 // colour.
-__global__ void edge_color_kernel(MeshParams p, MeshBuffers b, int color,
+__global__ void edge_color_kernel(MeshParams p, MeshBuffers bb, int color,
                                   int clamp_in) {
+  const MeshBuffers b = body_buffers(p, bb);
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= p.col_width) return;
   const size_t slot = (size_t)color * p.col_width + s;
@@ -271,7 +289,8 @@ __global__ void edge_color_kernel(MeshParams p, MeshBuffers b, int color,
 }
 
 // COLORED: one thread per slot of hinge colour `color`; exact in place.
-__global__ void hinge_color_kernel(MeshParams p, MeshBuffers b, int color) {
+__global__ void hinge_color_kernel(MeshParams p, MeshBuffers bb, int color) {
+  const MeshBuffers b = body_buffers(p, bb);
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= p.bcol_width) return;
   const size_t slot = (size_t)color * p.bcol_width + s;
@@ -322,7 +341,8 @@ __device__ float tet_dl(const MeshParams& p, float pp[4][3], const float w[4],
 
 // One thread per tet: the mass-splitting JACOBI projection at full strength
 // times omega; contributions in rows k*T + t for endpoint k.
-__global__ void tet_kernel(MeshParams p, MeshBuffers b) {
+__global__ void tet_kernel(MeshParams p, MeshBuffers bb) {
+  const MeshBuffers b = body_buffers(p, bb);
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= p.n_tets) return;
   const int n = p.n, nt = p.n_tets;
@@ -341,7 +361,8 @@ __global__ void tet_kernel(MeshParams p, MeshBuffers b) {
 }
 
 // COLORED: one thread per slot of tet colour `color`; exact in place.
-__global__ void tet_color_kernel(MeshParams p, MeshBuffers b, int color) {
+__global__ void tet_color_kernel(MeshParams p, MeshBuffers bb, int color) {
+  const MeshBuffers b = body_buffers(p, bb);
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= p.tcol_width) return;
   const size_t slot = (size_t)color * p.tcol_width + s;
@@ -365,7 +386,8 @@ __global__ void tet_color_kernel(MeshParams p, MeshBuffers b, int color) {
 }
 
 // Dense self-collision, pass 1 of 2: the mean of pred, in one block.
-__global__ void sc_mean_kernel(MeshParams p, MeshBuffers b) {
+__global__ void sc_mean_kernel(MeshParams p, MeshBuffers bb) {
+  const MeshBuffers b = body_buffers(p, bb);
   __shared__ float s_sum[3][MX_THREADS];
   const int t = threadIdx.x;
   for (int c = 0; c < 3; ++c) {
@@ -389,7 +411,8 @@ __global__ void sc_mean_kernel(MeshParams p, MeshBuffers b) {
 // per row particle against all N particles, staged in shared memory tiles;
 // the pair arithmetic of the blocked pass (contact_xpbd.cu) on positions
 // centred by the mean; the correction goes to sc_corr.
-__global__ void dense_pair_kernel(MeshParams p, MeshBuffers b) {
+__global__ void dense_pair_kernel(MeshParams p, MeshBuffers bb) {
+  const MeshBuffers b = body_buffers(p, bb);
   __shared__ float sx[MX_THREADS], sy[MX_THREADS], sz[MX_THREADS];
   __shared__ float ssq[MX_THREADS], sw[MX_THREADS];
   const int n = p.n;
@@ -447,8 +470,11 @@ __global__ void dense_pair_kernel(MeshParams p, MeshBuffers b) {
 // or the self-collision correction (when given), then, as `flags` asks,
 // contacts, the Chebyshev step with weight om, saving the iteration's
 // start, and finalize.
-__global__ void particle_kernel(MeshParams p, MeshBuffers b, SumSource src,
+__global__ void particle_kernel(MeshParams p, MeshBuffers bb, SumSource src,
                                 CorrSource sc, int flags, float om) {
+  const MeshBuffers b = body_buffers(p, bb);
+  src.contrib = body_ptr(src.contrib, blockIdx.y * src.stride);
+  sc.corr = body_ptr(sc.corr, blockIdx.y * sc.stride);
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int n = p.n;
   if (t >= n) return;
@@ -557,7 +583,8 @@ int mesh_xpbd_run(const MeshParams* hp, const MeshBuffers* hb,
   if (err != cudaSuccess) return (int)err;
   if (p.n_spheres > MX_MAX_SPHERES || p.n_boxes > MX_MAX_BOXES ||
       !b.colliders || p.n <= 0 || p.n_edges <= 0 || p.sc_every < 1 ||
-      (p.sc_mode == 2 && !(cp && cb)))
+      p.n_bodies < 1 || p.n_bodies > 65535 ||
+      (p.sc_mode == 2 && (!(cp && cb) || p.n_bodies != 1)))
     return (int)cudaErrorInvalidValue;
 
 #define MX_CHECK()            \
@@ -571,7 +598,8 @@ int mesh_xpbd_run(const MeshParams* hp, const MeshBuffers* hb,
   } while (0)
 
   const dim3 block(MX_THREADS);
-  const dim3 g_part = grid_for(p.n);
+  const int nb = p.n_bodies;
+  const dim3 g_part = grid_for(p.n, nb);
   int g_all = p.n > p.n_edges ? p.n : p.n_edges;
   if (p.n_hinges > g_all) g_all = p.n_hinges;
   if (p.n_tets > g_all) g_all = p.n_tets;
@@ -582,36 +610,42 @@ int mesh_xpbd_run(const MeshParams* hp, const MeshBuffers* hb,
       (p.floor_mode == 1 || p.n_spheres > 0 || p.n_boxes > 0) ? PF_CONTACTS
                                                                : 0;
   const int save = p.accelerate ? PF_SAVE : 0;
-  const CorrSource no_corr = {nullptr, nullptr, 0};
-  const SumSource no_sum = {nullptr, nullptr, nullptr, nullptr};
-  const SumSource edge_sum = {b.contrib, b.inc_cols, b.inc_ptr, nullptr};
-  const SumSource bend_sum = {b.bcontrib, b.binc_cols, b.binc_ptr, nullptr};
-  const SumSource tet_sum = {b.tcontrib, b.tinc_cols, b.tinc_ptr, b.tdeg};
+  const CorrSource no_corr = {nullptr, nullptr, 0, 0};
+  const SumSource no_sum = {nullptr, nullptr, nullptr, nullptr, 0};
+  // each body's contributions follow the previous body's (body_buffers)
+  const SumSource edge_sum = {b.contrib, b.inc_cols, b.inc_ptr, nullptr,
+                              (size_t)6 * p.n_edges};
+  const SumSource bend_sum = {b.bcontrib, b.binc_cols, b.binc_ptr, nullptr,
+                              (size_t)3 * (p.n_hinges > 0 ? 4 * p.n_hinges
+                                                          : 1)};
+  const SumSource tet_sum = {b.tcontrib, b.tinc_cols, b.tinc_ptr, b.tdeg,
+                             (size_t)12 * p.n_tets};
   auto particles = [&](SumSource src, CorrSource sc, int flags, float w) {
     particle_kernel<<<g_part, block, 0, stream>>>(p, b, src, sc, flags, w);
   };
   // one self-collision pass over pred: its correction, and where it lies
   auto self_collision = [&](CorrSource* out) -> int {
     if (p.sc_mode == 1) {
-      sc_mean_kernel<<<1, MX_THREADS, 0, stream>>>(p, b);
+      // body-local: one mean block and one Gram sweep per body
+      sc_mean_kernel<<<dim3(1, nb), MX_THREADS, 0, stream>>>(p, b);
       MX_CHECK();
       dense_pair_kernel<<<g_part, block, 0, stream>>>(p, b);
       MX_CHECK();
-      *out = {b.sc_corr, nullptr, p.n};
+      *out = {b.sc_corr, nullptr, p.n, (size_t)3 * p.n};
       return 0;
     }
     const int rc = contact_xpbd_corr(cp, cb, n_contact, stream);
-    *out = {cb->corr, cb->order, cp->nb * cp->block};
+    *out = {cb->corr, cb->order, cp->nb * cp->block, 0};
     return rc;
   };
 
   for (int i = 0; i < n_substeps; ++i) {
     const bool contact = p.sc_mode != 0 && i % p.sc_every == 0;
-    predict_kernel<<<grid_for(g_all), block, 0, stream>>>(
+    predict_kernel<<<grid_for(g_all, nb), block, 0, stream>>>(
         p, b, ext_first && i == 0, save && !warm);
     MX_CHECK();
     if (warm) {
-      edge_kernel<<<grid_for(p.n_edges), block, 0, stream>>>(p, b, 1);
+      edge_kernel<<<grid_for(p.n_edges, nb), block, 0, stream>>>(p, b, 1);
       MX_CHECK();
       particles(edge_sum, no_corr, save, 0.f);
       MX_CHECK();
@@ -633,20 +667,20 @@ int mesh_xpbd_run(const MeshParams* hp, const MeshBuffers* hb,
       const int last = contact ? 0 : tail;
       if (p.colored) {
         for (int c = 0; c < p.n_colors; ++c) {
-          edge_color_kernel<<<grid_for(p.col_width), block, 0, stream>>>(
+          edge_color_kernel<<<grid_for(p.col_width, nb), block, 0, stream>>>(
               p, b, c, it > 0 || c > 0);
           MX_CHECK();
         }
         if (bending) {
           for (int c = 0; c < p.n_bend_colors; ++c) {
-            hinge_color_kernel<<<grid_for(p.bcol_width), block, 0,
+            hinge_color_kernel<<<grid_for(p.bcol_width, nb), block, 0,
                                  stream>>>(p, b, c);
             MX_CHECK();
           }
         }
         if (tets) {
           for (int c = 0; c < p.n_tet_colors; ++c) {
-            tet_color_kernel<<<grid_for(p.tcol_width), block, 0, stream>>>(
+            tet_color_kernel<<<grid_for(p.tcol_width, nb), block, 0, stream>>>(
                 p, b, c);
             MX_CHECK();
           }
@@ -656,18 +690,18 @@ int mesh_xpbd_run(const MeshParams* hp, const MeshBuffers* hb,
           MX_CHECK();
         }
       } else {
-        edge_kernel<<<grid_for(p.n_edges), block, 0, stream>>>(p, b, 0);
+        edge_kernel<<<grid_for(p.n_edges, nb), block, 0, stream>>>(p, b, 0);
         MX_CHECK();
         particles(edge_sum, no_corr, bending || tets ? 0 : last, om[it]);
         MX_CHECK();
         if (bending) {
-          hinge_kernel<<<grid_for(p.n_hinges), block, 0, stream>>>(p, b);
+          hinge_kernel<<<grid_for(p.n_hinges, nb), block, 0, stream>>>(p, b);
           MX_CHECK();
           particles(bend_sum, no_corr, tets ? 0 : last, om[it]);
           MX_CHECK();
         }
         if (tets) {
-          tet_kernel<<<grid_for(p.n_tets), block, 0, stream>>>(p, b);
+          tet_kernel<<<grid_for(p.n_tets, nb), block, 0, stream>>>(p, b);
           MX_CHECK();
           particles(tet_sum, no_corr, last, om[it]);
           MX_CHECK();

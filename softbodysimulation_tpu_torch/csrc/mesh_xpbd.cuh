@@ -69,9 +69,16 @@ struct MeshParams {
   float tet_pressure;
   float sc_omega;      // self_collision_omega
   float sc_diam;       // 2 * particle_radius
+  int n_bodies;        // bodies of an ensemble (blockIdx.y), 1 for one
+  int w_stride;        // floats between two bodies' inverse masses: 0 for
+                       // a shared (N) leaf, N for per-body masses
+  int mat_stride;      // floats between two bodies' rest and alpha: 0 for
+                       // shared materials, E for per-body (B, E) ones
 };
 
-// Device pointers, all 8 bytes wide.
+// Device pointers, all 8 bytes wide.  In an ensemble every per-body buffer
+// holds the bodies one after another (body_buffers gives one body's view);
+// the topology's tables are shared.
 struct MeshBuffers {
   float* x;            // (3, N)
   float* v;            // (3, N)
@@ -256,30 +263,70 @@ __device__ __forceinline__ void project_contacts(const MeshParams& p,
 
 // Where a particle pass takes a particle's constraint sum from: the
 // contribution buffer and its CSR incidence rows, the sum divided by
-// max(deg, 1) when deg is given.
+// max(deg, 1) when deg is given; body b's contributions start at
+// contrib + b * stride.
 struct SumSource {
   const float* contrib;
   const int* cols;
   const int* ptr;
   const float* deg;
+  size_t stride;
 };
 
 // Where a particle pass takes a self-collision correction from: thread t
-// applies omega * corr[c * ld + t] to particle perm[t] (or t).
+// applies omega * corr[c * ld + t] to particle perm[t] (or t); body b's
+// correction starts at corr + b * stride.
 struct CorrSource {
   const float* corr;
   const int* perm;
   int ld;
+  size_t stride;
 };
+
+template <typename T>
+__device__ __forceinline__ T* body_ptr(T* ptr, size_t offset) {
+  return ptr ? ptr + offset : ptr;
+}
+
+// Body blockIdx.y's view of the buffers of an ensemble (mesh_pallas.py's
+// n_bodies > 1): its planes, multipliers, contributions, self-collision
+// scratch and ext force; its inverse masses when they are per body
+// (w_stride), its rest lengths and alphas when the materials are
+// (mat_stride).  Body 0 of a one-body launch is the buffers themselves.
+__device__ __forceinline__ MeshBuffers body_buffers(const MeshParams& p,
+                                                    MeshBuffers b) {
+  const size_t body = blockIdx.y;
+  const size_t n3 = 3 * (size_t)p.n;
+  b.x = body_ptr(b.x, body * n3);
+  b.v = body_ptr(b.v, body * n3);
+  b.f = body_ptr(b.f, body * n3);
+  b.pred = body_ptr(b.pred, body * n3);
+  b.cur = body_ptr(b.cur, body * n3);
+  b.prev = body_ptr(b.prev, body * n3);
+  b.sc_corr = body_ptr(b.sc_corr, body * n3);
+  b.sc_stats = body_ptr(b.sc_stats, body * 3);
+  b.w = body_ptr(b.w, body * p.w_stride);
+  b.rest = body_ptr(b.rest, body * p.mat_stride);
+  b.alpha = body_ptr(b.alpha, body * p.mat_stride);
+  b.lam = body_ptr(b.lam, body * p.n_edges);
+  b.blam = body_ptr(b.blam, body * p.n_hinges);
+  b.tlam = body_ptr(b.tlam, body * p.n_tets);
+  b.contrib = body_ptr(b.contrib, body * 6 * p.n_edges);
+  b.bcontrib = body_ptr(b.bcontrib, body * 3 * max(4 * p.n_hinges, 1));
+  b.tcontrib = body_ptr(b.tcontrib, body * 12 * p.n_tets);
+  return b;
+}
 
 // The forward passes the fused backward (mesh_diff_xpbd.cu) replays, so
 // that its linearization point is the forward trajectory to the bit.
-__global__ void predict_kernel(MeshParams p, MeshBuffers b, int use_ext,
+// Each takes the whole ensemble's buffers and works on body blockIdx.y.
+__global__ void predict_kernel(MeshParams p, MeshBuffers bb, int use_ext,
                                int save);
-__global__ void edge_kernel(MeshParams p, MeshBuffers b, int warm);
-__global__ void particle_kernel(MeshParams p, MeshBuffers b, SumSource src,
+__global__ void edge_kernel(MeshParams p, MeshBuffers bb, int warm);
+__global__ void particle_kernel(MeshParams p, MeshBuffers bb, SumSource src,
                                 CorrSource sc, int flags, float om);
 
-static inline dim3 grid_for(int count) {
-  return dim3((count + MX_THREADS - 1) / MX_THREADS);
+// count threads on x, one row of blocks per body on y
+static inline dim3 grid_for(int count, int bodies = 1) {
+  return dim3((count + MX_THREADS - 1) / MX_THREADS, bodies);
 }

@@ -24,9 +24,9 @@ autograd through the plain engine), ``"fused"`` the hand-written B-5
 backward (``kernels/mesh_diff.py``), ``"auto"`` fused where its envelope
 covers the configuration, by the envelope alone.
 
-Not carried: the TPU layout keywords (``block_edges``, ``synth_gd``); the
-two ensemble runners raise ``NotImplementedError`` (the mesh kernel has no
-``n_bodies > 1``).
+The two ensemble runners pair the B-3 ensemble forward with autograd
+through the plain engine body by body (``_vmap_batched``).  Not carried:
+the TPU layout keywords (``block_edges``, ``synth_gd``).
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.colliders import FIELDS as _COLLIDER_FIELDS
 from ..core.colliders import ColliderSet
-from ..core.state import SimState
+from ..core.state import SimState, body_count, body_of, stack_bodies
 
 _LEAVES = ("positions", "velocities", "inv_mass", "ext_force", "lambda_dist",
            "lambda_bend", "lambda_volume", "lambda_tet")
@@ -342,10 +342,18 @@ def make_differentiable_material_runner(topo, cfg, dt_sub: float,
     return pair_with_vjp_params(kernel, plain)
 
 
-def _no_ensembles(what: str):
-    raise NotImplementedError(
-        f"{what}: ensembles (n_bodies > 1) are not ported -- the mesh "
-        "kernel carries one body (ROADMAP queue A)")
+def _vmap_batched(one, state: SimState, *args) -> SimState:
+    """The single-body rollout ``one`` over a batched state whose
+    contract-legal shared leaves lack the body axis (JAX
+    ``kernels/diff.py:339-355``): those leaves are broadcast for the
+    bodies, so their cotangents sum back over the bodies through autograd,
+    and come out with the shape they went in with.  ``one(state_i,
+    *args_i)`` runs body by body (a loop: the plain engines do not trace
+    under ``torch.func.vmap``); extra ``args`` carry the body axis."""
+    b = body_count(state)
+    bodies = [one(body_of(state, i), *(a[i] for a in args))
+              for i in range(b)]
+    return stack_bodies(state, bodies)
 
 
 def make_differentiable_material_ensemble_runner(topo, cfg, dt_sub: float,
@@ -353,13 +361,63 @@ def make_differentiable_material_ensemble_runner(topo, cfg, dt_sub: float,
                                                  n_bodies: int,
                                                  remat_chunk: int = 0,
                                                  **kernel_kw):
-    """Per-body materials over a batched farm: not ported (raises)."""
-    _no_ensembles("make_differentiable_material_ensemble_runner")
+    """Differentiable heterogeneous-material farm (JAX ``diff.py:357-395``):
+    ``fn(state, materials)`` with batched ``(B, ...)`` state leaves (a
+    shared ``(N,)`` inv_mass) and per-body ``(B, E)`` ``rest_lengths`` /
+    ``compliance`` (or shared ``(E,)`` ones).  The forward runs the B-3
+    ensemble with them (every body in one launch a pass on the card); the
+    backward is autograd through the plain engine body by body
+    (``_vmap_batched``), so gradients come back per body, and a shared
+    leaf's (inv_mass, shared materials) summed over the bodies.  ``remat_chunk`` bounds the backward's memory
+    (``_substep_rollout``)."""
+    _guard_exact_forward(kernel_kw)
+    _check_chunk(n_substeps, remat_chunk)
+    _check_cadence(cfg, remat_chunk, n_substeps)
+    from ..solvers import general
+    from . import mesh_cuda
+
+    kernel = mesh_cuda.make_mesh_cuda_substep_runner(
+        topo, cfg, dt_sub, n_substeps, n_bodies=n_bodies, batched=True,
+        **kernel_kw)
+    roll = _substep_rollout(
+        lambda s, p, k: general.run_substeps_plain(s, topo, cfg, dt_sub, k,
+                                                   materials=p),
+        n_substeps, remat_chunk)
+
+    def plain(state, materials):
+        # shared (E,) materials broadcast to the bodies, so their
+        # cotangent sums over them
+        b = body_count(state)
+        rest, comp = (m if m.ndim == 2 else m.expand(b, -1)
+                      for m in (materials["rest_lengths"],
+                                materials["compliance"]))
+        return _vmap_batched(
+            lambda s, r, c: roll(s, {"rest_lengths": r, "compliance": c}),
+            state, rest, comp)
+
+    return pair_with_vjp_params(kernel, plain)
 
 
 def make_differentiable_mesh_ensemble_runner(topo, cfg, dt_sub: float,
                                              n_substeps: int, n_bodies: int,
                                              remat_chunk: int = 0,
                                              **kernel_kw):
-    """Per-body masses over a batched farm: not ported (raises)."""
-    _no_ensembles("make_differentiable_mesh_ensemble_runner")
+    """Differentiable heterogeneous mesh farm (JAX ``diff.py:398-430``):
+    the B-3 ensemble forward with ``per_body_mass=True`` (``inv_mass`` a
+    per-body ``(B, N)`` leaf; replicate it for a homogeneous farm), the
+    backward autograd through the plain engine body by body, so gradients
+    reach every batched leaf, the per-body masses included (system
+    identification)."""
+    _guard_exact_forward(kernel_kw)
+    _check_chunk(n_substeps, remat_chunk)
+    _check_cadence(cfg, remat_chunk, n_substeps)
+    from ..solvers import general
+    from . import mesh_cuda
+
+    kernel = mesh_cuda.make_mesh_cuda_substep_runner(
+        topo, cfg, dt_sub, n_substeps, n_bodies=n_bodies, batched=True,
+        per_body_mass=True, **kernel_kw)
+    roll = _substep_rollout(
+        lambda s, p, k: general.run_substeps_plain(s, topo, cfg, dt_sub, k),
+        n_substeps, remat_chunk)
+    return pair_with_vjp(kernel, lambda state: _vmap_batched(roll, state))

@@ -34,7 +34,7 @@ import torch
 from ..core.colliders import check_kin
 from ..core.config import (DampingMode, FloorMode, LambdaMode, SolveMode,
                            SolverConfig)
-from ..core.state import SimState
+from ..core.state import SimState, body_contract, check_bodies
 from ..ops import collision as _collision
 from ..solvers import lattice as _lat
 from ..topology.lattice import LatticeSpec
@@ -87,7 +87,7 @@ class LatticeParams(ctypes.Structure):
         ("tets", ctypes.c_int),
         ("tet_off", ((ctypes.c_int * 3) * 3) * 6),
         ("tet_alpha", ctypes.c_float), ("tet_target", ctypes.c_float),
-        ("tet_omega", ctypes.c_float),
+        ("tet_omega", ctypes.c_float), ("body_n", ctypes.c_int),
     ]
 
 
@@ -98,19 +98,14 @@ _FLOOR_MODE = {FloorMode.NONE: 0, FloorMode.XPBD_INEQUALITY: 1,
 
 
 def _check_supported(cfg: SolverConfig, spec: LatticeSpec,
-                     approx_math: bool = False, n_bodies: int = 1,
-                     kin_colliders=None):
+                     approx_math: bool = False, kin_colliders=None):
     """Build-time refusals: the plain engine's, plus the kernel's options
     that are not ported and its fixed table sizes."""
     _lat.check_supported(cfg, spec)
     if approx_math:
         raise NotImplementedError(
             "lattice kernel: approx_math (rsqrt / approximate reciprocal) "
-            "is not ported")
-    if n_bodies != 1:
-        raise NotImplementedError(
-            "lattice kernel: lane-folded ensembles (n_bodies > 1) are not "
-            "ported")
+            "is not ported (ROADMAP A-4)")
     if spec.n_families > MAX_FAM:
         raise NotImplementedError(
             f"lattice kernel: at most {MAX_FAM} offset families")
@@ -129,7 +124,7 @@ def make_params(spec: LatticeSpec, cfg: SolverConfig,
     collider counts are a launch's (``run_substeps_cuda``)."""
     p = LatticeParams()
     p.res = spec.res
-    p.n = spec.n_particles
+    p.n = p.body_n = spec.n_particles
     p.nfam = spec.n_families
     p.iterations = cfg.iterations
     p.colored = int(cfg.solve_mode == SolveMode.COLORED)
@@ -219,13 +214,58 @@ def _ptr(name: str, t: torch.Tensor, shape, device) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _planes(t: torch.Tensor, b: int) -> torch.Tensor:
+    """(B, N, 3) body leaves -> a fresh (3, B*N) structure of arrays, body
+    after body in each plane."""
+    return t.reshape(b, -1, 3).permute(2, 0, 1).reshape(3, -1).contiguous()
+
+
+def _unplanes(a: torch.Tensor, b: int) -> torch.Tensor:
+    return a.view(3, b, -1).permute(1, 2, 0).contiguous()
+
+
+def _rows(t: torch.Tensor, k: int, b: int) -> torch.Tensor:
+    """(B, k*N) multipliers -> a fresh (k, B*N) buffer: family f's plane
+    holds every body's multipliers of f, body after body."""
+    out = torch.empty((k, t.numel() // k), dtype=t.dtype, device=t.device)
+    out.view(k, b, -1).copy_(t.reshape(b, k, -1).permute(1, 0, 2))
+    return out
+
+
+def _unrows(a: torch.Tensor, k: int, b: int) -> torch.Tensor:
+    return a.view(k, b, -1).permute(1, 0, 2).reshape(b, -1)
+
+
+def _check_leaves(state: SimState, spec: LatticeSpec, b, batched: bool):
+    """Refuse state leaves whose shapes are not the runner's contract:
+    one body's ``(N, 3)`` leaves, or, ``batched``, ``(B, N, 3)`` with a
+    shared ``(N,)`` or a per-body ``(B, N)`` ``inv_mass``."""
+    n, lead = spec.n_particles, ((b,) if batched else ())
+    want = {"positions": lead + (n, 3), "velocities": lead + (n, 3),
+            "ext_force": lead + (n, 3),
+            "lambda_dist": lead + (spec.n_families * n,)}
+    if state.lambda_tet is not None:
+        want["lambda_tet"] = lead + (6 * n,)
+    for k, shape in want.items():
+        if tuple(getattr(state, k).shape) != shape:
+            raise ValueError(f"lattice kernel: {k} has shape "
+                             f"{tuple(getattr(state, k).shape)}, expected "
+                             f"{shape}")
+    if tuple(state.inv_mass.shape) not in {(n,), lead + (n,)}:
+        raise ValueError(f"lattice kernel: inv_mass has shape "
+                         f"{tuple(state.inv_mass.shape)}, expected ({n},) "
+                         f"or {lead + (n,)}")
+
+
 def run_substeps_cuda(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
                       dt_sub: float, n_substeps: int,
-                      with_ext: bool = False) -> SimState:
+                      with_ext: bool = False,
+                      batched: bool = False) -> SimState:
     """Launch the kernel for ``n_substeps`` substeps of a CUDA state; the
-    semantics of ``solvers.lattice.run_substeps_plain``, the state's
-    ColliderSet (if any) replacing the config's rigid world.  No host
-    sync."""
+    semantics of ``solvers.lattice.run_substeps_plain`` (``batched``: of
+    ``run_substeps_plain_batched``, all bodies in one launch a pass), the
+    state's ColliderSet (if any) replacing the config's rigid world.  No
+    host sync."""
     global launches
     _lat.check_state(state, cfg)
     dev = state.device
@@ -234,21 +274,25 @@ def run_substeps_cuda(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
     _check_supported(cfg, spec, kin_colliders=rows)
     if dev.type != "cuda":
         raise ValueError(f"lattice kernel: state on {dev}, not CUDA")
-    n, nfam = spec.n_particles, spec.n_families
-    # (N, 3) -> (3, N) structure of arrays, once per call (as _to_grid)
-    x = state.positions.t().contiguous()
-    v = state.velocities.t().contiguous()
-    w = state.inv_mass
-    f = state.ext_force.t().contiguous()
-    lam = state.lambda_dist.clone()
+    b = state.positions.shape[0] if batched else 1
+    _check_leaves(state, spec, b, batched)
+    n1, nfam = spec.n_particles, spec.n_families
+    n = b * n1
+    # body leaves -> (3, B*N) planes and (k, B*N) multiplier planes, once
+    # per call (as _to_grid); the kernel updates them in place
+    x = _planes(state.positions, b)
+    v = _planes(state.velocities, b)
+    w = state.inv_mass.expand(b, n1).reshape(n).contiguous()
+    f = _planes(state.ext_force, b)
+    lam = _rows(state.lambda_dist, nfam, b)
     lam_scratch = torch.empty_like(lam)
     pred_a = torch.empty((3, n), dtype=torch.float32, device=dev)
     pred_b = torch.empty_like(pred_a)
     lam_t = None
     lam_t_ptr = terms_ptr = ctypes.c_void_p(None)
     if state.lambda_tet is not None:
-        lam_t = state.lambda_tet.clone()
-        lam_t_ptr = _ptr("lambda_tet", lam_t, (6 * n,), dev)
+        lam_t = _rows(state.lambda_tet, 6, b)
+        lam_t_ptr = _ptr("lambda_tet", lam_t, (6, n), dev)
     if cfg.enable_tet_volume:
         # the tet sweep's per-path endpoint terms (72 planes) and its tet
         # degree and valid-cell planes (csrc/lattice_xpbd.cu TET_PLANES)
@@ -260,13 +304,14 @@ def run_substeps_cuda(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
             _ptr("inv_mass", w, (n,), dev),
             _ptr("ext_force", f, (3, n), dev),
             ctypes.c_int(int(with_ext)),
-            _ptr("lambda_dist", lam, (nfam * n,), dev),
-            _ptr("lambda scratch", lam_scratch, (nfam * n,), dev),
+            _ptr("lambda_dist", lam, (nfam, n), dev),
+            _ptr("lambda scratch", lam_scratch, (nfam, n), dev),
             _ptr("pred", pred_a, (3, n), dev),
             _ptr("pred", pred_b, (3, n), dev), lam_t_ptr, terms_ptr,
             _ptr("colliders", world.table, (1 + sum(rows),
                                              _collision.KIN_W), dev)]
     params = make_params(spec, cfg, dt_sub)
+    params.n = n
     params.n_spheres, params.n_boxes = rows
     lib = _library()
     count = ctypes.c_longlong(0)
@@ -278,24 +323,32 @@ def run_substeps_cuda(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
     if rc != 0:
         msg = lib.lattice_xpbd_error_string(rc).decode()
         raise RuntimeError(f"lattice kernel launch failed: {msg} ({rc})")
-    out = state.replace(positions=x.t().contiguous(),
-                        velocities=v.t().contiguous(), lambda_dist=lam,
-                        lambda_tet=lam_t)
+
+    def body(t):
+        return t if batched else t[0]
+
+    out = state.replace(
+        positions=body(_unplanes(x, b)), velocities=body(_unplanes(v, b)),
+        lambda_dist=body(_unrows(lam, nfam, b)),
+        lambda_tet=None if lam_t is None else body(_unrows(lam_t, 6, b)))
     if with_ext:
         out = out.replace(ext_force=torch.zeros_like(state.ext_force))
     return out
 
 
 def advance(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
-            dt_sub: float, n_substeps: int, with_ext: bool) -> SimState:
-    """A CUDA state launches the kernel; a CPU state runs the plain engine;
-    any other device raises."""
+            dt_sub: float, n_substeps: int, with_ext: bool,
+            batched: bool = False) -> SimState:
+    """A CUDA state launches the kernel; a CPU state runs the plain engine
+    (``batched``: the lane-folded ensemble engine); any other device
+    raises."""
     if state.device.type == "cuda":
         return run_substeps_cuda(state, spec, cfg, dt_sub, n_substeps,
-                                 with_ext)
+                                 with_ext, batched)
     if state.device.type == "cpu":
-        return _lat.run_substeps_plain(state, spec, cfg, dt_sub, n_substeps,
-                                       with_ext)
+        plain = (_lat.run_substeps_plain_batched if batched
+                 else _lat.run_substeps_plain)
+        return plain(state, spec, cfg, dt_sub, n_substeps, with_ext)
     raise NotImplementedError(
         f"lattice kernel: no path for a state on {state.device}")
 
@@ -304,7 +357,7 @@ def make_cuda_substep_runner(spec: LatticeSpec, cfg: SolverConfig,
                              dt_sub: float, n_substeps: int,
                              with_ext: bool = False,
                              approx_math: bool = False, n_bodies: int = 1,
-                             kin_colliders=None):
+                             kin_colliders=None, batched=None):
     """``SimState -> SimState`` advancing ``n_substeps`` raw substeps.
     ``with_ext=False``: external forces are neither applied nor cleared
     (rollout semantics); ``with_ext=True``: ``state.ext_force`` is consumed
@@ -312,26 +365,40 @@ def make_cuda_substep_runner(spec: LatticeSpec, cfg: SolverConfig,
     ColliderSet of S spheres and B boxes replaces the config's rigid world,
     its poses read by every launch (checked at call time: ``check_kin``; a
     runner built without it refuses a state carrying colliders).
-    ``approx_math`` and ``n_bodies > 1`` are not ported and raise
-    ``NotImplementedError`` here, at build time."""
+
+    ``n_bodies > 1`` (or ``batched=True``, ``body_contract``): the
+    ensemble of ``make_pallas_substep_runner_streamed(..., n_bodies=B)``,
+    a state of batched leaves -- positions, velocities and ext_force
+    ``(B, N, 3)``, lambda_dist ``(B, nfam*N)``, lambda_tet ``(B, 6N)``,
+    inv_mass ``(B, N)`` or a shared ``(N,)`` -- whose bodies advance in one
+    launch a pass on a CUDA state (the lane-folded plain engine on a CPU
+    state), one shared ColliderSet acting on every body.
+    ``approx_math`` is not ported and raises ``NotImplementedError`` here,
+    at build time."""
     kin = None if kin_colliders is None else tuple(
         int(k) for k in kin_colliders)
-    _check_supported(cfg, spec, approx_math=approx_math, n_bodies=n_bodies,
-                     kin_colliders=kin)
+    batched = body_contract(n_bodies, batched)
+    _check_supported(cfg, spec, approx_math=approx_math, kin_colliders=kin)
 
     def fn(state: SimState) -> SimState:
         check_kin(kin, state.colliders, "lattice runner")
-        return advance(state, spec, cfg, dt_sub, n_substeps, with_ext)
+        if batched:
+            check_bodies(state, n_bodies, "lattice runner")
+        return advance(state, spec, cfg, dt_sub, n_substeps, with_ext,
+                       batched)
 
     return fn
 
 
 def make_cuda_step(spec: LatticeSpec, cfg: SolverConfig, dt: float,
-                   n_steps: int = 1, kin_colliders=None):
+                   n_steps: int = 1, kin_colliders=None, n_bodies: int = 1,
+                   batched=None):
     """Full step semantics: ``n_steps`` frames of ``cfg.substeps`` substeps,
     ``state.ext_force`` consumed on the first substep and zeroed after
-    (drop-in for ``solvers.lattice.make_step``); ``kin_colliders`` as in
-    ``make_cuda_substep_runner``."""
+    (drop-in for ``solvers.lattice.make_step``; with ``n_bodies``, for
+    ``make_batched_step``); ``kin_colliders``, ``n_bodies`` and
+    ``batched`` as in ``make_cuda_substep_runner``."""
     return make_cuda_substep_runner(spec, cfg, dt / cfg.substeps,
                                     n_steps * cfg.substeps, with_ext=True,
-                                    kin_colliders=kin_colliders)
+                                    kin_colliders=kin_colliders,
+                                    n_bodies=n_bodies, batched=batched)

@@ -56,7 +56,7 @@ import torch
 
 from ..core.colliders import check_kin
 from ..core.config import FloorMode, LambdaMode, SolveMode, SolverConfig
-from ..core.state import SimState, Topology
+from ..core.state import SimState, Topology, body_contract, check_bodies
 from ..ops import collision as _collision
 from ..ops import integrate as _integrate
 from ..solvers import general as _general
@@ -111,7 +111,8 @@ class MeshParams(ctypes.Structure):
         ("floor_friction_coeff", ctypes.c_float),
         ("gamma", ctypes.c_float), ("omega", ctypes.c_float),
         ("tet_pressure", ctypes.c_float), ("sc_omega", ctypes.c_float),
-        ("sc_diam", ctypes.c_float),
+        ("sc_diam", ctypes.c_float), ("n_bodies", ctypes.c_int),
+        ("w_stride", ctypes.c_int), ("mat_stride", ctypes.c_int),
     ]
 
 
@@ -154,22 +155,27 @@ _SC_MODE = {"dense": 1, "blocked": 2, "blocked_pallas": 2}
 
 
 def _check_supported(cfg: SolverConfig, topo: Topology,
-                     approx_math: bool = False, n_bodies: int = 1,
+                     approx_math: bool = False, batched: bool = False,
                      kin_colliders=None, device=None):
     """Build-time refusals: the plain engine's, plus the kernel's options
     that are not ported and its fixed table sizes; with a CUDA ``device``,
-    also what only the plain engine runs (``check_cuda``)."""
+    also what only the plain engine runs (``check_cuda``).  An ensemble
+    (``batched``) takes dense self-collision only: the blocked pass (B-4)
+    carries one body, and the JAX ensemble kernel refuses the other
+    backends too (``mesh_pallas.py:106-111, 911``)."""
     _general.check_supported(cfg)
     if device is not None and torch.device(device).type == "cuda":
         check_cuda(cfg, topo)
     if approx_math:
         raise NotImplementedError(
             "mesh kernel: approx_math (rsqrt / approximate reciprocal) is "
-            "not ported")
-    if n_bodies != 1:
+            "not ported (ROADMAP A-4)")
+    if (batched and cfg.enable_self_collision
+            and cfg.self_collision_backend != "dense"):
         raise NotImplementedError(
-            "mesh kernel: stacked-body ensembles (n_bodies > 1) are not "
-            "ported")
+            f"mesh kernel: ensembles take dense self-collision only, not "
+            f"the {cfg.self_collision_backend!r} backend (ROADMAP B-3 item "
+            f"5)")
     n_sph, n_box = ((len(cfg.sphere_colliders), len(cfg.box_colliders))
                     if kin_colliders is None else kin_colliders)
     if n_sph > MAX_SPHERES or n_box > MAX_BOXES:
@@ -249,6 +255,7 @@ def make_params(topo: Topology, cfg: SolverConfig, dt: float) -> MeshParams:
     p.tet_pressure = cfg.tet_pressure
     p.sc_omega = cfg.self_collision_omega
     p.sc_diam = 2.0 * cfg.particle_radius
+    p.n_bodies = 1
     return p
 
 
@@ -283,14 +290,18 @@ def incidence_csr(incidence: torch.Tensor, pad: int):
 
 
 def material_constants(materials, cfg: SolverConfig, dt: float, n_edges: int,
-                       device):
+                       device, lead=()):
     """(rest, alpha) per edge on ``device`` from traced ``materials``:
     alpha = compliance / dt^2, floored at ``min_alpha_tilde``, rounded as
-    ``constraint_constants`` and the plain engine round it."""
-    rest = _checked("materials['rest_lengths']", materials["rest_lengths"],
-                    (n_edges,), device).contiguous()
+    ``constraint_constants`` and the plain engine round it.  ``lead=(B,)``
+    also takes per-body ``(B, E)`` materials."""
+    rest = materials["rest_lengths"]
+    shape = ((n_edges,) if tuple(rest.shape) == (n_edges,)
+             else tuple(lead) + (n_edges,))
+    rest = _checked("materials['rest_lengths']", rest, shape,
+                    device).contiguous()
     comp = _checked("materials['compliance']", materials["compliance"],
-                    (n_edges,), device)
+                    shape, device)
     alpha = comp * float(np.float32(1.0 / (dt * dt)))
     if cfg.min_alpha_tilde > 0:
         alpha = torch.clamp(alpha, min=cfg.min_alpha_tilde)
@@ -392,23 +403,30 @@ def _checked(name: str, t: torch.Tensor, shape, device) -> torch.Tensor:
 
 def run_substeps_cuda(state: SimState, topo: Topology, cfg: SolverConfig,
                       dt_sub: float, n_substeps: int,
-                      with_ext: bool = False, materials=None) -> SimState:
+                      with_ext: bool = False, materials=None,
+                      batched: bool = False,
+                      per_body_mass: bool = False) -> SimState:
     """Launch the kernel for ``n_substeps`` substeps of a CUDA state; the
-    semantics of ``solvers.general.run_substeps_plain``, the state's
-    ColliderSet (if any) replacing the config's rigid world.  No host
-    sync."""
+    semantics of ``solvers.general.run_substeps_plain`` (``batched``: of
+    ``run_substeps_plain_batched``, every body in one launch a pass), the
+    state's ColliderSet (if any) replacing the config's rigid world.  No
+    host sync."""
     global launches
     _general.check_state(state)
     dev = state.device
     world = _collision.RigidWorld.of(cfg, state.colliders, dev)
-    _check_supported(cfg, topo,
+    _check_supported(cfg, topo, batched=batched,
                      kin_colliders=(world.n_spheres, world.n_boxes))
     check_cuda(cfg, topo)
     if dev.type != "cuda":
         raise ValueError(f"mesh kernel: state on {dev}, not CUDA")
     n, e, h = topo.n_particles, topo.n_edges, topo.n_hinges
+    b = state.positions.shape[0] if batched else 1
+    lead = (b,) if batched else ()
     tables = _device_tables(topo, cfg, dt_sub, str(dev))
     params = launch_params(tables, world)
+    params.n_bodies = b
+    params.w_stride = n if per_body_mass else 0
     if state.lambda_tet is None and topo.n_tets:
         # no multipliers, no tet sweep (general._substep's has_tets)
         params.n_tets = params.tets_on = 0
@@ -416,28 +434,40 @@ def run_substeps_cuda(state: SimState, topo: Topology, cfg: SolverConfig,
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    # (N, 3) -> (3, N) structure of arrays, once per call
-    x = _checked("positions", state.positions, (n, 3), dev).t().contiguous()
-    v = _checked("velocities", state.velocities, (n, 3), dev).t().contiguous()
-    w = _checked("inv_mass", state.inv_mass, (n,), dev).contiguous()
-    f = _checked("ext_force", state.ext_force, (n, 3), dev).t().contiguous()
-    lam = _checked("lambda_dist", state.lambda_dist, (e,), dev).clone()
-    blam = _checked("lambda_bend", state.lambda_bend, (h,), dev).clone()
-    plane = f32(3, 3, n)
+    def planes(name, t):
+        """(B, N, 3) leaves -> (B, 3, N) structure of arrays, once per
+        call."""
+        return _checked(name, t, lead + (n, 3), dev).reshape(
+            b, n, 3).permute(0, 2, 1).contiguous()
+
+    def owned(name, t, k):
+        return _checked(name, t, lead + (k,), dev).clone(
+            memory_format=torch.contiguous_format)
+
+    x = planes("positions", state.positions)
+    v = planes("velocities", state.velocities)
+    w = _checked("inv_mass", state.inv_mass,
+                 lead + (n,) if per_body_mass else (n,), dev).contiguous()
+    f = planes("ext_force", state.ext_force)
+    lam = owned("lambda_dist", state.lambda_dist, e)
+    blam = owned("lambda_bend", state.lambda_bend, h)
+    plane = f32(3, b, 3, n)
     work = dict(x=x, v=v, w=w, f=f, pred=plane[0], cur=plane[1],
-                prev=plane[2], lam=lam, blam=blam, contrib=f32(2 * e, 3),
-                bcontrib=f32(max(4 * h, 1), 3),
+                prev=plane[2], lam=lam, blam=blam, contrib=f32(b, 2 * e, 3),
+                bcontrib=f32(b, max(4 * h, 1), 3),
                 colliders=world.table,
                 **tables.tensors)
     if materials is not None:
         work["rest"], work["alpha"] = material_constants(materials, cfg,
-                                                         dt_sub, e, dev)
+                                                         dt_sub, e, dev,
+                                                         lead)
+        params.mat_stride = e if work["rest"].ndim == 2 else 0
     if params.n_tets:
         t = topo.n_tets
-        work.update(tlam=_checked("lambda_tet", state.lambda_tet, (t,),
-                                  dev).clone(), tcontrib=f32(4 * t, 3))
+        work.update(tlam=owned("lambda_tet", state.lambda_tet, t),
+                    tcontrib=f32(b, 4 * t, 3))
     if params.sc_mode == 1:
-        work.update(sc_corr=f32(3, n), sc_stats=f32(3))
+        work.update(sc_corr=f32(b, 3, n), sc_stats=f32(b, 3))
     bufs = MeshBuffers(**{k: ctypes.c_void_p(work[k].data_ptr())
                           for k in _BUFFERS if k in work})
     lib = _library()
@@ -461,9 +491,14 @@ def run_substeps_cuda(state: SimState, topo: Topology, cfg: SolverConfig,
     if rc != 0:
         msg = lib.mesh_xpbd_error_string(rc).decode()
         raise RuntimeError(f"mesh kernel launch failed: {msg} ({rc})")
-    out = state.replace(positions=x.t().contiguous(),
-                        velocities=v.t().contiguous(), lambda_dist=lam,
-                        lambda_bend=blam)
+
+    def body(t):
+        return t if batched else t[0]
+
+    out = state.replace(
+        positions=body(x.permute(0, 2, 1).contiguous()),
+        velocities=body(v.permute(0, 2, 1).contiguous()),
+        lambda_dist=lam, lambda_bend=blam)
     if params.n_tets:
         out = out.replace(lambda_tet=work["tlam"])
     if with_ext:
@@ -473,15 +508,18 @@ def run_substeps_cuda(state: SimState, topo: Topology, cfg: SolverConfig,
 
 def advance(state: SimState, topo: Topology, cfg: SolverConfig,
             dt_sub: float, n_substeps: int, with_ext: bool,
-            materials=None) -> SimState:
-    """A CUDA state launches the kernel; a CPU state runs the plain engine;
-    any other device raises."""
+            materials=None, batched: bool = False,
+            per_body_mass: bool = False) -> SimState:
+    """A CUDA state launches the kernel; a CPU state runs the plain engine
+    (``batched``: body by body); any other device raises."""
     if state.device.type == "cuda":
         return run_substeps_cuda(state, topo, cfg, dt_sub, n_substeps,
-                                 with_ext, materials)
+                                 with_ext, materials, batched, per_body_mass)
     if state.device.type == "cpu":
-        return _general.run_substeps_plain(state, topo, cfg, dt_sub,
-                                           n_substeps, with_ext, materials)
+        plain = (_general.run_substeps_plain_batched if batched
+                 else _general.run_substeps_plain)
+        return plain(state, topo, cfg, dt_sub, n_substeps, with_ext,
+                     materials)
     raise NotImplementedError(
         f"mesh kernel: no path for a state on {state.device}")
 
@@ -491,7 +529,8 @@ def make_mesh_cuda_substep_runner(topo: Topology, cfg: SolverConfig,
                                   with_ext: bool = False,
                                   approx_math: bool = False,
                                   n_bodies: int = 1, kin_colliders=None,
-                                  device=None):
+                                  device=None, batched=None,
+                                  per_body_mass: bool = False):
     """``fn(state, materials=None) -> SimState`` advancing ``n_substeps``
     raw substeps, self-collision on substep i iff ``i %
     self_collision_every == 0``; ``materials`` as the module docstring says.
@@ -500,26 +539,53 @@ def make_mesh_cuda_substep_runner(topo: Topology, cfg: SolverConfig,
     on the first substep and zeroed.  ``kin_colliders=(S, B)``: the state's
     ColliderSet of S spheres and B boxes replaces the config's rigid world,
     its poses read by every launch (checked at call time; a runner built
-    without it refuses a state carrying colliders).  ``approx_math`` and
-    ``n_bodies > 1`` are not ported and raise ``NotImplementedError`` here,
-    at build time, as do the configurations the plain engine refuses and,
-    when ``device`` names a CUDA device, what a CUDA state is refused
-    (``check_cuda``; a CUDA state is checked again when it arrives)."""
+    without it refuses a state carrying colliders).
+
+    ``n_bodies > 1`` (or ``batched=True`` at one body, a one-body shard;
+    ``core/state.body_contract``): the ensemble contract of
+    ``mesh_pallas.make_mesh_substep_runner`` (``:814-861``): positions,
+    velocities, ext_force ``(B, N, 3)``, lambda_dist ``(B, E)``,
+    lambda_bend ``(B, H)``, lambda_tet ``(B, T)``; inv_mass a shared
+    ``(N,)`` leaf, or with ``per_body_mass=True`` a per-body ``(B, N)``
+    one (``ValueError`` without the batched contract, as in JAX);
+    ``materials`` shared ``(E,)`` or per body ``(B, E)``; one ColliderSet
+    for every body.  On a CUDA state every body advances in one launch a
+    pass; on a CPU state ``general.run_substeps_plain_batched``.
+
+    ``approx_math``, and an ensemble with another self-collision backend
+    than ``dense``, raise ``NotImplementedError`` here, at build time, as
+    do the configurations the plain engine refuses and, when ``device``
+    names a CUDA device, what a CUDA state is refused (``check_cuda``; a
+    CUDA state is checked again when it arrives)."""
     kin = None if kin_colliders is None else tuple(
         int(k) for k in kin_colliders)
-    _check_supported(cfg, topo, approx_math=approx_math, n_bodies=n_bodies,
+    batched = body_contract(n_bodies, batched)
+    if per_body_mass and not batched:
+        raise ValueError("per_body_mass requires the batched contract")
+    _check_supported(cfg, topo, approx_math=approx_math, batched=batched,
                      kin_colliders=kin, device=device)
 
     def fn(state: SimState, materials=None) -> SimState:
         check_kin(kin, state.colliders, "mesh runner")
+        if batched:
+            check_bodies(state, n_bodies, "mesh runner")
+            want = 2 if per_body_mass else 1
+            if state.inv_mass.ndim != want:
+                raise ValueError(
+                    f"mesh runner: inv_mass of shape "
+                    f"{tuple(state.inv_mass.shape)}; per_body_mass="
+                    f"{per_body_mass} takes a "
+                    f"{'(B, N)' if per_body_mass else 'shared (N,)'} leaf")
         return advance(state, topo, cfg, dt_sub, n_substeps, with_ext,
-                       materials)
+                       materials, batched, per_body_mass)
 
     return fn
 
 
 def make_mesh_cuda_step(topo: Topology, cfg: SolverConfig, dt: float,
-                        n_steps: int = 1, device=None, kin_colliders=None):
+                        n_steps: int = 1, device=None, kin_colliders=None,
+                        n_bodies: int = 1, batched=None,
+                        per_body_mass: bool = False):
     """Full step semantics: ``n_steps`` frames of ``cfg.substeps`` substeps,
     ``state.ext_force`` consumed on the first substep and zeroed after
     (drop-in for ``solvers.general.make_step``), routed as
@@ -527,10 +593,12 @@ def make_mesh_cuda_step(topo: Topology, cfg: SolverConfig, dt: float,
     library's loop, its cadence gated on the raw substep index, so a
     cadence that does not divide the frame is refused; the other backends
     with ``self_collision_every >= 2`` go to
-    ``make_mesh_hybrid_contact_step``.  ``kin_colliders`` as in
+    ``make_mesh_hybrid_contact_step``.  ``kin_colliders``, ``n_bodies``,
+    ``batched`` and ``per_body_mass`` as in
     ``make_mesh_cuda_substep_runner``."""
+    one = not body_contract(n_bodies, batched)
     if cfg.enable_self_collision and cfg.self_collision_every >= 2:
-        if cfg.self_collision_backend != "dense":
+        if cfg.self_collision_backend != "dense" and one:
             return make_mesh_hybrid_contact_step(
                 topo, cfg, dt, n_steps, device=device,
                 kin_colliders=kin_colliders)
@@ -542,7 +610,9 @@ def make_mesh_cuda_step(topo: Topology, cfg: SolverConfig, dt: float,
     return make_mesh_cuda_substep_runner(topo, cfg, dt / cfg.substeps,
                                          n_steps * cfg.substeps,
                                          with_ext=True, device=device,
-                                         kin_colliders=kin_colliders)
+                                         kin_colliders=kin_colliders,
+                                         n_bodies=n_bodies, batched=batched,
+                                         per_body_mass=per_body_mass)
 
 
 def make_mesh_hybrid_contact_step(topo: Topology, cfg: SolverConfig,

@@ -1,2 +1,2 @@
-"""Parallel execution: one large lattice split into x-slabs across devices
-(``spatial``)."""
+"""Parallel execution: ensembles of bodies split over devices (``batch``),
+and one large lattice split into x-slabs across devices (``spatial``)."""

@@ -36,7 +36,8 @@ state carries a ``core/colliders.ColliderSet``, that set's traced poses,
 which replace the config's spheres, boxes and ground height (JAX
 ``general.py:552-580``).  The global volume constraint and the windowed
 tet backend (``tet_backend="windowed"``) raise ``NotImplementedError``
-(``check_supported``).
+(``check_supported``).  An ensemble of one topology (batched leaves)
+runs ``run_substeps_plain_batched`` / ``make_batched_step``.
 """
 
 from __future__ import annotations
@@ -49,7 +50,8 @@ import numpy as np
 import torch
 
 from ..core.config import FloorMode, LambdaMode, SolveMode, SolverConfig
-from ..core.state import SimState, Topology, check_colliders
+from ..core.state import (SimState, Topology, body_count, body_of,
+                          check_colliders, stack_bodies)
 from ..ops import bending as _bending
 from ..ops import collision as _collision
 from ..ops import distance as _distance
@@ -65,7 +67,8 @@ def check_supported(cfg: SolverConfig):
                        (windowed_tets,
                         "the windowed tet backend (one-hot tet windows)")):
         if flag:
-            raise NotImplementedError(f"mesh port: {what} is not ported")
+            raise NotImplementedError(f"mesh port: {what} is not ported "
+                                      f"(ROADMAP A-3)")
 
 
 def check_state(state: SimState):
@@ -510,6 +513,29 @@ def run_substeps_plain(state: SimState, topo: Topology, cfg: SolverConfig,
     return out
 
 
+def run_substeps_plain_batched(state: SimState, topo: Topology,
+                               cfg: SolverConfig, dt_sub: float,
+                               n_substeps: int, with_ext: bool = False,
+                               materials=None) -> SimState:
+    """The plain twin of the B-3 ensemble: ``run_substeps_plain`` body by
+    body on a batched state (``core/state.body_of``; inv_mass a shared
+    ``(N,)`` or a per-body ``(B, N)`` leaf), the results stacked, so each
+    body is the single-body engine to the bit.  ``materials`` hold shared
+    ``(E,)`` or per-body ``(B, E)`` tensors.  A loop, not ``torch.func
+    .vmap``: the engine's index updates and the kernels' ctypes calls do
+    not trace.  Autograd flows through it, a shared leaf's gradient summed
+    over the bodies."""
+    per_body = (materials is not None
+                and materials["rest_lengths"].ndim == 2)
+    bodies = []
+    for i in range(body_count(state)):
+        mat = ({k: t[i] for k, t in materials.items()} if per_body
+               else materials)
+        bodies.append(run_substeps_plain(body_of(state, i), topo, cfg,
+                                         dt_sub, n_substeps, with_ext, mat))
+    return stack_bodies(state, bodies)
+
+
 def step_fn(state: SimState, topo: Topology, cfg: SolverConfig,
             dt: float) -> SimState:
     """One physics step = ``cfg.substeps`` substeps; external forces are
@@ -543,3 +569,29 @@ def make_step(topo: Topology, cfg: SolverConfig, dt: float,
 
     return per_collider_count(lambda kin: mesh_cuda.make_mesh_cuda_step(
         topo, cfg, dt, n_steps, kin_colliders=kin))
+
+
+def make_batched_step(topo: Topology, cfg: SolverConfig, dt: float,
+                      n_steps: int = 1):
+    """Ensemble stepping (JAX ``parallel/batch.make_batched_general_step``):
+    ``n_steps`` frames of ``cfg.substeps`` substeps of a batched state,
+    ``ext_force`` consumed on the first substep and zeroed after.  A CUDA
+    state runs the B-3 ensemble (``mesh_cuda.make_mesh_cuda_step(...,
+    n_bodies=B, batched=True)``: every body in one launch a pass, with
+    ``per_body_mass`` when ``inv_mass`` is ``(B, N)`` and the ColliderSet's
+    counts as ``kin_colliders``), a CPU state
+    ``run_substeps_plain_batched``.  What an ensemble is refused raises
+    here; the runner itself is built at each call from the state's body
+    count and leaves (a few checks; the device tables are cached)."""
+    from ..core.colliders import kin_counts
+    from ..kernels import mesh_cuda
+
+    mesh_cuda.make_mesh_cuda_step(topo, cfg, dt, n_steps, batched=True)
+
+    def fn(state: SimState) -> SimState:
+        return mesh_cuda.make_mesh_cuda_step(
+            topo, cfg, dt, n_steps, kin_colliders=kin_counts(state.colliders),
+            n_bodies=body_count(state), batched=True,
+            per_body_mass=state.inv_mass.ndim == 2)(state)
+
+    return fn

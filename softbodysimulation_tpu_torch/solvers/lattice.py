@@ -23,8 +23,9 @@ tets per cell, ``_tet_sweep``; ``solid_lattice``) and the rigid world:
 the floor, sphere and box colliders of the config or, when the state
 carries a ``core/colliders.ColliderSet``, that set's traced poses (JAX
 ``solvers/lattice.py:296-312``); contacts run floor, boxes, spheres, as
-there.  Self-collision and lane-folded ensembles raise
-``NotImplementedError`` (``check_supported``).
+there.  Lane-folded ensembles run ``run_substeps_plain_batched``
+(``make_batched_step``).  Self-collision raises ``NotImplementedError``
+(``check_supported``).
 """
 
 from __future__ import annotations
@@ -561,13 +562,109 @@ def make_step(spec: LatticeSpec, cfg: SolverConfig, dt: float,
         spec, cfg, dt, n_steps, kin_colliders=kin))
 
 
+def _tile(a: torch.Tensor, n_bodies: int) -> torch.Tensor:
+    """(..., res, r2) -> (..., res, B*r2): the single body's plane repeated
+    along the lane axis, as ``np.tile(v, (1, B))``."""
+    return a.repeat(*([1] * (a.ndim - 1)), n_bodies)
+
+
+def _to_wide(t: torch.Tensor, spec: LatticeSpec, k: int = 0):
+    """Batched leaves -> the lane-folded layout, lane = b*r2 + (y*res + z):
+    ``(B, N, 3)`` -> ``(3, res, B*r2)`` (``k == 0``), or ``(B, k*N)`` -> ``(k,
+    res, B*r2)`` (multiplier families); JAX ``solvers/lattice.py:625-629,
+    652-657``."""
+    res, r2 = spec.res, spec.res * spec.res
+    b = t.shape[0]
+    if k == 0:
+        return t.reshape(b, res, r2, 3).permute(3, 1, 0, 2).reshape(
+            3, res, b * r2)
+    return t.reshape(b, k, res, r2).permute(1, 2, 0, 3).reshape(
+        k, res, b * r2)
+
+
+def _from_wide(a: torch.Tensor, spec: LatticeSpec, b: int, k: int = 0):
+    res, r2 = spec.res, spec.res * spec.res
+    if k == 0:
+        return a.reshape(3, res, b, r2).permute(2, 1, 3, 0).reshape(
+            b, res * r2, 3)
+    return a.reshape(k, res, b, r2).permute(2, 0, 1, 3).reshape(b, -1)
+
+
+def run_substeps_plain_batched(state: SimState, spec: LatticeSpec,
+                               cfg: SolverConfig, dt_sub: float,
+                               n_substeps: int,
+                               with_ext: bool = False) -> SimState:
+    """The lane-folded ensemble engine (JAX ``solvers/lattice.py:597-680``),
+    ``n_substeps`` raw substeps of a batched state on any device: the B
+    bodies lie side by side along the lane axis, ``(3, res, B*r2)``, and
+    the family masks (and the tet tables), tiled per body, kill the rolls'
+    wrap across a body boundary as they kill it across a y row, so each
+    body's arithmetic is ``run_substeps_plain``'s on that body, to the bit.
+    Leaves: positions, velocities, ext_force ``(B, N, 3)``, lambda_dist
+    ``(B, nfam*N)``, lambda_tet ``(B, 6N)``, inv_mass ``(B, N)`` or a
+    shared ``(N,)``.  ``with_ext`` as ``run_substeps_plain``; a ColliderSet
+    on the state is one rigid world acting on every body (the B-1
+    ensemble's ``kin_colliders``)."""
+    check_supported(cfg, spec)
+    check_state(state, cfg)
+    b = state.positions.shape[0]
+    res, r2 = spec.res, spec.res * spec.res
+    dev = state.device
+    masks = tuple((_tile(vv, b), _tile(pp, b))
+                  for vv, pp in _masks_dev(spec, dev))
+    tet_dev = None
+    if cfg.enable_tet_volume:
+        paths, valid, tdeg, rest6 = _tet_dev(spec, dev)
+        tet_dev = (paths, _tile(valid, b), _tile(tdeg, b), rest6)
+    world = _collision.RigidWorld.of(cfg, state.colliders, dev)
+    x = _to_wide(state.positions, spec)
+    v = _to_wide(state.velocities, spec)
+    f = _to_wide(state.ext_force, spec)
+    w = state.inv_mass.expand(b, spec.n_particles).reshape(
+        b, res, r2).permute(1, 0, 2).reshape(res, b * r2)
+    lam = _to_wide(state.lambda_dist, spec, spec.n_families)
+    lam_t = (None if state.lambda_tet is None
+             else _to_wide(state.lambda_tet, spec, 6))
+    for i in range(n_substeps):
+        x, v, lam, lam_t = _substep(x, v, w, f, lam, spec, cfg, dt_sub,
+                                    with_ext and i == 0, masks, lam_t,
+                                    tet_dev, world)
+    out = state.replace(
+        positions=_from_wide(x, spec, b), velocities=_from_wide(v, spec, b),
+        lambda_dist=_from_wide(lam, spec, b, spec.n_families),
+        lambda_tet=None if lam_t is None else _from_wide(lam_t, spec, b, 6))
+    if with_ext:
+        out = out.replace(ext_force=torch.zeros_like(state.ext_force))
+    return out
+
+
 def make_batched_step(spec: LatticeSpec, cfg: SolverConfig, dt: float,
                       n_bodies: int, n_steps: int = 1):
-    """Lane-folded ensemble stepping: not ported (raises).  Colliders on a
-    batched step stay refused in JAX too (``solvers/lattice.py:634-637``):
-    animate colliders on the general engine."""
-    raise NotImplementedError(
-        "lattice port: lane-folded ensembles are not ported")
+    """Ensemble stepping with the body axis folded into the lane dimension
+    (JAX ``solvers/lattice.py:597``): ``n_steps`` frames of
+    ``cfg.substeps`` substeps of a batched state (``parallel.batch
+    .stack_states``), ``ext_force`` consumed on the first substep of the
+    first frame and zeroed after.  A CUDA state runs the B-1 ensemble
+    (``kernels/lattice_cuda.make_cuda_step(..., n_bodies=B)``, every body
+    in one launch a pass), a CPU state ``run_substeps_plain_batched``.
+    Colliders on a batched step stay refused, as in JAX
+    (``:634-638``): animate them through the kernel runner's
+    ``kin_colliders`` or ``parallel.batch.make_sharded_pallas_rollout``."""
+    from ..kernels import lattice_cuda
+
+    run = lattice_cuda.make_cuda_step(spec, cfg, dt, n_steps,
+                                      n_bodies=n_bodies, batched=True)
+
+    def fn(batched: SimState) -> SimState:
+        if batched.colliders is not None:
+            raise NotImplementedError(
+                "lane-folded ensemble stepping does not take ColliderSets; "
+                "animate colliders through make_cuda_substep_runner(..., "
+                "n_bodies=B, kin_colliders=(S, B)) or "
+                "parallel.batch.make_sharded_pallas_rollout")
+        return run(batched)
+
+    return fn
 
 
 def make_substep_runner(spec: LatticeSpec, cfg: SolverConfig, dt_sub: float,

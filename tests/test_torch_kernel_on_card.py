@@ -39,7 +39,11 @@ under the gates above), and B-5's pose cotangents against
 the pose leaves) and autograd through the plain engine (< 1e-4).  The
 two repairs: ``restore`` of a card state's snapshot re-uploads to the
 card, and ``add_force`` / ``drag_force`` / ``squeeze_impulse`` on a CUDA
-state equal the CPU result to the bit.
+state equal the CPU result to the bit.  The ensembles of
+``test_torch_ensemble_cases.py``: every row of the B-1 and B-3 ensembles
+equal to the single-body kernel on that body to the bit, in as many
+launches as one body takes, and the ensemble against its plain twin
+(lattice: |dx| < 1e-5, |dlambda| < 1e-6; mesh: that module's gates).
 """
 
 import pytest
@@ -61,6 +65,7 @@ import test_torch_cases as lattice_cases
 import test_torch_collider_cases as collider_cases
 import test_torch_contact_cases as contact_cases
 import test_torch_diff_cases as diff_cases
+import test_torch_ensemble_cases as ensemble_cases
 import test_torch_mesh_cases as mesh_cases
 import test_torch_spatial_cases as spatial_cases
 
@@ -483,3 +488,73 @@ def test_pokes_on_the_card_equal_the_cpu(cuda, verb):
     on_cpu = calls[verb](state_from_numpy(fields, device="cpu"))
     assert torch.equal(on_card.ext_force.cpu(), on_cpu.ext_force)
     assert float(on_cpu.ext_force.abs().max()) > 0.1
+
+
+def _lam_close(out, ref, key, gate):
+    d = float((getattr(out, key) - getattr(ref, key)).abs().max())
+    big = float(getattr(ref, key).abs().max())
+    return d < gate and d <= 1e-2 * big + 1e-12, (key, d, big)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name",
+                         list(ensemble_cases.lattice_ensemble_cases()))
+def test_lattice_ensemble_rows_match_one_body_on_card(cuda, name):
+    from softbodysimulation_tpu_torch.core.state import body_of
+
+    spec, cfg, st, frames, kin, batched = ensemble_cases.lattice_case(
+        name, 6, cuda)
+    nb = st.positions.shape[0]
+    lc.launches = 0
+    out = lc.make_cuda_step(spec, cfg, ensemble_cases.DT, frames,
+                            kin_colliders=kin, n_bodies=nb,
+                            batched=batched)(st)
+    ens_launches = lc.launches
+    single = lc.make_cuda_step(spec, cfg, ensemble_cases.DT, frames,
+                               kin_colliders=kin)
+    lc.launches = 0
+    singles = [single(body_of(st, i)) for i in range(nb)]
+    assert ens_launches == lc.launches // nb
+    assert not ensemble_cases.row_mismatches(
+        out, singles, ("positions", "velocities", "lambda_dist",
+                       "lambda_tet"))
+    ref = plat.run_substeps_plain_batched(
+        st, spec, cfg, ensemble_cases.DT / cfg.substeps,
+        frames * cfg.substeps, with_ext=True)
+    assert float((out.positions - ref.positions).abs().max()) < 1e-5
+    ok, info = _lam_close(out, ref, "lambda_dist", 1e-6)
+    assert ok, info
+    assert float(out.ext_force.abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(ensemble_cases.mesh_ensemble_cases()))
+def test_mesh_ensemble_rows_match_one_body_on_card(cuda, name):
+    from softbodysimulation_tpu_torch.core.state import body_of
+
+    topo, cfg, st, mats, frames, opts = ensemble_cases.mesh_case(name, cuda)
+    nb = st.positions.shape[0]
+    kin = opts.get("kin")
+    mc.launches = 0
+    out = mc.make_mesh_cuda_step(
+        topo, cfg, ensemble_cases.DT, frames, kin_colliders=kin,
+        n_bodies=nb, per_body_mass=bool(opts.get("per_body_mass")))(
+            st, mats)
+    ens_launches = mc.launches
+    single = mc.make_mesh_cuda_step(topo, cfg, ensemble_cases.DT, frames,
+                                    kin_colliders=kin)
+    mc.launches = 0
+    singles = [single(body_of(st, i), None if mats is None
+                      else {k: v[i] for k, v in mats.items()})
+               for i in range(nb)]
+    assert ens_launches == mc.launches // nb
+    assert not ensemble_cases.row_mismatches(
+        out, singles, ("positions", "velocities", "lambda_dist",
+                       "lambda_bend", "lambda_tet"))
+    ref = pgeneral.run_substeps_plain_batched(
+        st, topo, cfg, ensemble_cases.DT / cfg.substeps,
+        frames * cfg.substeps, with_ext=True, materials=mats)
+    dx = float((out.positions - ref.positions).abs().max())
+    assert dx < ensemble_cases.dx_gate(cfg), dx
+    ok, info = _lam_close(out, ref, "lambda_dist", mesh_cases.DLAM_DIST)
+    assert ok or cfg.enable_self_collision, info

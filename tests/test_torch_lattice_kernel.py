@@ -98,7 +98,9 @@ def test_unsupported_features_refused_at_build(what):
     runner is built.  The per-cell tets are carried: a tet config builds,
     and only a state without tet multipliers is refused, when it arrives.
     Box colliders are carried up to the kernel's table size: more are
-    refused, config or kinematic."""
+    refused, config or kinematic.  Ensembles are carried: their runner
+    refuses what the single-body runner refuses (self-collision), and the
+    lane-folded step refuses a ColliderSet, as JAX's does."""
     spec = ptop.lattice_spec(4, braced=True)
     cfg = port_config(SolverConfig(substeps=2, iterations=1))
     kw = {}
@@ -120,13 +122,19 @@ def test_unsupported_features_refused_at_build(what):
     elif what == "approx_math":
         kw = dict(approx_math=True)
     elif what == "ensemble_runner":
+        build(spec, cfg, DT_SUB, 4, n_bodies=2)
+        cfg = cfg.replace(enable_self_collision=True)
         kw = dict(n_bodies=2)
     elif what == "too_many_spheres":
         cfg = cfg.replace(sphere_colliders=((0.0, 0.0, 0.0, 0.1),)
                           * (lc.MAX_SPHERES + 1))
     with pytest.raises(NotImplementedError):
         if what == "batched_step":
-            plat.make_batched_step(spec, cfg, 1 / 60, n_bodies=2)
+            from softbodysimulation_tpu_torch.parallel import batch
+            st = batch.replicate_state(
+                plat.make_lattice_state(spec, device="cpu"), 2)
+            plat.make_batched_step(spec, cfg, 1 / 60, n_bodies=2)(
+                st.replace(colliders=port.make_colliders(device="cpu")))
         elif what == "solver_step":
             plat.make_step(spec, cfg.replace(enable_self_collision=True),
                            1 / 60)

@@ -120,7 +120,7 @@ def test_unsupported_features_refused_at_build(what):
     """B-3's features the port does not carry raise at build time, in both
     the kernel's runners and the plain engine's step.  Box and kinematic
     colliders are carried up to the kernel's table size: more are
-    refused."""
+    refused.  Ensembles are carried with dense contact only."""
     _, _, ptopo, _ = both("sphere")
     cfg = port_config(C.SolverConfig(substeps=2, iterations=1))
     kw = {}
@@ -141,6 +141,11 @@ def test_unsupported_features_refused_at_build(what):
                           self_collision_backend="hash")
         kw = dict(device="cuda")
     elif what == "ensembles":
+        # ensembles run; with a self-collision backend other than dense
+        # they are refused
+        mc.make_mesh_cuda_substep_runner(ptopo, cfg, DT / 2, 2, n_bodies=2)
+        cfg = cfg.replace(enable_self_collision=True,
+                          self_collision_backend="blocked")
         kw = dict(n_bodies=2)
     elif what == "approx_math":
         kw = dict(approx_math=True)

@@ -185,8 +185,12 @@ def test_slice_refusals_at_build(what):
             mc.make_mesh_cuda_substep_runner(
                 topo, cfg, DT / 4, 4, kin_colliders=(0, mc.MAX_BOXES + 1))
         elif what == "ensembles":
+            # dense contact runs in ensembles; blocked (B-4) takes one body
             mc.make_mesh_cuda_substep_runner(topo, cfg, DT / 4, 4,
                                              n_bodies=2)
+            mc.make_mesh_cuda_substep_runner(
+                topo, cfg.replace(self_collision_backend="blocked"), DT / 4,
+                4, n_bodies=2)
         elif what == "approx_math":
             mc.make_mesh_cuda_substep_runner(topo, cfg, DT / 4, 4,
                                              approx_math=True)
