@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Drives the port's lattice, mesh, contact, differentiable, spatial,
-kinematic-collider and ensemble main paths through the entry points a user
-calls and fails (nonzero exit) if any phase fails:
+kinematic-collider, ensemble, approx-math and contact-cadence main paths
+through the entry points a user calls and fails (nonzero exit) if any
+phase fails:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch / CUDA
    versions;
@@ -220,7 +221,34 @@ calls and fails (nonzero exit) if any phase fails:
    of at least half a second);
    launches a substep (the ensemble's equal to one body's); the bounds
    (``lattice_work`` x B, ``mesh_work`` with B bodies' state and the
-   shared tables once).
+   shared tables once);
+33. B-1 with ``approx_math`` (rsqrtf and the approximate reciprocal) at
+   ``bench.py``'s workload, phase 4's start: the two intrinsics against
+   ``torch.rsqrt`` and ``torch.reciprocal`` on 2^20 floats (how many
+   differ, by how many ulps); 2000 substeps with its launches, the health
+   gates and the drift against phase 4's exact plain rollout (< 1e-3, as
+   ``bench.py`` gates it); 16 substeps against its plain twin from the
+   rested state with velocity jitter (< 1e-4); ms per substep, exact and
+   approx, in timed windows;
+34. B-3 with ``approx_math`` at ``cloth_xl`` from a poked, loaded state:
+   16 substeps against its twin (positions < 5e-3, multipliers < 5e-4,
+   JAX's band for its approx kernel) with its launches; ms per substep,
+   exact and approx;
+35. the lattice hybrid contact runner at the 64k contact-cadence config of
+   ``scripts/bench_contact_kernel.py`` (res 40, ``blocked_pallas`` B = 128
+   M = 4, contact every 8th of 8 substeps, radius 0.55 x spacing): exact
+   against the plain stencil cadence over 24 substeps (< 1e-5; both run
+   B-4 for contact, so the gap and whether it is 0 are printed), approx
+   within 1e-3 of exact; a 400-substep rollout of each (finite, min y >
+   -radius, its B-1 and B-4 launches); ms per substep of both and of the
+   plain cadence;
+36. example 4 (two cubes, ``hash`` self-collision) through
+   ``general.make_step`` on a CUDA state against the CPU for the 200
+   frames before its first poke (< 1e-3), ms per frame; the hash and
+   sorted passes and the curve order under
+   ``torch.cuda.set_sync_debug_mode("error")``;
+37. ``entry()``'s ``fn`` once on the card against the CPU (< 1e-5), and
+   the bench twin's ``main()`` (its JSON line, 2 s windows).
 
 Prints one JSON line of kernels (with each kernel's bound, the least time
 the card could take for the same work, from ``bound_ms``), the card's name
@@ -2572,6 +2600,304 @@ def ensemble_phases(torch, np, smi, is_finite):
     return {"kernels": kernels, "profile": profile}
 
 
+# phases 33-37: approx_math in B-1 and B-3, the lattice hybrid contact
+# runner, hash on the card, the entry and bench twins
+APPROX_PARITY_SUBSTEPS = 16
+# B-1 approx against its twin over 16 res-40 substeps: rcp.approx is not
+# IEEE, so a tolerance, not the bits
+APPROX_KERNEL_GATE = 1e-4
+# B-3 approx against its twin: JAX's own band for its approx kernel
+# (tests/test_mesh_pallas.py:111-118), positions and multipliers
+MESH_APPROX_GATES = (5e-3, 5e-4)
+# the 64k contact-cadence config of scripts/bench_contact_kernel.py:58-67,
+# :149-153: the bench lattice, blocked B-4 contact (B = 128, M = 4) every
+# 8th substep, particle radius 0.55 x spacing, dt_sub 1/480
+HYBRID_EVERY = 8
+HYBRID_PARITY_SUBSTEPS = 24
+HYBRID_ROLLOUT_SUBSTEPS = 400
+# example 4 on the card against the CPU over the 200 frames before its
+# first poke: the cubes land and touch, and contact grows rounding
+# differences between card and CPU, so the gate is the repo's drift gate
+EX4_FRAMES = 200
+EX4_GATE = 1e-3
+
+
+def approx_ulps(torch, a, b):
+    """How many elements of two float32 tensors differ, and by how many
+    units in the last place at most."""
+    ia, ib = a.view(torch.int32).long(), b.view(torch.int32).long()
+    return int((ia != ib).sum()), int((ia - ib).abs().max())
+
+
+def cadence_phases(torch, np, smi, is_finite, main_state, main_plain):
+    """Phases 33-37: B-1 and B-3 with ``approx_math``, the lattice hybrid
+    contact runner at the 64k contact-cadence config, example 4 (``hash``)
+    on the card, the entry and bench twins.  ``main_state`` and
+    ``main_plain`` are phase 4's start and its 2000-substep plain rollout
+    (the bench.py workload).  Returns the kernels line's new fields
+    ("lattice", "mesh") and the runs ``--profile`` traces ("profile")."""
+    from softbodysimulation_tpu_torch import bench as pbench
+    from softbodysimulation_tpu_torch import entry as pentry
+    from softbodysimulation_tpu_torch.core import scenes
+    from softbodysimulation_tpu_torch.core.config import (LambdaMode,
+                                                          SolveMode,
+                                                          SolverConfig)
+    from softbodysimulation_tpu_torch.examples import (
+        config4_interactive_poke as ex4)
+    from softbodysimulation_tpu_torch.interact import forces
+    from softbodysimulation_tpu_torch.kernels import contact_cuda as cc
+    from softbodysimulation_tpu_torch.kernels import lattice_cuda as lc
+    from softbodysimulation_tpu_torch.kernels import mesh_cuda as mc
+    from softbodysimulation_tpu_torch.ops import spatial_hash
+    from softbodysimulation_tpu_torch.solvers import general
+    from softbodysimulation_tpu_torch.solvers import lattice as lat
+
+    # 33. B-1 approx at the bench.py workload (phase 4's start)
+    settings = pbench.Settings()
+    spec, cfg, state = pbench.build(settings, "cuda")
+    if not torch.equal(state.positions, main_state.positions):
+        raise RuntimeError("the bench twin's start is not phase 4's")
+    dt_sub = pbench.DT / settings.substeps
+    n_long = settings.substeps_per_call
+    x = 10.0 ** (torch.rand(1 << 20, device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(0))
+                 * 16.0 - 8.0)
+    r_k, c_k = lc.approx_probe(x)
+    rs_n, rs_ulp = approx_ulps(torch, r_k, torch.rsqrt(x))
+    rc_n, rc_ulp = approx_ulps(torch, c_k, torch.reciprocal(x))
+    print(f"# approx intrinsics on {x.numel()} floats in [1e-8, 1e8]: "
+          f"rsqrtf vs torch.rsqrt differ in {rs_n} (bit for bit: "
+          f"{rs_n == 0}; at most {rs_ulp} ulp), rcp.approx vs "
+          f"torch.reciprocal in {rc_n} (at most {rc_ulp} ulp)")
+    approx_run = lc.make_cuda_substep_runner(spec, cfg, dt_sub, n_long,
+                                             approx_math=True)
+    torch.cuda.synchronize()
+    lc.launches = 0
+    a_out = approx_run(state)
+    torch.cuda.synchronize()
+    approx_launches = lc.launches
+    pbench.health(a_out.positions)
+    drift = float((a_out.positions - main_plain.positions).abs().max())
+    print(f"# B-1 approx_math at the bench workload: {n_long} substeps, "
+          f"{approx_launches} launches, health ok; drift vs the exact "
+          f"plain engine {drift:.3e} (gate {DRIFT_TOL}, bench.py's)")
+    if approx_launches <= 0:
+        raise RuntimeError("the approx path launched no kernel")
+    if not drift < DRIFT_TOL:
+        raise RuntimeError(f"B-1 approx drifts from the plain engine: "
+                           f"{drift}")
+    jitter = np.random.default_rng(0).normal(0.0, 0.05, (spec.n_particles, 3))
+    start = a_out.replace(velocities=a_out.velocities + torch.as_tensor(
+        jitter, dtype=torch.float32, device="cuda"))
+    n_cmp = APPROX_PARITY_SUBSTEPS
+    k16 = lc.make_cuda_substep_runner(spec, cfg, dt_sub, n_cmp,
+                                      approx_math=True)(start)
+    p16 = lat.run_substeps_plain(start, spec, cfg, dt_sub, n_cmp,
+                                 approx_math=True)
+    torch.cuda.synchronize()
+    approx_err = float((k16.positions - p16.positions).abs().max())
+    dlam = float((k16.lambda_dist - p16.lambda_dist).abs().max())
+    dv = float((k16.velocities - p16.velocities).abs().max())
+    print(f"# B-1 approx vs its twin, {n_cmp} substeps from the rested "
+          f"state with jitter: max|dx|={approx_err:.3e} (gate "
+          f"{APPROX_KERNEL_GATE}) max|dlam|={dlam:.3e} max|dv|={dv:.3e}; "
+          f"equal to the bit: {torch.equal(k16.positions, p16.positions)}")
+    if not (approx_err < APPROX_KERNEL_GATE and is_finite(k16)):
+        raise RuntimeError(f"B-1 approx disagrees with its twin: "
+                           f"{approx_err}")
+    exact_run = lc.make_cuda_substep_runner(spec, cfg, dt_sub, n_long)
+    times, _ = timed_windows(torch, {
+        "exact": (lambda: exact_run(state), n_long),
+        "approx": (lambda: approx_run(state), n_long)})
+    ms_exact, ms_approx = min(times["exact"]), min(times["approx"])
+    print(f"# B-1 ms/substep at res {settings.res} ({smi}), windows in "
+          f"turns: exact {times['exact']}, approx {times['approx']}; best "
+          f"exact {ms_exact:.5f}, approx {ms_approx:.5f} "
+          f"({spec.n_particles / ms_approx * 1e3:.4e} "
+          f"particle-substeps/s)")
+
+    # 34. B-3 approx on cloth_xl, from a loaded state (30 frames under
+    # gravity, a poke out of the plane, 10 more frames)
+    cstate, _, cinfo = scenes.cloth_xl(device="cuda")
+    ctopo, ccfg, cdt = cinfo["topology"], cinfo["config"], cinfo["dt"]
+    cdt_sub = cdt / ccfg.substeps
+    loaded = mc.make_mesh_cuda_step(ctopo, ccfg, cdt, n_steps=30)(cstate)
+    loaded = forces.add_force(loaded, (0.0, 100.0, 600.0),
+                              loaded.positions.mean(0).tolist(), radius=0.4)
+    loaded = mc.make_mesh_cuda_step(ctopo, ccfg, cdt, n_steps=10)(loaded)
+    torch.cuda.synchronize()
+    mc.launches = 0
+    mk = mc.make_mesh_cuda_substep_runner(ctopo, ccfg, cdt_sub, n_cmp,
+                                          approx_math=True)(loaded)
+    torch.cuda.synchronize()
+    mesh_approx_launches = mc.launches
+    mp = general.run_substeps_plain(loaded, ctopo, ccfg, cdt_sub, n_cmp,
+                                    approx_math=True)
+    me = general.run_substeps_plain(loaded, ctopo, ccfg, cdt_sub, n_cmp)
+    mesh_approx_err = float((mk.positions - mp.positions).abs().max())
+    mdl = {k: float((getattr(mk, k) - getattr(mp, k)).abs().max())
+           for k in ("lambda_dist", "lambda_bend")}
+    print(f"# B-3 approx vs its twin at cloth_xl, {n_cmp} substeps from a "
+          f"poked state: max|dx|={mesh_approx_err:.3e} max|dlam|="
+          f"{mdl['lambda_dist']:.3e} max|dlam_bend|={mdl['lambda_bend']:.3e}"
+          f" (gates {MESH_APPROX_GATES}, JAX's band), "
+          f"{mesh_approx_launches} launches; vs the exact plain engine "
+          f"max|dx|={float((mk.positions - me.positions).abs().max()):.3e}")
+    if mesh_approx_launches <= 0:
+        raise RuntimeError("the mesh approx path launched no kernel")
+    if not (mesh_approx_err < MESH_APPROX_GATES[0] and is_finite(mk)
+            and max(mdl.values()) < MESH_APPROX_GATES[1]):
+        raise RuntimeError(f"B-3 approx disagrees with its twin: "
+                           f"{mesh_approx_err} {mdl}")
+    n_m = 500
+    m_exact = mc.make_mesh_cuda_substep_runner(ctopo, ccfg, cdt_sub, n_m)
+    m_approx = mc.make_mesh_cuda_substep_runner(ctopo, ccfg, cdt_sub, n_m,
+                                                approx_math=True)
+    mtimes, _ = timed_windows(torch, {
+        "exact": (lambda: m_exact(loaded), n_m),
+        "approx": (lambda: m_approx(loaded), n_m)})
+    print(f"# B-3 ms/substep at cloth_xl ({smi}), windows in turns: exact "
+          f"{mtimes['exact']}, approx {mtimes['approx']}")
+
+    # 35. the hybrid contact runner at the 64k contact-cadence config
+    spacing = 1.0 / (settings.res - 1)
+    radius = 0.55 * spacing
+    hcfg = SolverConfig(substeps=8, iterations=1, damping=0.02,
+                        solve_mode=SolveMode.JACOBI,
+                        lambda_mode=LambdaMode.RESET,
+                        gravity_is_acceleration=True, fast_math=True,
+                        enable_self_collision=True, particle_radius=radius,
+                        self_collision_backend="blocked_pallas",
+                        collision_block_size=128, block_neighbors=4,
+                        self_collision_every=HYBRID_EVERY,
+                        ground_height=0.0, friction=0.3)
+    hstate = lat.make_lattice_state(spec, center=(0.0, 0.55, 0.0),
+                                    mass=0.001, device="cuda")
+    dt_h = 1.0 / 480.0
+    if lc.route(hcfg) != "hybrid":
+        raise RuntimeError(f"the cadence config routes to {lc.route(hcfg)}")
+    n_par = HYBRID_PARITY_SUBSTEPS
+    h24 = lc.make_hybrid_contact_runner(spec, hcfg, dt_h, n_par)(hstate)
+    p24 = lat.run_substeps_plain(hstate, spec, hcfg, dt_h, n_par)
+    a24 = lc.make_hybrid_contact_runner(spec, hcfg, dt_h, n_par,
+                                        approx_math=True)(hstate)
+    torch.cuda.synchronize()
+    hyb_gap = float((h24.positions - p24.positions).abs().max())
+    hyb_approx = float((a24.positions - h24.positions).abs().max())
+    print(f"# hybrid at the 64k contact cadence (res {settings.res}, "
+          f"blocked_pallas B=128 M=4, every {HYBRID_EVERY}, radius "
+          f"{radius:.5f}): exact vs the plain stencil cadence over {n_par}"
+          f" substeps max|dx|={hyb_gap:.3e}, equal to the bit: "
+          f"{torch.equal(h24.positions, p24.positions)}; approx vs exact "
+          f"{hyb_approx:.3e} (gate {DRIFT_TOL})")
+    if not (hyb_gap < DX_TOL and is_finite(h24)):
+        raise RuntimeError(f"the hybrid disagrees with the plain cadence: "
+                           f"{hyb_gap}")
+    if not hyb_approx < DRIFT_TOL:
+        raise RuntimeError(f"the approx hybrid drifts: {hyb_approx}")
+    n_roll = HYBRID_ROLLOUT_SUBSTEPS
+    hyb_runs = {}
+    for name, approx in (("hybrid", False), ("hybrid_approx", True)):
+        run = lc.make_hybrid_contact_runner(spec, hcfg, dt_h, n_roll,
+                                            approx_math=approx)
+        torch.cuda.synchronize()
+        lc.launches = cc.launches = 0
+        t0 = time.perf_counter()
+        end = run(hstate)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        kl, cl = lc.launches, cc.launches
+        ymin = float(end.positions[:, 1].min())
+        print(f"# {name}: {n_roll} substeps in {wall:.3f} s wall, "
+              f"{kl} B-1 and {cl} B-4 launches ({(kl + cl) / n_roll:.3f} a "
+              f"substep), finite={is_finite(end)} min_y={ymin:.5f} (gate "
+              f"> -{radius:.5f})")
+        if kl <= 0 or cl <= 0:
+            raise RuntimeError(f"{name} launched no B-1 or no B-4 kernel")
+        if not (is_finite(end) and ymin > -radius):
+            raise RuntimeError(f"{name} failed its health gates")
+        hyb_runs[name] = (run, (kl + cl) / n_roll)
+    plain_par = (lambda: lat.run_substeps_plain(hstate, spec, hcfg, dt_h,
+                                                n_par), n_par)
+    htimes, _ = timed_windows(torch, {
+        "hybrid": (lambda: hyb_runs["hybrid"][0](hstate), n_roll),
+        "hybrid_approx": (lambda: hyb_runs["hybrid_approx"][0](hstate),
+                          n_roll),
+        "plain": plain_par})
+    print(f"# hybrid ms/substep ({smi}), windows in turns: "
+          + "; ".join(f"{k} {v}" for k, v in htimes.items()))
+
+    # 36. example 4 (hash self-collision, the general engine) on the card
+    topo4, cfg4, st4 = ex4.scene(device="cpu")
+    step4 = general.make_step(topo4, cfg4, 1 / 60)
+    card, cpu = st4.to("cuda"), st4
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(EX4_FRAMES):
+        card = step4(card)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(EX4_FRAMES):
+        cpu = step4(cpu)
+    t_cpu = time.perf_counter() - t0
+    ex4_gap = float((card.positions.cpu() - cpu.positions).abs().max())
+    pred, w = card.positions, card.inv_mass
+    scfg = cfg4.replace(self_collision_backend="sorted")
+    spatial_hash.self_collision_project(pred, w, cfg4)
+    spatial_hash.self_collision_project_sorted(
+        pred, w, spatial_hash.morton_order(pred, scfg), scfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        spatial_hash.self_collision_project(pred, w, cfg4)
+        spatial_hash.self_collision_project_sorted(
+            pred, w, spatial_hash.morton_order(pred, scfg), scfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print(f"# example 4 (hash, route {step4.route}) on the card: "
+          f"{EX4_FRAMES} frames before its first poke, "
+          f"{t_card / EX4_FRAMES * 1e3:.3f} ms/frame (CPU "
+          f"{t_cpu / EX4_FRAMES * 1e3:.3f}), max|dx| card vs CPU "
+          f"{ex4_gap:.3e} (gate {EX4_GATE}), finite={is_finite(card)}; the "
+          f"hash and sorted passes and the curve order ran under "
+          f"sync_debug_mode('error')")
+    if not (ex4_gap < EX4_GATE and is_finite(card)):
+        raise RuntimeError(f"example 4 on the card parts from the CPU: "
+                           f"{ex4_gap}")
+
+    # 37. the twins: entry() once on the card against the CPU, and the
+    # bench twin's main() (its JSON line)
+    fn, (est,) = pentry.entry()
+    fn_c, (est_c,) = pentry.entry("cpu")
+    e_gap = float((fn(est).positions.cpu() - fn_c(est_c).positions)
+                  .abs().max())
+    print(f"# entry(): one res-16 frame on the card vs the CPU, max|dx| "
+          f"{e_gap:.3e} (gate {DX_TOL})")
+    if not e_gap < DX_TOL:
+        raise RuntimeError(f"entry() on the card parts from the CPU: "
+                           f"{e_gap}")
+    if pbench.main(dataclasses.replace(settings, seconds=2.0)) != 0:
+        raise RuntimeError("the bench twin failed")
+
+    return {
+        "lattice": {"approx_max_abs_err": approx_err,
+                    "approx_ms": ms_approx, "approx_exact_ms": ms_exact,
+                    "approx_launches": approx_launches,
+                    "hybrid_ms": min(htimes["hybrid"]),
+                    "hybrid_approx_ms": min(htimes["hybrid_approx"]),
+                    "hybrid_plain_ms": min(htimes["plain"]),
+                    "hybrid_launches_per_substep":
+                        hyb_runs["hybrid"][1],
+                    "hybrid_max_abs_err": hyb_gap},
+        "mesh": {"approx_max_abs_err": mesh_approx_err,
+                 "approx_ms": min(mtimes["approx"]),
+                 "approx_exact_ms": min(mtimes["exact"])},
+        "profile": [(lc.make_hybrid_contact_runner(spec, hcfg, dt_h, 64),
+                     hstate)],
+    }
+
+
 def main() -> int:
     if "--f64-witness" in sys.argv[1:]:
         return f64_witness()
@@ -2595,7 +2921,7 @@ def main() -> int:
 
 
 def smoke(torch, witness) -> int:
-    """Phases 1-32 (module docstring)."""
+    """Phases 1-37 (module docstring)."""
     sys.path.insert(0, HERE)
     import numpy as np
 
@@ -2683,6 +3009,8 @@ def smoke(torch, witness) -> int:
     if main_launches <= 0:
         raise RuntimeError("the main path launched no kernel")
     plain = lat.run_substeps_plain(state, spec, cfg, dt_sub, MAIN_SUBSTEPS)
+    # phase 33 holds B-1's approx_math to this exact rollout
+    main_state, main_plain = state, plain
     drift = float((out.positions - plain.positions).abs().max())
     print(f"# drift vs plain, {MAIN_SUBSTEPS} substeps from the same start: "
           f"{drift:.3e} (gate {DRIFT_TOL})")
@@ -2919,6 +3247,11 @@ def smoke(torch, witness) -> int:
     ensembles = ensemble_phases(torch, np, smi, is_finite)
     lap("29-32")
 
+    # 33-37. approx_math, the lattice hybrid, hash on the card, the twins
+    cadence = cadence_phases(torch, np, smi, is_finite, main_state,
+                             main_plain)
+    lap("33-37")
+
     if "--profile" in sys.argv[1:]:
         profile_main_path(
             torch, lc.make_cuda_substep_runner(spec, cfg, dt_sub, 200),
@@ -2927,7 +3260,8 @@ def smoke(torch, witness) -> int:
             torch, mc.make_mesh_cuda_substep_runner(ctopo, ccfg, cdt_sub,
                                                     200), cstate)
         for run, st in (contact["profile"] + diff["profile"]
-                        + spatial["profile"] + ensembles["profile"]):
+                        + spatial["profile"] + ensembles["profile"]
+                        + cadence["profile"]):
             profile_main_path(torch, run, st)
 
     lat_bound = bound_ms(*lattice_work(spec, cfg))
@@ -2955,6 +3289,9 @@ def smoke(torch, witness) -> int:
         "box_max_abs_err": coll["lattice"]["box_err"],
         "sweep_ms_poses": coll["lattice"]["ms_poses"],
         "sweep_ms_no_poses": coll["lattice"]["ms_bare"],
+        # approx_math at the bench workload and the hybrid contact runner
+        # at the 64k cadence config (phases 33, 35)
+        **cadence["lattice"],
     }, {
         "name": "mesh_xpbd",
         "route": "cuda",
@@ -2972,6 +3309,8 @@ def smoke(torch, witness) -> int:
         "box_max_abs_err": coll["mesh"]["box_err"],
         "kin_sweep_ms": coll["mesh"]["ms"],
         "kin_sweep_plain_ms": coll["mesh"]["plain_ms"],
+        # approx_math at cloth_xl (phase 34)
+        **cadence["mesh"],
     }, {
         "name": "contact_xpbd",
         "route": "cuda",

@@ -25,6 +25,12 @@ package:
   ``kernels/mesh_diff.py``); ``examples/`` fits a launch velocity and
   rest lengths through them.
 
+The lattice and mesh kernels take ``approx_math`` (rsqrt and the
+approximate reciprocal, as ``bench.py``'s first engine); a self-colliding
+lattice runs its contact cadence through the hybrid contact step
+(``kernels/lattice_cuda.make_hybrid_contact_step``); ``entry.py`` and
+``bench.py`` are the twins of the JAX package's entry point and bench.
+
 A kinematic rigid world (``core/colliders.ColliderSet``: sphere and box
 poses, their velocities and the ground height as state tensors) reaches
 every engine and the lattice, mesh and fused-backward kernels;

@@ -76,6 +76,18 @@
 //
 // Floats stay IEEE (built without --use_fast_math, with -fmad=false): sqrtf
 // and '/' as in the exact engines, and no multiply-add is contracted.
+//
+// approx_math (lattice_pallas.py:152-185 resident, :1053-1061 and :1099
+// streamed, :1281-1285 the tet sweep; the bench.py headline engine) swaps,
+// in the family passes, the length's sqrt for |d|^2 * rsqrtf(|d|^2), the
+// division of the multiplier step by its denominator for a product with
+// the approximate reciprocal (__fdividef(1, x): rcp.approx) and the
+// correction's division by the length for a product with that rsqrt; in
+// the tet sweep the same reciprocal.  The warm pre-apply, the contacts and
+// finalize stay exact, as in the TPU kernel.  The plain twin
+// (solvers/lattice.py, approx_math=True) takes torch.rsqrt and
+// torch.reciprocal, which is IEEE: kernel and twin agree to a tolerance,
+// not to the bit.  With approx_math off every pass is the exact engine's.
 
 #include "lattice_xpbd.cuh"
 
@@ -168,6 +180,21 @@ __global__ void warm_pass_kernel(LatticeParams p, int f,
   for (int c = 0; c < 3; ++c) pout[c * n + a] = o[c];
 }
 
+// An edge's length for a family pass: sqrt(max(|d|^2, 1e-24)), or with
+// approx_math |d|^2 * rsqrt(max(|d|^2, 1e-24)), *inv then holding that
+// rsqrt, by which the correction's scale multiplies in place of dividing
+// by the length (lattice_pallas.py:1053-1056, :1099).
+__device__ __forceinline__ float edge_length(const LatticeParams& p,
+                                             const float d[3], float* inv) {
+  const float len_sq = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+  if (p.approx_math) {
+    *inv = rsqrtf(fmaxf(len_sq, 1e-24f));
+    return len_sq * *inv;
+  }
+  *inv = 0.f;
+  return sqrtf(fmaxf(len_sq, 1e-24f));
+}
+
 __global__ void family_pass_kernel(LatticeParams p, int f, int sel,
                                    int jacobi, const float* __restrict__ w,
                                    const float* __restrict__ pin,
@@ -187,12 +214,11 @@ __global__ void family_pass_kernel(LatticeParams p, int f, int sel,
   float dl_a = 0.f;
   if (fam_mask(p, f, sel, q.x, q.y, q.z)) {
     const Cell fw = step_cell(p, f, q, 1);
-    float d[3];
+    float d[3], inv;
     for (int c = 0; c < 3; ++c) d[c] = pin[c * n + fw.a] - pa[c];
-    const float len =
-        sqrtf(fmaxf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2], 1e-24f));
+    const float len = edge_length(p, d, &inv);
     dl_a = constraint_dl(p, f, len, wa, w[fw.a], lam_a, jacobi);
-    const float s = dl_a / len;
+    const float s = p.approx_math ? dl_a * inv : dl_a / len;
     for (int c = 0; c < 3; ++c) o[c] = pa[c] - wa * (d[c] * s);
   }
   float lam_new = lam_a + dl_a;
@@ -203,13 +229,12 @@ __global__ void family_pass_kernel(LatticeParams p, int f, int sel,
   // the constraint (a-d, a), recomputed from the pass-entry inputs
   const Cell bw = step_cell(p, f, q, -1);
   if (fam_mask(p, f, sel, bw.x, bw.y, bw.z)) {
-    float d[3];
+    float d[3], inv;
     for (int c = 0; c < 3; ++c) d[c] = pa[c] - pin[c * n + bw.a];
-    const float len =
-        sqrtf(fmaxf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2], 1e-24f));
+    const float len = edge_length(p, d, &inv);
     const float dl_b =
         constraint_dl(p, f, len, w[bw.a], wa, lam_in[bw.a], jacobi);
-    const float s = dl_b / len;
+    const float s = p.approx_math ? dl_b * inv : dl_b / len;
     for (int c = 0; c < 3; ++c) o[c] = o[c] + wa * (d[c] * s);
   }
   for (int c = 0; c < 3; ++c) pout[c * n + a] = o[c];
@@ -288,7 +313,9 @@ __global__ void tet_cell_kernel(LatticeParams p, const float* __restrict__ w,
                         p.tet_alpha;
     const size_t li = (size_t)pi * n + a;
     const float lam = lam_t[li];
-    float dl = (-cerr - p.tet_alpha * lam) / fmaxf(denom, 1e-30f);
+    const float num = -cerr - p.tet_alpha * lam;
+    float dl = p.approx_math ? num * approx_rcp(fmaxf(denom, 1e-30f))
+                             : num / fmaxf(denom, 1e-30f);
     dl = (valid && denom > p.eps_denominator ? dl : 0.f) * p.tet_omega;
     lam_t[li] = lam + dl;
     for (int k = 0; k < 4; ++k)
@@ -417,9 +444,28 @@ __global__ void contact_finalize_kernel(LatticeParams p, int do_contacts,
   }
 }
 
+// A diagnostic off every path: out[i] = rsqrtf(x[i]) and out[n + i] =
+// approx_rcp(x[i]), the approx variant's two intrinsics, for holding them
+// against torch.rsqrt and torch.reciprocal on the card (chip_smoke.py).
+__global__ void approx_probe_kernel(const float* __restrict__ x,
+                                    float* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  out[i] = rsqrtf(x[i]);
+  out[n + i] = approx_rcp(x[i]);
+}
+
 extern "C" {
 
 int lattice_xpbd_params_size(void) { return (int)sizeof(LatticeParams); }
+
+// approx_probe_kernel over n floats on `stream`; returns a cudaError_t.
+int lattice_xpbd_approx_probe(const float* x, float* out, int n,
+                              void* stream_handle) {
+  approx_probe_kernel<<<(n + LX_THREADS - 1) / LX_THREADS, LX_THREADS, 0,
+                        (cudaStream_t)stream_handle>>>(x, out, n);
+  return (int)cudaGetLastError();
+}
 
 const char* lattice_xpbd_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -69,6 +69,8 @@ struct LatticeParams {
   float tet_omega;           // omega if > 0 else 1
   int body_n;                // particles of one body (res^3): an ensemble
                              // of B bodies runs n = B * body_n threads
+  int approx_math;           // rsqrt and the approximate reciprocal in the
+                             // family passes and the tet sweep
 };
 
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
@@ -97,16 +99,25 @@ __device__ __forceinline__ bool fam_mask(const LatticeParams& p, int f,
   return ((lead & 1) == 0) == (sel == 0);
 }
 
+// approx_math's reciprocal (pl.reciprocal(approx=True) in
+// lattice_pallas.py:158-160, :1060-1061, :1281-1285): rcp.approx, not IEEE.
+__device__ __forceinline__ float approx_rcp(float x) {
+  return __fdividef(1.f, x);
+}
+
 // The multiplier step of one distance constraint, given its current length
 // and the inverse masses of its anchor (wa) and partner (wb): the arithmetic
-// of solvers/lattice.py::_family_pass for an anchor whose mask is set.
+// of solvers/lattice.py::_family_pass for an anchor whose mask is set
+// (with approx_math, times the approximate reciprocal of the denominator).
 __device__ __forceinline__ float constraint_dl(const LatticeParams& p, int f,
                                                float len, float wa, float wb,
                                                float lam, int jacobi) {
   const float alpha = p.alpha[f];
   const float c = len - p.rest[f];
   const float denom = wa + wb + alpha;
-  float dl = (-c - alpha * lam) / fmaxf(denom, 1e-30f);
+  const float num = -c - alpha * lam;
+  float dl = p.approx_math ? num * approx_rcp(fmaxf(denom, 1e-30f))
+                           : num / fmaxf(denom, 1e-30f);
   if (p.max_dlambda > 0.f) dl = clampf(dl, -p.max_dlambda, p.max_dlambda);
   if (p.dl_rel[f] > 0.f) dl = clampf(dl, -p.dl_rel[f], p.dl_rel[f]);
   if (p.fast_math) {

@@ -85,6 +85,17 @@
 // does nothing more yet, by choice: fusing passes, CUDA graphs, splitting
 // the hub's and the dense rows' sums across threads come later.
 //
+// approx_math (mesh_pallas.py:810-811; its sites :1072-1075, :1103 and
+// :1193-1195): every distance projection (JACOBI, COLORED and the warm
+// pre-apply) takes the edge's length as |d|^2 * rsqrtf(|d|^2) and its unit
+// direction as d times that rsqrt, and the bending pass normalises the
+// hinge normals (and scales its a / b vectors) by rsqrtf of their squared
+// lengths in place of dividing by their lengths.  The TPU kernel's switch
+// to single-pass bf16 one-hot products under approx_math
+// (mesh_pallas.py:874-876) is an artifact of its matrix unit and has no
+// counterpart here.  The plain twin (solvers/general.py, approx_math=True)
+// takes torch.rsqrt.
+//
 // Floats: built without --use_fast_math and with -fmad=false, so every
 // product and sum is rounded as written, in the operation order of the plain
 // PyTorch engine (cross products component by component, dot products
@@ -112,12 +123,17 @@ __device__ float bending_dl(const MeshParams& p, float pp[4][3],
   const float l1sq = dot3(n1, n1);
   const float l2sq = dot3(n2, n2);
   const bool geom_ok = l1sq >= 1e-9f && l2sq >= 1e-9f;
-  const float l1 = sqrtf(fmaxf(l1sq, 1e-24f));
-  const float l2 = sqrtf(fmaxf(l2sq, 1e-24f));
+  // l1, l2: the normals' lengths, or with approx_math the rsqrt of their
+  // squares (mesh_pallas.py:1193-1195), by which the normals and the a / b
+  // vectors below are multiplied in place of a division (unit_coord)
+  const float l1 = p.approx_math ? rsqrtf(fmaxf(l1sq, 1e-24f))
+                                 : sqrtf(fmaxf(l1sq, 1e-24f));
+  const float l2 = p.approx_math ? rsqrtf(fmaxf(l2sq, 1e-24f))
+                                 : sqrtf(fmaxf(l2sq, 1e-24f));
   float n1n[3], n2n[3];
   for (int c = 0; c < 3; ++c) {
-    n1n[c] = n1[c] / l1;
-    n2n[c] = n2[c] / l2;
+    n1n[c] = unit_coord(p, n1[c], l1, l1);
+    n2n[c] = unit_coord(p, n2[c], l2, l2);
   }
   const float cs = clampf(dot3(n1n, n2n), -1.f, 1.f);
   const float angle = acosf(cs);
@@ -130,8 +146,8 @@ __device__ float bending_dl(const MeshParams& p, float pp[4][3],
 
   float av[3], bv[3];
   for (int c = 0; c < 3; ++c) {
-    av[c] = (n2n[c] - cs * n1n[c]) / l1;
-    bv[c] = (n1n[c] - cs * n2n[c]) / l2;
+    av[c] = unit_coord(p, n2n[c] - cs * n1n[c], l1, l1);
+    bv[c] = unit_coord(p, n1n[c] - cs * n2n[c], l2, l2);
   }
   const float scale = -inv_sin;
   float t1[3], t2[3];
@@ -204,7 +220,8 @@ __global__ void edge_kernel(MeshParams p, MeshBuffers bb, int warm) {
   load3(b.pred, n, ia, pa);
   load3(b.pred, n, ib, pb);
   for (int c = 0; c < 3; ++c) d[c] = pb[c] - pa[c];
-  const float len = sqrtf(fmaxf(dot3(d, d), 1e-24f));
+  float inv;
+  const float len = edge_length(p, d, &inv);
   float s;
   if (warm) {
     s = b.lam[e] * b.warm_scale[e];
@@ -223,7 +240,7 @@ __global__ void edge_kernel(MeshParams p, MeshBuffers bb, int warm) {
     b.lam[e] = lam;
   }
   for (int c = 0; c < 3; ++c) {
-    const float dp = s * (d[c] / len);
+    const float dp = s * unit_coord(p, d[c], len, inv);
     b.contrib[3 * e + c] = -wa * dp;
     b.contrib[3 * (ne + e) + c] = wb * dp;
   }
@@ -270,7 +287,8 @@ __global__ void edge_color_kernel(MeshParams p, MeshBuffers bb, int color,
   load3(b.pred, n, ia, pa);
   load3(b.pred, n, ib, pb);
   for (int c = 0; c < 3; ++c) d[c] = pb[c] - pa[c];
-  const float len = sqrtf(fmaxf(dot3(d, d), 1e-24f));
+  float inv;
+  const float len = edge_length(p, d, &inv);
   float lam = b.lam[e];
   if (clamp_in && p.lambda_clamp > 0.f)
     lam = clampf(lam, -p.lambda_clamp, p.lambda_clamp);
@@ -280,7 +298,7 @@ __global__ void edge_color_kernel(MeshParams p, MeshBuffers bb, int color,
     lam = clampf(lam, -p.lambda_clamp, p.lambda_clamp);
   b.lam[e] = lam;
   for (int c = 0; c < 3; ++c) {
-    const float dp = dl * (d[c] / len);
+    const float dp = dl * unit_coord(p, d[c], len, inv);
     pa[c] = pa[c] + -wa * dp;
     pb[c] = pb[c] + wb * dp;
   }

@@ -74,6 +74,7 @@ struct MeshParams {
                        // a shared (N) leaf, N for per-body masses
   int mat_stride;      // floats between two bodies' rest and alpha: 0 for
                        // shared materials, E for per-body (B, E) ones
+  int approx_math;     // rsqrt in the distance and bending passes
 };
 
 // Device pointers, all 8 bytes wide.  In an ensemble every per-body buffer
@@ -160,6 +161,27 @@ __device__ __forceinline__ void store3(float* plane, int n, int i,
   plane[i] = o[0];
   plane[n + i] = o[1];
   plane[2 * n + i] = o[2];
+}
+
+// An edge's length and the factor by which its unit direction is taken:
+// sqrt(max(|d|^2, 1e-24)) and a division by it, or with approx_math
+// |d|^2 * rsqrtf(max(|d|^2, 1e-24)) and a product with that rsqrt
+// (mesh_pallas.py:1072-1075, :1103); *inv is 0 on the exact path.
+__device__ __forceinline__ float edge_length(const MeshParams& p,
+                                             const float d[3], float* inv) {
+  const float len_sq = dot3(d, d);
+  if (p.approx_math) {
+    *inv = rsqrtf(fmaxf(len_sq, 1e-24f));
+    return len_sq * *inv;
+  }
+  *inv = 0.f;
+  return sqrtf(fmaxf(len_sq, 1e-24f));
+}
+
+// d[c] / len, or d[c] * inv with approx_math (edge_length).
+__device__ __forceinline__ float unit_coord(const MeshParams& p, float dc,
+                                            float len, float inv) {
+  return p.approx_math ? dc * inv : dc / len;
 }
 
 // ops/distance.py::distance_delta_lambda for one edge of length len.

@@ -145,8 +145,7 @@ def pair_with_vjp_params(kernel_fn, plain_fn):
 def _guard_exact_forward(kernel_kw: dict):
     """The pairing requires the exact-math kernel forward: ``approx_math``
     changes the kernel's arithmetic, so the plain backward would be
-    linearized at a drifted trajectory (and the port's kernels do not
-    carry it)."""
+    linearized at a drifted trajectory (JAX's runners refuse it too)."""
     if kernel_kw.get("approx_math", False):
         raise NotImplementedError(
             "differentiable paired runners require the exact-math kernel "

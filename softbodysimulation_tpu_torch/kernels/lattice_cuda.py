@@ -4,8 +4,13 @@ runners.
 Counterpart of ``softbodysimulation_tpu/kernels/lattice_pallas.py``:
 ``make_cuda_substep_runner`` stands for both ``make_pallas_substep_runner``
 and ``make_pallas_substep_runner_streamed`` (one kernel covers both, the
-resident kernel's joint g + ext ``max_force`` clamp included), and
-``make_cuda_step`` for ``make_pallas_step``.
+resident kernel's joint g + ext ``max_force`` clamp included, and their
+``approx_math`` variant), ``make_cuda_step`` for ``make_pallas_step``, and
+``make_hybrid_contact_step`` / ``make_hybrid_contact_runner`` for their
+namesakes (``:1720-1859``): a self-colliding config's contact-free
+substeps as kernel launch sequences between contact substeps of the plain
+stencil engine (on the card, its blocked pass is TPU kernel B-4).
+``route(cfg)`` says which of them a step built from ``cfg`` runs.
 
 The rigid world reaches the kernel as a collider table
 (``ops/collision.RigidWorld.table``, ``csrc/colliders.cuh``): the config's
@@ -88,6 +93,7 @@ class LatticeParams(ctypes.Structure):
         ("tet_off", ((ctypes.c_int * 3) * 3) * 6),
         ("tet_alpha", ctypes.c_float), ("tet_target", ctypes.c_float),
         ("tet_omega", ctypes.c_float), ("body_n", ctypes.c_int),
+        ("approx_math", ctypes.c_int),
     ]
 
 
@@ -98,14 +104,14 @@ _FLOOR_MODE = {FloorMode.NONE: 0, FloorMode.XPBD_INEQUALITY: 1,
 
 
 def _check_supported(cfg: SolverConfig, spec: LatticeSpec,
-                     approx_math: bool = False, kin_colliders=None):
-    """Build-time refusals: the plain engine's, plus the kernel's options
-    that are not ported and its fixed table sizes."""
-    _lat.check_supported(cfg, spec)
-    if approx_math:
+                     kin_colliders=None):
+    """Build-time refusals: self-collision (as JAX's streamed runner
+    refuses it: ``make_hybrid_contact_runner`` or the stencil engine run
+    it) and the kernel's fixed table sizes."""
+    if cfg.enable_self_collision:
         raise NotImplementedError(
-            "lattice kernel: approx_math (rsqrt / approximate reciprocal) "
-            "is not ported (ROADMAP A-4)")
+            "lattice kernel: self-collision runs in the hybrid contact "
+            "step / runner or the stencil engine, not in the kernel")
     if spec.n_families > MAX_FAM:
         raise NotImplementedError(
             f"lattice kernel: at most {MAX_FAM} offset families")
@@ -117,12 +123,13 @@ def _check_supported(cfg: SolverConfig, spec: LatticeSpec,
             f"box colliders")
 
 
-def make_params(spec: LatticeSpec, cfg: SolverConfig,
-                dt: float) -> LatticeParams:
+def make_params(spec: LatticeSpec, cfg: SolverConfig, dt: float,
+                approx_math: bool = False) -> LatticeParams:
     """The kernel's constants, each rounded to float32 from the same double
     expression the plain engine (and the JAX engine) evaluates; the
     collider counts are a launch's (``run_substeps_cuda``)."""
     p = LatticeParams()
+    p.approx_math = int(approx_math)
     p.res = spec.res
     p.n = p.body_n = spec.n_particles
     p.nfam = spec.n_families
@@ -196,10 +203,30 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, vp, vp, vp, vp, vp, vp, vp, ctypes.c_int,
         ctypes.POINTER(ctypes.c_longlong), vp]
     lib.lattice_xpbd_run.restype = ctypes.c_int
+    lib.lattice_xpbd_approx_probe.argtypes = [vp, vp, ctypes.c_int, vp]
+    lib.lattice_xpbd_approx_probe.restype = ctypes.c_int
     if lib.lattice_xpbd_params_size() != ctypes.sizeof(LatticeParams):
         raise RuntimeError("LatticeParams layout differs between "
                            "lattice_cuda.py and lattice_xpbd.cu")
     return lib
+
+
+def approx_probe(x: torch.Tensor):
+    """(rsqrtf(x), the approximate reciprocal of x) as the ``approx_math``
+    kernel computes them, for float32 ``x`` on the card: a diagnostic off
+    every path (its launch is not counted), to hold the intrinsics against
+    ``torch.rsqrt`` and ``torch.reciprocal``."""
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        raise ValueError("approx_probe takes a float32 CUDA tensor")
+    x = x.contiguous().reshape(-1)
+    out = torch.empty(2 * x.numel(), dtype=torch.float32, device=x.device)
+    rc = _library().lattice_xpbd_approx_probe(
+        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        x.numel(), ctypes.c_void_p(
+            torch.cuda.current_stream(x.device).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"approx probe launch failed ({rc})")
+    return out[:x.numel()], out[x.numel():]
 
 
 def _ptr(name: str, t: torch.Tensor, shape, device) -> ctypes.c_void_p:
@@ -260,12 +287,13 @@ def _check_leaves(state: SimState, spec: LatticeSpec, b, batched: bool):
 def run_substeps_cuda(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
                       dt_sub: float, n_substeps: int,
                       with_ext: bool = False,
-                      batched: bool = False) -> SimState:
+                      batched: bool = False,
+                      approx_math: bool = False) -> SimState:
     """Launch the kernel for ``n_substeps`` substeps of a CUDA state; the
     semantics of ``solvers.lattice.run_substeps_plain`` (``batched``: of
-    ``run_substeps_plain_batched``, all bodies in one launch a pass), the
-    state's ColliderSet (if any) replacing the config's rigid world.  No
-    host sync."""
+    ``run_substeps_plain_batched``, all bodies in one launch a pass;
+    ``approx_math`` as there), the state's ColliderSet (if any) replacing
+    the config's rigid world.  No host sync."""
     global launches
     _lat.check_state(state, cfg)
     dev = state.device
@@ -310,7 +338,7 @@ def run_substeps_cuda(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
             _ptr("pred", pred_b, (3, n), dev), lam_t_ptr, terms_ptr,
             _ptr("colliders", world.table, (1 + sum(rows),
                                              _collision.KIN_W), dev)]
-    params = make_params(spec, cfg, dt_sub)
+    params = make_params(spec, cfg, dt_sub, approx_math)
     params.n = n
     params.n_spheres, params.n_boxes = rows
     lib = _library()
@@ -338,17 +366,18 @@ def run_substeps_cuda(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
 
 def advance(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
             dt_sub: float, n_substeps: int, with_ext: bool,
-            batched: bool = False) -> SimState:
+            batched: bool = False, approx_math: bool = False) -> SimState:
     """A CUDA state launches the kernel; a CPU state runs the plain engine
-    (``batched``: the lane-folded ensemble engine); any other device
-    raises."""
+    (``batched``: the lane-folded ensemble engine; ``approx_math``: its
+    twin); any other device raises."""
     if state.device.type == "cuda":
         return run_substeps_cuda(state, spec, cfg, dt_sub, n_substeps,
-                                 with_ext, batched)
+                                 with_ext, batched, approx_math)
     if state.device.type == "cpu":
         plain = (_lat.run_substeps_plain_batched if batched
                  else _lat.run_substeps_plain)
-        return plain(state, spec, cfg, dt_sub, n_substeps, with_ext)
+        return plain(state, spec, cfg, dt_sub, n_substeps, with_ext,
+                     approx_math)
     raise NotImplementedError(
         f"lattice kernel: no path for a state on {state.device}")
 
@@ -373,21 +402,43 @@ def make_cuda_substep_runner(spec: LatticeSpec, cfg: SolverConfig,
     inv_mass ``(B, N)`` or a shared ``(N,)`` -- whose bodies advance in one
     launch a pass on a CUDA state (the lane-folded plain engine on a CPU
     state), one shared ColliderSet acting on every body.
-    ``approx_math`` is not ported and raises ``NotImplementedError`` here,
-    at build time."""
+
+    ``approx_math``: the variant ``bench.py`` runs first
+    (``csrc/lattice_xpbd.cu``: rsqrtf and the approximate reciprocal in the
+    family passes and the tet sweep; on a CPU state the plain twin,
+    ``run_substeps_plain(..., approx_math=True)``), single body or
+    ensemble.  Self-collision raises ``NotImplementedError`` here, at build
+    time, as JAX's streamed runner does."""
     kin = None if kin_colliders is None else tuple(
         int(k) for k in kin_colliders)
     batched = body_contract(n_bodies, batched)
-    _check_supported(cfg, spec, approx_math=approx_math, kin_colliders=kin)
+    _check_supported(cfg, spec, kin_colliders=kin)
 
     def fn(state: SimState) -> SimState:
         check_kin(kin, state.colliders, "lattice runner")
         if batched:
             check_bodies(state, n_bodies, "lattice runner")
         return advance(state, spec, cfg, dt_sub, n_substeps, with_ext,
-                       batched)
+                       batched, approx_math)
 
     return fn
+
+
+def route(cfg: SolverConfig) -> str:
+    """The route a lattice step or substep runner built from ``cfg`` takes
+    (``make_pallas_step``'s rule, ``lattice_pallas.py:484-487``):
+    ``"kernel"`` without self-collision; ``"hybrid"`` (the hybrid contact
+    step / runner) for a contact cadence ``self_collision_every >= 2`` that
+    divides the frame; ``"plain"`` (the stencil engine alone, on the
+    state's device, as JAX runs it) for any other self-colliding config.
+    Read from the config when the step is built; on a CPU state every
+    kernel of a route runs its plain version."""
+    if not cfg.enable_self_collision:
+        return "kernel"
+    every = cfg.self_collision_every
+    if every >= 2 and cfg.substeps % every == 0:
+        return "hybrid"
+    return "plain"
 
 
 def make_cuda_step(spec: LatticeSpec, cfg: SolverConfig, dt: float,
@@ -397,8 +448,104 @@ def make_cuda_step(spec: LatticeSpec, cfg: SolverConfig, dt: float,
     ``state.ext_force`` consumed on the first substep and zeroed after
     (drop-in for ``solvers.lattice.make_step``; with ``n_bodies``, for
     ``make_batched_step``); ``kin_colliders``, ``n_bodies`` and
-    ``batched`` as in ``make_cuda_substep_runner``."""
+    ``batched`` as in ``make_cuda_substep_runner``.  Routed as
+    ``make_pallas_step`` routes (``route``): a single body's ``"hybrid"``
+    config goes to ``make_hybrid_contact_step``; any other self-colliding
+    config is refused, as by the kernel's runner."""
+    if route(cfg) == "hybrid" and not body_contract(n_bodies, batched):
+        return make_hybrid_contact_step(spec, cfg, dt, n_steps,
+                                        kin_colliders=kin_colliders)
     return make_cuda_substep_runner(spec, cfg, dt / cfg.substeps,
                                     n_steps * cfg.substeps, with_ext=True,
                                     kin_colliders=kin_colliders,
                                     n_bodies=n_bodies, batched=batched)
+
+
+def _contact_substep(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
+                     dt_sub: float, with_ext: bool) -> SimState:
+    """One contact substep of the plain stencil engine on the state's
+    device (self-collision on; ``ext_force`` applied when ``with_ext``),
+    ``ext_force`` zeroed after it, as JAX's ``_from_grid`` zeroes it."""
+    out = _lat.run_substeps_plain(state, spec, cfg, dt_sub, 1, with_ext)
+    return out.replace(ext_force=torch.zeros_like(state.ext_force))
+
+
+def _hybrid_checks(cfg: SolverConfig, what: str):
+    if not cfg.enable_self_collision or cfg.self_collision_every < 2:
+        raise ValueError(f"hybrid contact {what} needs enable_self_collision "
+                         f"and self_collision_every >= 2")
+
+
+def make_hybrid_contact_step(spec: LatticeSpec, cfg: SolverConfig,
+                             dt: float, n_steps: int = 1,
+                             kin_colliders=None):
+    """Step-semantics twin of ``make_hybrid_contact_runner``
+    (``lattice_pallas.make_hybrid_contact_step``, ``:1720-1787``):
+    ``n_steps`` frames of ``cfg.substeps`` substeps, contact on substeps
+    ``j % every == 0`` within each frame, ``state.ext_force`` consumed on
+    the first substep of the first frame and zeroed after.  A frame is
+    ``substeps // every`` groups of [a contact substep of the plain
+    stencil engine; the ``every - 1`` contact-free substeps as one kernel
+    launch sequence]; ``kin_colliders=(S, B)``: the state's ColliderSet
+    on both halves.  ``ValueError`` without self-collision or with
+    ``every < 2``; ``NotImplementedError`` where ``every`` does not divide
+    the frame (the stencil engine runs that, ``route``)."""
+    _hybrid_checks(cfg, "step")
+    every = cfg.self_collision_every
+    if cfg.substeps % every != 0:
+        raise NotImplementedError(
+            "hybrid contact step needs substeps % self_collision_every == 0 "
+            "(the stencil engine runs the other cadences)")
+    dt_sub = dt / cfg.substeps
+    inner = make_cuda_substep_runner(
+        spec, cfg.replace(enable_self_collision=False), dt_sub, every - 1,
+        kin_colliders=kin_colliders)
+    groups = cfg.substeps // every
+
+    def fn(state: SimState) -> SimState:
+        for frame in range(n_steps):
+            for g in range(groups):
+                state = _contact_substep(state, spec, cfg, dt_sub,
+                                         frame == 0 and g == 0)
+                state = inner(state)
+        return state
+
+    fn.route = "hybrid"
+    return fn
+
+
+def make_hybrid_contact_runner(spec: LatticeSpec, cfg: SolverConfig,
+                               dt_sub: float, n_substeps: int,
+                               approx_math: bool = False,
+                               kin_colliders=None):
+    """Contact cadence with the kernel
+    (``lattice_pallas.make_hybrid_contact_runner``, ``:1790-1859``): the
+    semantics of ``solvers.lattice.run_substeps_plain`` with contact on
+    substeps ``i % every == 0`` of ``n_substeps`` raw substeps.  Each full
+    cadence group is a contact substep of the plain stencil engine (on the
+    card its blocked backend is B-4) followed by the ``every - 1``
+    contact-free substeps as one kernel launch sequence (``approx_math``
+    and ``kin_colliders`` there, as in JAX); a tail of ``t < every``
+    substeps is a contact substep and ``t - 1`` contact-free stencil
+    substeps.  ``ext_force`` is not applied, and a contact substep zeroes
+    it, as JAX's does.  ``ValueError`` without self-collision or with
+    ``every < 2``."""
+    _hybrid_checks(cfg, "runner")
+    every = cfg.self_collision_every
+    cfg_free = cfg.replace(enable_self_collision=False)
+    inner = make_cuda_substep_runner(spec, cfg_free, dt_sub, every - 1,
+                                     approx_math=approx_math,
+                                     kin_colliders=kin_colliders)
+    n_full, tail = divmod(n_substeps, every)
+
+    def fn(state: SimState) -> SimState:
+        for _ in range(n_full):
+            state = inner(_contact_substep(state, spec, cfg, dt_sub, False))
+        if tail:
+            state = _contact_substep(state, spec, cfg, dt_sub, False)
+            state = _lat.run_substeps_plain(state, spec, cfg_free, dt_sub,
+                                            tail - 1)
+        return state
+
+    fn.route = "hybrid"
+    return fn

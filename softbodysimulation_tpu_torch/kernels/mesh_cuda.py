@@ -14,8 +14,20 @@ Self-collision runs inside the library's substep loop: the dense backend
 as the kernel's all-pairs pass, ``blocked`` and ``blocked_pallas`` (one
 semantics) as TPU kernel B-4's pass (``csrc/contact_xpbd.cu``, linked into
 this library; its launches count in ``kernels.contact_cuda.launches``).
-The ``hash`` and ``sorted`` backends run only in the plain engine, for a
-CPU state.
+The ``hash`` and ``sorted`` backends run in the plain engine on the
+state's device (``route``): at a cadence that divides the frame,
+``make_mesh_hybrid_contact_step`` runs their contact substeps there and
+the contact-free ones in the library, as the JAX hybrid step does; the
+library itself refuses them on a CUDA state (``check_cuda``), as JAX's
+mesh kernel does.
+
+``approx_math`` (``mesh_pallas.py:810-811``) takes the distance
+projections' lengths and directions and the bending normals through
+rsqrt (``csrc/mesh_xpbd.cu``); the plain twin is ``solvers.general
+.run_substeps_plain(..., approx_math=True)``.  The TPU kernel's switch to
+bf16-truncated one-hot products under ``approx_math``
+(``mesh_pallas.py:874-876``) is an artifact of its matrix unit and is not
+carried.
 
 Device dispatch, with no fallback: a state on a CUDA device launches the
 kernel (or raises); a state on the CPU runs the kernel's plain version,
@@ -113,6 +125,7 @@ class MeshParams(ctypes.Structure):
         ("tet_pressure", ctypes.c_float), ("sc_omega", ctypes.c_float),
         ("sc_diam", ctypes.c_float), ("n_bodies", ctypes.c_int),
         ("w_stride", ctypes.c_int), ("mat_stride", ctypes.c_int),
+        ("approx_math", ctypes.c_int),
     ]
 
 
@@ -149,14 +162,13 @@ _LAMBDA_MODE = {LambdaMode.RESET: 0, LambdaMode.DECAY: 1,
                 LambdaMode.WARM_START: 2}
 _FLOOR_MODE = {FloorMode.NONE: 0, FloorMode.XPBD_INEQUALITY: 1,
                FloorMode.VELOCITY_REFLECT: 2}
-# self-collision backend -> the library's sc_mode (hash and sorted: plain
-# engine only)
+# self-collision backend -> the library's sc_mode (hash and sorted: the
+# plain engine's, ``route``)
 _SC_MODE = {"dense": 1, "blocked": 2, "blocked_pallas": 2}
 
 
 def _check_supported(cfg: SolverConfig, topo: Topology,
-                     approx_math: bool = False, batched: bool = False,
-                     kin_colliders=None, device=None):
+                     batched: bool = False, kin_colliders=None, device=None):
     """Build-time refusals: the plain engine's, plus the kernel's options
     that are not ported and its fixed table sizes; with a CUDA ``device``,
     also what only the plain engine runs (``check_cuda``).  An ensemble
@@ -166,10 +178,6 @@ def _check_supported(cfg: SolverConfig, topo: Topology,
     _general.check_supported(cfg)
     if device is not None and torch.device(device).type == "cuda":
         check_cuda(cfg, topo)
-    if approx_math:
-        raise NotImplementedError(
-            "mesh kernel: approx_math (rsqrt / approximate reciprocal) is "
-            "not ported (ROADMAP A-4)")
     if (batched and cfg.enable_self_collision
             and cfg.self_collision_backend != "dense"):
         raise NotImplementedError(
@@ -187,17 +195,17 @@ def _check_supported(cfg: SolverConfig, topo: Topology,
 
 
 def check_cuda(cfg: SolverConfig, topo: Topology):
-    """What a CUDA state is refused: the self-collision backends the
-    library does not run (``hash``, ``sorted``: plain engine only, as the
-    JAX mesh kernel sends them to its XLA engine) and blocked layouts the
-    B-4 kernel does not take."""
+    """What the library refuses on a CUDA state: the self-collision
+    backends it does not run (``hash``, ``sorted``: the plain engine runs
+    them on the card, ``route``, as the JAX mesh kernel sends them to its
+    XLA engine) and blocked layouts the B-4 kernel does not take."""
     if not cfg.enable_self_collision:
         return
     if cfg.self_collision_backend not in _SC_MODE:
         raise NotImplementedError(
             f"mesh kernel: the {cfg.self_collision_backend!r} self-collision "
-            "backend runs only in the plain engine (a CPU state); use "
-            "'dense', 'blocked' or 'blocked_pallas'")
+            "backend runs in the plain engine (solvers.general.make_step "
+            "routes it there), not in the kernel")
     if _SC_MODE[cfg.self_collision_backend] == 2:
         _contact.check_layout(topo.n_particles, cfg)
 
@@ -405,12 +413,13 @@ def run_substeps_cuda(state: SimState, topo: Topology, cfg: SolverConfig,
                       dt_sub: float, n_substeps: int,
                       with_ext: bool = False, materials=None,
                       batched: bool = False,
-                      per_body_mass: bool = False) -> SimState:
+                      per_body_mass: bool = False,
+                      approx_math: bool = False) -> SimState:
     """Launch the kernel for ``n_substeps`` substeps of a CUDA state; the
     semantics of ``solvers.general.run_substeps_plain`` (``batched``: of
-    ``run_substeps_plain_batched``, every body in one launch a pass), the
-    state's ColliderSet (if any) replacing the config's rigid world.  No
-    host sync."""
+    ``run_substeps_plain_batched``, every body in one launch a pass;
+    ``approx_math`` as there), the state's ColliderSet (if any) replacing
+    the config's rigid world.  No host sync."""
     global launches
     _general.check_state(state)
     dev = state.device
@@ -427,6 +436,7 @@ def run_substeps_cuda(state: SimState, topo: Topology, cfg: SolverConfig,
     params = launch_params(tables, world)
     params.n_bodies = b
     params.w_stride = n if per_body_mass else 0
+    params.approx_math = int(approx_math)
     if state.lambda_tet is None and topo.n_tets:
         # no multipliers, no tet sweep (general._substep's has_tets)
         params.n_tets = params.tets_on = 0
@@ -509,17 +519,20 @@ def run_substeps_cuda(state: SimState, topo: Topology, cfg: SolverConfig,
 def advance(state: SimState, topo: Topology, cfg: SolverConfig,
             dt_sub: float, n_substeps: int, with_ext: bool,
             materials=None, batched: bool = False,
-            per_body_mass: bool = False) -> SimState:
+            per_body_mass: bool = False,
+            approx_math: bool = False) -> SimState:
     """A CUDA state launches the kernel; a CPU state runs the plain engine
-    (``batched``: body by body); any other device raises."""
+    (``batched``: body by body; ``approx_math``: its twin); any other
+    device raises."""
     if state.device.type == "cuda":
         return run_substeps_cuda(state, topo, cfg, dt_sub, n_substeps,
-                                 with_ext, materials, batched, per_body_mass)
+                                 with_ext, materials, batched, per_body_mass,
+                                 approx_math)
     if state.device.type == "cpu":
         plain = (_general.run_substeps_plain_batched if batched
                  else _general.run_substeps_plain)
         return plain(state, topo, cfg, dt_sub, n_substeps, with_ext,
-                     materials)
+                     materials, approx_math)
     raise NotImplementedError(
         f"mesh kernel: no path for a state on {state.device}")
 
@@ -552,18 +565,21 @@ def make_mesh_cuda_substep_runner(topo: Topology, cfg: SolverConfig,
     for every body.  On a CUDA state every body advances in one launch a
     pass; on a CPU state ``general.run_substeps_plain_batched``.
 
-    ``approx_math``, and an ensemble with another self-collision backend
-    than ``dense``, raise ``NotImplementedError`` here, at build time, as
-    do the configurations the plain engine refuses and, when ``device``
-    names a CUDA device, what a CUDA state is refused (``check_cuda``; a
-    CUDA state is checked again when it arrives)."""
+    ``approx_math``: the kernel's rsqrt variant (module docstring), one
+    body or an ensemble; on a CPU state its plain twin.
+
+    An ensemble with another self-collision backend than ``dense`` raises
+    ``NotImplementedError`` here, at build time, as do the configurations
+    the plain engine refuses and, when ``device`` names a CUDA device, what
+    a CUDA state is refused (``check_cuda``; a CUDA state is checked again
+    when it arrives)."""
     kin = None if kin_colliders is None else tuple(
         int(k) for k in kin_colliders)
     batched = body_contract(n_bodies, batched)
     if per_body_mass and not batched:
         raise ValueError("per_body_mass requires the batched contract")
-    _check_supported(cfg, topo, approx_math=approx_math, batched=batched,
-                     kin_colliders=kin, device=device)
+    _check_supported(cfg, topo, batched=batched, kin_colliders=kin,
+                     device=device)
 
     def fn(state: SimState, materials=None) -> SimState:
         check_kin(kin, state.colliders, "mesh runner")
@@ -577,9 +593,29 @@ def make_mesh_cuda_substep_runner(topo: Topology, cfg: SolverConfig,
                     f"{per_body_mass} takes a "
                     f"{'(B, N)' if per_body_mass else 'shared (N,)'} leaf")
         return advance(state, topo, cfg, dt_sub, n_substeps, with_ext,
-                       materials, batched, per_body_mass)
+                       materials, batched, per_body_mass, approx_math)
 
     return fn
+
+
+def route(cfg: SolverConfig) -> str:
+    """The route ``solvers.general.make_step`` takes for ``cfg``, read from
+    the config when the step is built: ``"kernel"`` (this library, through
+    ``make_mesh_cuda_step``) without self-collision or with a backend the
+    library runs (dense, blocked, blocked_pallas); for ``hash`` (the JAX
+    default) and ``sorted``, ``"hybrid"``
+    (``make_mesh_hybrid_contact_step``) at a cadence
+    ``self_collision_every >= 2`` that divides the frame, else ``"plain"``
+    (the plain engine alone on the state's device, what JAX's
+    ``general.make_step`` runs).  On a CPU state every kernel of a route
+    runs its plain version."""
+    if (not cfg.enable_self_collision
+            or cfg.self_collision_backend in _SC_MODE):
+        return "kernel"
+    every = cfg.self_collision_every
+    if every >= 2 and cfg.substeps % every == 0:
+        return "hybrid"
+    return "plain"
 
 
 def make_mesh_cuda_step(topo: Topology, cfg: SolverConfig, dt: float,
@@ -618,15 +654,18 @@ def make_mesh_cuda_step(topo: Topology, cfg: SolverConfig, dt: float,
 def make_mesh_hybrid_contact_step(topo: Topology, cfg: SolverConfig,
                                   dt: float, n_steps: int = 1, device=None,
                                   kin_colliders=None):
-    """Contact-cadence step (``mesh_pallas.make_mesh_hybrid_contact_step``'s
-    semantics): ``n_steps`` frames in which substep i of a frame projects
-    self-collision iff ``i % self_collision_every == 0``, exactly
+    """Contact-cadence step (``mesh_pallas.make_mesh_hybrid_contact_step``,
+    ``:2119-2170``): ``n_steps`` frames in which substep i of a frame
+    projects self-collision iff ``i % self_collision_every == 0``, exactly
     ``general.step_fn``'s cadence, and ``ext_force`` is consumed on the
-    first substep of the first step and zeroed after.  Where the JAX step
-    runs the contact substeps in its XLA engine, here every substep runs in
-    the library's loop (on the card, the B-4 pass for blocked contact);
-    since the cadence divides the frame, the raw-substep gate of that loop
-    is the per-frame pattern."""
+    first substep of the first step and zeroed after.  For ``hash`` and
+    ``sorted``, as in JAX, a frame is ``substeps // every`` groups of [a
+    contact substep of the plain engine on the state's device; the ``every
+    - 1`` contact-free substeps in the library]; for the backends the
+    library runs (blocked, blocked_pallas; on the card the B-4 pass), every
+    substep runs in the library's loop, whose raw-substep gate is the
+    per-frame pattern since the cadence divides the frame.
+    ``kin_colliders``: the state's ColliderSet on both halves."""
     every = cfg.self_collision_every
     if not cfg.enable_self_collision or every < 2:
         raise ValueError("mesh hybrid contact step needs "
@@ -636,7 +675,25 @@ def make_mesh_hybrid_contact_step(topo: Topology, cfg: SolverConfig,
         raise NotImplementedError(
             "mesh hybrid contact step needs substeps % "
             "self_collision_every == 0 (use the plain engine otherwise)")
-    return make_mesh_cuda_substep_runner(topo, cfg, dt / cfg.substeps,
-                                         n_steps * cfg.substeps,
-                                         with_ext=True, device=device,
-                                         kin_colliders=kin_colliders)
+    dt_sub = dt / cfg.substeps
+    if cfg.self_collision_backend in _SC_MODE:
+        return make_mesh_cuda_substep_runner(topo, cfg, dt_sub,
+                                             n_steps * cfg.substeps,
+                                             with_ext=True, device=device,
+                                             kin_colliders=kin_colliders)
+    inner = make_mesh_cuda_substep_runner(
+        topo, cfg.replace(enable_self_collision=False), dt_sub, every - 1,
+        device=device, kin_colliders=kin_colliders)
+    groups = cfg.substeps // every
+
+    def fn(state: SimState) -> SimState:
+        for frame in range(n_steps):
+            for g in range(groups):
+                state = _general.run_substeps_plain(
+                    state, topo, cfg, dt_sub, 1,
+                    with_ext=frame == 0 and g == 0)
+                state = inner(state)
+        return state.replace(ext_force=torch.zeros_like(state.ext_force))
+
+    fn.route = "hybrid"
+    return fn

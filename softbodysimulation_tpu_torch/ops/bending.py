@@ -30,15 +30,18 @@ def cross3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def bending_delta_lambda(pa, pb, pc, pd, wa, wb, wc, wd, rest_angle,
-                         compliance, lam, dt, cfg: SolverConfig):
+                         compliance, lam, dt, cfg: SolverConfig,
+                         approx_math: bool = False):
     """Returns (dlambda (K,), grad_a, grad_b, grad_c, grad_d each (K,3)).
 
     Hinge edge a-b, opposite tips c, d.  C = acos(n1.n2) - rest_angle with
     n1 = normalize((b-a) x (c-a)), n2 = normalize((d-a) x (b-a)).
+    ``approx_math``: the normals scaled by the rsqrt of their squared
+    lengths (the mesh kernel's variant, ``mesh_pallas.py:1193-1195``).
     """
     return bending_delta_lambda_rel(
         pb - pa, pc - pa, pd - pa, wa, wb, wc, wd, rest_angle,
-        compliance, lam, dt, cfg)
+        compliance, lam, dt, cfg, approx_math)
 
 
 class _SafeArccos(torch.autograd.Function):
@@ -61,26 +64,45 @@ class _SafeArccos(torch.autograd.Function):
         return -g / torch.sqrt(torch.clamp(1.0 - x * x, min=1e-12))
 
 
-def _dihedral(e0, e1, e2):
-    """(|n1|^2, |n2|^2, |n1|, |n2|, n1 / |n1|, n2 / |n2|, clipped cos)
-    of the hinge normals n1 = e0 x e1, n2 = e2 x e0."""
+def _dihedral(e0, e1, e2, approx_math: bool = False):
+    """(|n1|^2, |n2|^2, unit1, unit2, n1 / |n1|, n2 / |n2|, clipped cos)
+    of the hinge normals n1 = e0 x e1, n2 = e2 x e0, where ``unit_k(v)``
+    is ``v / |n_k|``, or with ``approx_math`` ``v * rsqrt(|n_k|^2)``."""
     n1 = cross3(e0, e1)
     n2 = cross3(e2, e0)
     l1sq = dot3(n1, n1)
     l2sq = dot3(n2, n2)
-    l1 = torch.sqrt(torch.clamp(l1sq, min=1e-24))
-    l2 = torch.sqrt(torch.clamp(l2sq, min=1e-24))
-    n1n = n1 / l1[..., None]
-    n2n = n2 / l2[..., None]
+    if approx_math:
+        i1 = torch.rsqrt(torch.clamp(l1sq, min=1e-24))[..., None]
+        i2 = torch.rsqrt(torch.clamp(l2sq, min=1e-24))[..., None]
+
+        def unit1(v):
+            return v * i1
+
+        def unit2(v):
+            return v * i2
+    else:
+        l1 = torch.sqrt(torch.clamp(l1sq, min=1e-24))[..., None]
+        l2 = torch.sqrt(torch.clamp(l2sq, min=1e-24))[..., None]
+
+        def unit1(v):
+            return v / l1
+
+        def unit2(v):
+            return v / l2
+    n1n = unit1(n1)
+    n2n = unit2(n2)
     cos = torch.clamp(dot3(n1n, n2n), -1.0, 1.0)
-    return l1sq, l2sq, l1, l2, n1n, n2n, cos
+    return l1sq, l2sq, unit1, unit2, n1n, n2n, cos
 
 
 def bending_delta_lambda_rel(e0, e1, e2, wa, wb, wc, wd, rest_angle,
-                             compliance, lam, dt, cfg: SolverConfig):
+                             compliance, lam, dt, cfg: SolverConfig,
+                             approx_math: bool = False):
     """Same math in hinge-relative coordinates: e0 = pB-pA, e1 = pC-pA,
     e2 = pD-pA."""
-    l1sq, l2sq, l1, l2, n1n, n2n, cos = _dihedral(e0, e1, e2)
+    l1sq, l2sq, unit1, unit2, n1n, n2n, cos = _dihedral(e0, e1, e2,
+                                                        approx_math)
     geom_ok = (l1sq >= 1e-9) & (l2sq >= 1e-9)
     angle = _SafeArccos.apply(cos)
     c = angle - rest_angle
@@ -98,8 +120,8 @@ def bending_delta_lambda_rel(e0, e1, e2, wa, wb, wc, wd, rest_angle,
     #   grad_b d = e1 x A + B x e2;  grad_c d = A x e0;  grad_d d = e0 x B
     #   grad C = -grad d / sin(theta)
     cos_b = cos[..., None]
-    a_vec = (n2n - cos_b * n1n) / l1[..., None]
-    b_vec = (n1n - cos_b * n2n) / l2[..., None]
+    a_vec = unit1(n2n - cos_b * n1n)
+    b_vec = unit2(n1n - cos_b * n2n)
     scale = (-inv_sin)[..., None]
     grad_b = scale * (cross3(e1, a_vec) + cross3(b_vec, e2))
     grad_c = scale * cross3(a_vec, e0)

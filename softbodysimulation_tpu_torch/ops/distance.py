@@ -20,17 +20,30 @@ def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
+def length_and_unit(d, approx_math: bool = False):
+    """(length (K,), unit direction (K, 3)) of the (K, 3) vectors ``d``:
+    ``sqrt(max(|d|^2, 1e-24))`` and ``d / length``, or with ``approx_math``
+    (the mesh kernel's variant, ``mesh_pallas.py:1072-1075, 1103``)
+    ``|d|^2 * rsqrt(max(|d|^2, 1e-24))`` and ``d * rsqrt``."""
+    len_sq = dot3(d, d)
+    if approx_math:
+        inv = torch.rsqrt(torch.clamp(len_sq, min=1e-24))
+        return len_sq * inv, d * inv[..., None]
+    length = torch.sqrt(torch.clamp(len_sq, min=1e-24))
+    return length, d / length[..., None]
+
+
 def distance_delta_lambda(pa, pb, wa, wb, rest, compliance, lam, dt,
-                          cfg: SolverConfig):
+                          cfg: SolverConfig, approx_math: bool = False):
     """Per-constraint XPBD delta-lambda and unit gradient.
 
     All inputs batched over the leading axis.  Returns (dlambda (K,),
     normal (K,3)); invalid constraints (degenerate length, both endpoints
-    static, tiny denominator) yield dlambda == 0.
+    static, tiny denominator) yield dlambda == 0.  ``approx_math``: the
+    length and normal of ``length_and_unit``'s variant.
     """
     d = pb - pa
-    length = torch.sqrt(torch.clamp(dot3(d, d), min=1e-24))
-    n = d / length[..., None]
+    length, n = length_and_unit(d, approx_math)
 
     c = length - rest
     alpha = compliance * (1.0 / (dt * dt))

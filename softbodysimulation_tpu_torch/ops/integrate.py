@@ -12,9 +12,14 @@ finalize — v = (pred - x)/dt, x = pred, pinned particles frozen
 Divisions by ``dt`` go through ``over_dt``: a Python-float divisor is
 turned into a multiply by its reciprocal on CUDA, which rounds
 differently from the true division the JAX version and the CUDA kernel do.
+Constants reach the device without a copy from the host (``scalar``: a
+fill; ``gravity``: one copy per device, cached), so a substep on the card
+makes no host sync.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -22,9 +27,22 @@ import torch
 from ..core.config import DampingMode, SolverConfig
 
 
+def scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """``value`` rounded to ``like``'s dtype as a 0-dim tensor on its
+    device, filled there (no copy from the host, so no sync)."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
+
+
+@functools.lru_cache(maxsize=16)
+def gravity(g: tuple, dtype, device) -> torch.Tensor:
+    """The config's gravity as a (3,) tensor on ``device``, copied there
+    once."""
+    return torch.tensor(g, dtype=dtype, device=device)
+
+
 def over_dt(a: torch.Tensor, dt: float) -> torch.Tensor:
     """``a / dt`` as a true float32 division on every device."""
-    return a / torch.tensor(dt, dtype=a.dtype, device=a.device)
+    return a / scalar(dt, a)
 
 
 def damping_factor(cfg: SolverConfig, dt: float) -> float:
@@ -40,8 +58,7 @@ def damping_factor(cfg: SolverConfig, dt: float) -> float:
 def predict(positions, velocities, inv_mass, ext_force, dt,
             cfg: SolverConfig, apply_ext: bool = True):
     """Returns (pred_positions, new_velocities)."""
-    g = torch.tensor(cfg.gravity, dtype=positions.dtype,
-                     device=positions.device)
+    g = gravity(tuple(cfg.gravity), positions.dtype, positions.device)
     ext = ext_force if apply_ext else torch.zeros_like(ext_force)
     if cfg.gravity_is_acceleration:
         if cfg.max_force > 0:

@@ -21,18 +21,23 @@ separation pass per call, corrections ``self_collision_omega *
   along the Hilbert curve (approximate).
 
 The Hilbert order (``morton_order``) is computed once per substep and reused
-across the solver's iterations.  Sorts are stable and the top-M candidate
+across the solver's iterations.  The hash and sorted passes and the curve
+order make no host sync on the card: no ``.item()``, no NumPy, constants
+filled on the device or copied there once.  Sorts are stable and the top-M candidate
 selection breaks ties by the lower block index, as ``jnp.argsort`` and
 ``lax.top_k`` do, so both packages pick the same candidates.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from ..core.config import SolverConfig
 from .distance import dot3
+from .integrate import scalar
 
 _OFFSETS = np.array([(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
                      for dz in (-1, 0, 1)], dtype=np.int32)
@@ -41,8 +46,17 @@ _HILBERT_BITS = 9                          # 512 cells per axis
 
 def _div(a: torch.Tensor, divisor) -> torch.Tensor:
     """``a / divisor`` as a true float32 division on every device (a
-    Python-float divisor becomes a multiply by its reciprocal on CUDA)."""
-    return a / torch.as_tensor(divisor, dtype=a.dtype, device=a.device)
+    Python-float divisor becomes a multiply by its reciprocal on CUDA); a
+    tensor divisor as it is."""
+    if not isinstance(divisor, torch.Tensor):
+        divisor = scalar(divisor, a)
+    return a / divisor
+
+
+@functools.lru_cache(maxsize=8)
+def _offsets(device) -> torch.Tensor:
+    """The 27 neighbour-cell offsets on ``device``, copied there once."""
+    return torch.as_tensor(_OFFSETS, device=device)
 
 
 def _contact_coef(d2, wsum, radius, mask):
@@ -72,7 +86,7 @@ def self_collision_project(pred, inv_mass, cfg: SolverConfig):
     order = torch.argsort(cid, stable=True)
     sorted_cid = cid[order]
 
-    offs = torch.as_tensor(_OFFSETS, device=dev)
+    offs = _offsets(dev)
     ncoords = coords[:, None, :] + offs[None, :, :]          # (N, 27, 3)
     in_grid = ((ncoords >= 0) & (ncoords < g)).all(dim=-1)
     ncid = (ncoords[..., 0] * g + ncoords[..., 1]) * g + ncoords[..., 2]

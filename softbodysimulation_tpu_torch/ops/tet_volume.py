@@ -19,6 +19,7 @@ import torch
 from ..core.config import SolverConfig
 from .bending import cross3
 from .distance import dot3
+from .integrate import scalar
 
 
 def tet_volume6(p0, p1, p2, p3):
@@ -45,8 +46,7 @@ def tet_delta_lambda_rel(e1, e2, e3, w0, w1, w2, w3, rest_vol6, compliance,
     c = vol6 - cfg.tet_pressure * rest_vol6
     # a true division by dt^2 (a Python-float divisor becomes a multiply by
     # its reciprocal on CUDA)
-    alpha = compliance / torch.tensor(dt * dt, dtype=compliance.dtype,
-                                      device=compliance.device)
+    alpha = compliance / scalar(dt * dt, compliance)
     denom = (w0 * dot3(g0, g0) + w1 * dot3(g1, g1) + w2 * dot3(g2, g2)
              + w3 * dot3(g3, g3) + alpha)
     valid = denom > cfg.eps_denominator

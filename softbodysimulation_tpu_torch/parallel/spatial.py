@@ -436,7 +436,6 @@ def check_supported(cfg: SolverConfig, spec: LatticeSpec):
         raise NotImplementedError(
             "spatial port: self-collision is not carried by the sharded "
             "engine")
-    _lat.check_supported(cfg, spec)
 
 
 def check_tets(sharded: ShardedLatticeState, cfg: SolverConfig):

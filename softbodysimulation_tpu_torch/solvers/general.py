@@ -28,9 +28,14 @@ the JAX package), so every backend runs the gather semantics here.
 
 The CPU tests hold this engine against the JAX engine, and on the card the
 kernel (``kernels/mesh_cuda.py``) is held against it.  ``make_step``
+takes the route ``kernels/mesh_cuda.route`` reads from the config and
 dispatches on the state's device through the kernel wrapper (a CUDA state
-launches the kernel, a CPU state runs this engine); the plain loop on any
-device is ``run_substeps_plain`` (and ``step_fn`` / ``multi_step_fn``).
+launches the kernel, a CPU state runs this engine); the ``hash`` and
+``sorted`` backends run in this engine on the state's device, alone or,
+at a cadence that divides the frame, between kernel chunks.  The plain
+loop on any device is ``run_substeps_plain`` (and ``step_fn`` /
+``multi_step_fn``); its ``approx_math`` is the twin of the kernel's
+variant.
 The rigid world is the config's (floor, spheres, boxes), or, when the
 state carries a ``core/colliders.ColliderSet``, that set's traced poses,
 which replace the config's spheres, boxes and ground height (JAX
@@ -243,14 +248,14 @@ def gather_sum(contrib: torch.Tensor, incidence: Incidence):
 
 # --------------------------------------------------------------- distance
 def _solve_distance_colored(pred, lam, inv_mass, T: _Tables,
-                            cfg: SolverConfig, dt):
+                            cfg: SolverConfig, dt, approx_math=False):
     topo = T.topo
     for ids in T.colors:
         ea, eb = T.ea[ids], T.eb[ids]
         wa, wb = inv_mass[ea], inv_mass[eb]
         dl, n = _distance.distance_delta_lambda(
             pred[ea], pred[eb], wa, wb, topo.rest_lengths[ids],
-            topo.compliance[ids], lam[ids], dt, cfg)
+            topo.compliance[ids], lam[ids], dt, cfg, approx_math)
         lam = lam.index_add(0, ids, dl)
         if cfg.lambda_clamp > 0:
             lam = torch.clamp(lam, -cfg.lambda_clamp, cfg.lambda_clamp)
@@ -261,12 +266,12 @@ def _solve_distance_colored(pred, lam, inv_mass, T: _Tables,
 
 
 def _solve_distance_jacobi(pred, lam, inv_mass, T: _Tables,
-                           cfg: SolverConfig, dt):
+                           cfg: SolverConfig, dt, approx_math=False):
     topo = T.topo
     wa, wb = inv_mass[T.ea], inv_mass[T.eb]
     dl, n = _distance.distance_delta_lambda(
         pred[T.ea], pred[T.eb], wa, wb, topo.rest_lengths, topo.compliance,
-        lam, dt, cfg)
+        lam, dt, cfg, approx_math)
     # the relaxation scales delta-lambda before both the multiplier update
     # and the position correction (general.py:97-103 of the JAX package)
     dl = dl * T.edge_scale
@@ -282,14 +287,14 @@ def _hinge_gather(pred, inv_mass, idx):
 
 
 def _solve_bending_colored(pred, lam, inv_mass, T: _Tables,
-                           cfg: SolverConfig, dt):
+                           cfg: SolverConfig, dt, approx_math=False):
     topo = T.topo
     for ids in T.bend_colors:
         idx = [h[ids] for h in T.hinge]
         p, w = _hinge_gather(pred, inv_mass, idx)
         dl, *grads = _bending.bending_delta_lambda(
             *p, *w, topo.rest_angles[ids], topo.bend_compliance[ids],
-            lam[ids], dt, cfg)
+            lam[ids], dt, cfg, approx_math)
         lam = lam.index_add(0, ids, dl)
         dlb = dl[:, None]
         for i, wi, g in zip(idx, w, grads):
@@ -298,11 +303,12 @@ def _solve_bending_colored(pred, lam, inv_mass, T: _Tables,
 
 
 def _solve_bending_jacobi(pred, lam, inv_mass, T: _Tables,
-                          cfg: SolverConfig, dt):
+                          cfg: SolverConfig, dt, approx_math=False):
     topo = T.topo
     p, w = _hinge_gather(pred, inv_mass, T.hinge)
     dl, *grads = _bending.bending_delta_lambda(
-        *p, *w, topo.rest_angles, topo.bend_compliance, lam, dt, cfg)
+        *p, *w, topo.rest_angles, topo.bend_compliance, lam, dt, cfg,
+        approx_math)
     dl = dl * T.hinge_scale
     lam = lam + dl
     dlb = dl[:, None]
@@ -357,12 +363,14 @@ def _solve_tets_jacobi(pred, lam, inv_mass, T: _Tables, cfg: SolverConfig,
 
 
 # ---------------------------------------------------------------- substep
-def _warm_apply_distance(pred, lam, inv_mass, T: _Tables, cfg: SolverConfig):
+def _warm_apply_distance(pred, lam, inv_mass, T: _Tables, cfg: SolverConfig,
+                         approx_math=False):
     """Pre-apply carried distance impulses along current edge directions,
     with the Jacobi pass's per-edge 1/max-degree relaxation (times
     ``warm_start_fraction``), the carried multiplier scaled identically and
     clamped so the correction never exceeds ``warm_start_clamp * rest``
-    per particle.  Returns (pred, lam)."""
+    per particle (the direction as ``ops/distance.length_and_unit``
+    takes it).  Returns (pred, lam)."""
     wa, wb = inv_mass[T.ea], inv_mass[T.eb]
     lam = lam * T.warm_scale
     if cfg.warm_start_clamp > 0:
@@ -370,19 +378,20 @@ def _warm_apply_distance(pred, lam, inv_mass, T: _Tables, cfg: SolverConfig):
         lim = cfg.warm_start_clamp * T.topo.rest_lengths / wmax
         lam = torch.clamp(lam, -lim, lim)
     d = pred[T.eb] - pred[T.ea]
-    length = torch.sqrt(torch.clamp(_distance.dot3(d, d), min=1e-24))
-    dp = lam[:, None] * (d / length[:, None])
+    dp = lam[:, None] * _distance.length_and_unit(d, approx_math)[1]
     contrib = torch.cat([-wa[:, None] * dp, wb[:, None] * dp])
     return pred + gather_sum(contrib, T.incidence), lam
 
 
 def _substep(x, v, w, f, lam, T: _Tables, cfg: SolverConfig, dt,
              apply_ext: bool, contact_on: bool,
-             world: _collision.RigidWorld):
+             world: _collision.RigidWorld, approx_math: bool = False):
     """One substep on (N, 3) tensors; ``lam`` = (lambda_dist, lambda_bend,
     lambda_tet or None).  ``contact_on=False`` leaves self-collision out of
     this substep (the contact cadence).  ``world``: the rigid world
-    (``ops/collision.RigidWorld``).  Returns (x, v, lam)."""
+    (``ops/collision.RigidWorld``).  ``approx_math``: the mesh kernel's
+    variant's twin in the distance and bending projections.  Returns (x,
+    v, lam)."""
     lam_d, lam_b, lam_t = lam
     # lambda lifecycle: WARM_START carries only distance impulses (they are
     # pre-applied); bending and tets restart fresh except in DECAY
@@ -399,7 +408,8 @@ def _substep(x, v, w, f, lam, T: _Tables, cfg: SolverConfig, dt,
 
     pred, v = _integrate.predict(x, v, w, f, dt, cfg, apply_ext=apply_ext)
     if cfg.lambda_mode == LambdaMode.WARM_START:
-        pred, lam_d = _warm_apply_distance(pred, lam_d, w, T, cfg)
+        pred, lam_d = _warm_apply_distance(pred, lam_d, w, T, cfg,
+                                           approx_math)
 
     colored = cfg.solve_mode == SolveMode.COLORED
     has_bending = cfg.enable_bending and T.topo.n_hinges > 0
@@ -426,14 +436,12 @@ def _substep(x, v, w, f, lam, T: _Tables, cfg: SolverConfig, dt,
         return pred
 
     def project_all(pred, lam_d, lam_b, lam_t):
-        if colored:
-            pred, lam_d = _solve_distance_colored(pred, lam_d, w, T, cfg, dt)
-        else:
-            pred, lam_d = _solve_distance_jacobi(pred, lam_d, w, T, cfg, dt)
+        solve = _solve_distance_colored if colored else _solve_distance_jacobi
+        pred, lam_d = solve(pred, lam_d, w, T, cfg, dt, approx_math)
         if has_bending:
             solve = (_solve_bending_colored if colored
                      else _solve_bending_jacobi)
-            pred, lam_b = solve(pred, lam_b, w, T, cfg, dt)
+            pred, lam_b = solve(pred, lam_b, w, T, cfg, dt, approx_math)
         if has_tets:
             solve = _solve_tets_colored if colored else _solve_tets_jacobi
             pred, lam_t = solve(pred, lam_t, w, T, cfg, dt)
@@ -485,14 +493,17 @@ def with_materials(T: _Tables, materials) -> _Tables:
 
 def run_substeps_plain(state: SimState, topo: Topology, cfg: SolverConfig,
                        dt_sub: float, n_substeps: int,
-                       with_ext: bool = False, materials=None) -> SimState:
+                       with_ext: bool = False, materials=None,
+                       approx_math: bool = False) -> SimState:
     """The plain engine's substep loop on any device: ``n_substeps`` raw
     substeps, self-collision on substep i iff ``i % self_collision_every ==
     0``.  ``with_ext=True`` consumes ``state.ext_force`` on the first
     substep and zeroes it; ``with_ext=False`` neither applies nor clears it
     (the semantics of the JAX package's fused runners).  ``materials``
     (``with_materials``) overrides the topology's rest lengths and
-    compliances for this call; the topology's cached tables are kept."""
+    compliances for this call; the topology's cached tables are kept.
+    ``approx_math``: the mesh kernel's variant's twin (``ops/distance
+    .length_and_unit``, ``ops/bending``)."""
     check_supported(cfg)
     check_state(state)
     T = _tables(topo, cfg, str(state.device))
@@ -505,7 +516,8 @@ def run_substeps_plain(state: SimState, topo: Topology, cfg: SolverConfig,
     for i in range(n_substeps):
         x, v, lam = _substep(x, v, state.inv_mass, state.ext_force, lam, T,
                              cfg, dt_sub, with_ext and i == 0,
-                             contact_on=i % every == 0, world=world)
+                             contact_on=i % every == 0, world=world,
+                             approx_math=approx_math)
     out = state.replace(positions=x, velocities=v, lambda_dist=lam[0],
                         lambda_bend=lam[1], lambda_tet=lam[2])
     if with_ext:
@@ -516,7 +528,8 @@ def run_substeps_plain(state: SimState, topo: Topology, cfg: SolverConfig,
 def run_substeps_plain_batched(state: SimState, topo: Topology,
                                cfg: SolverConfig, dt_sub: float,
                                n_substeps: int, with_ext: bool = False,
-                               materials=None) -> SimState:
+                               materials=None,
+                               approx_math: bool = False) -> SimState:
     """The plain twin of the B-3 ensemble: ``run_substeps_plain`` body by
     body on a batched state (``core/state.body_of``; inv_mass a shared
     ``(N,)`` or a per-body ``(B, N)`` leaf), the results stacked, so each
@@ -532,7 +545,8 @@ def run_substeps_plain_batched(state: SimState, topo: Topology,
         mat = ({k: t[i] for k, t in materials.items()} if per_body
                else materials)
         bodies.append(run_substeps_plain(body_of(state, i), topo, cfg,
-                                         dt_sub, n_substeps, with_ext, mat))
+                                         dt_sub, n_substeps, with_ext, mat,
+                                         approx_math))
     return stack_bodies(state, bodies)
 
 
@@ -558,17 +572,33 @@ def make_step(topo: Topology, cfg: SolverConfig, dt: float,
               n_steps: int = 1):
     """``SimState -> SimState`` advancing ``n_steps`` frames of
     ``cfg.substeps`` substeps, ``state.ext_force`` consumed on the first
-    substep and zeroed after.  Since the accumulator is zero after the
-    first substep, the frames run as one substep loop.  Dispatches on the
-    state's device through the kernel wrapper (CUDA: the kernel; CPU: this
-    engine).  A state carrying a ColliderSet runs a kernel runner built for
-    its collider counts (``kin_colliders``), one per count, so animating
-    the poses rebuilds nothing."""
+    substep and zeroed after.  The route (``fn.route``,
+    ``kernels/mesh_cuda.route``) is read from the config here:
+    ``"kernel"`` and ``"hybrid"`` go through
+    ``mesh_cuda.make_mesh_cuda_step`` (the kernel, whose frames run as one
+    substep loop since the accumulator is zero after the first substep; or
+    the hybrid contact step of the ``hash`` and ``sorted`` backends), which
+    dispatches on the state's device (CUDA: the kernel; CPU: this engine),
+    a state carrying a ColliderSet running a runner built for its collider
+    counts (``kin_colliders``), one per count, so animating the poses
+    rebuilds nothing; ``"plain"`` (``hash`` or ``sorted`` every substep, or
+    at a cadence that does not divide the frame) runs ``multi_step_fn`` on
+    the state's device, as JAX's ``general.make_step`` runs every
+    backend."""
     from ..core.colliders import per_collider_count
     from ..kernels import mesh_cuda
 
-    return per_collider_count(lambda kin: mesh_cuda.make_mesh_cuda_step(
-        topo, cfg, dt, n_steps, kin_colliders=kin))
+    route = mesh_cuda.route(cfg)
+    if route == "plain":
+        check_supported(cfg)
+
+        def fn(state: SimState) -> SimState:
+            return multi_step_fn(state, topo, cfg, dt, n_steps)
+    else:
+        fn = per_collider_count(lambda kin: mesh_cuda.make_mesh_cuda_step(
+            topo, cfg, dt, n_steps, kin_colliders=kin))
+    fn.route = route
+    return fn
 
 
 def make_batched_step(topo: Topology, cfg: SolverConfig, dt: float,

@@ -24,8 +24,27 @@ the floor, sphere and box colliders of the config or, when the state
 carries a ``core/colliders.ColliderSet``, that set's traced poses (JAX
 ``solvers/lattice.py:296-312``); contacts run floor, boxes, spheres, as
 there.  Lane-folded ensembles run ``run_substeps_plain_batched``
-(``make_batched_step``).  Self-collision raises ``NotImplementedError``
-(``check_supported``).
+(``make_batched_step``).
+
+Self-collision (JAX ``solvers/lattice.py:353-358, 419-426``) runs through
+``ops/spatial_hash.project_self_collision`` after the tet sweep and before
+the floor, its curve order built once per substep from ``pred``; the
+contact cadence gates it on the substep within a frame in ``step_fn``
+(``:538-577``) and on the raw substep index in a substep run
+(``:681-726``).  ``make_step`` and ``make_substep_runner`` take the route
+``kernels/lattice_cuda.route`` reads from the config: the kernel, the
+hybrid contact step or runner (kernel chunks between contact substeps of
+this engine), or this engine alone; on a CPU state every kernel of a
+route runs its plain version.  Lane-folded ensembles refuse
+self-collision (the B-1 ensemble kernel does not run it).
+
+``approx_math`` on the internals (``_family_pass``, ``_tet_sweep``,
+``run_substeps_plain``, ``run_substeps_plain_batched``) is the plain twin
+of the kernel's variant (``lattice_pallas.py:152-185, 1053-1061, 1099,
+1281-1285``): the length as ``|d|^2 * rsqrt(|d|^2)``, the multiplier step
+times ``torch.reciprocal`` of its denominator, the correction scaled by
+the rsqrt.  The public ``make_step`` and ``step_fn`` take no such knob,
+as JAX's stencil engine has none.
 """
 
 from __future__ import annotations
@@ -41,7 +60,9 @@ from ..core.config import FloorMode, LambdaMode, SolveMode, SolverConfig
 from ..core.state import SimState, check_colliders, on_device
 from ..ops import collision as _collision
 from ..ops import integrate as _integrate
+from ..ops import spatial_hash as _spatial_hash
 from ..topology import tets as _tets
+from .general import contact_every
 from ..topology.lattice import LatticeSpec, lattice_points
 
 
@@ -72,13 +93,6 @@ def make_lattice_state(spec: LatticeSpec, center=(0.0, 0.0, 0.0),
         lambda_tet=(torch.zeros((6 * spec.res ** 3,), dtype=dtype,
                                 device=device) if tet_volume else None),
     )
-
-
-def check_supported(cfg: SolverConfig, spec: LatticeSpec):
-    """Refuse, at build time, what this slice of the port does not carry."""
-    if cfg.enable_self_collision:
-        raise NotImplementedError(
-            "lattice port: self-collision (hybrid contact) is not ported")
 
 
 def check_state(state: SimState, cfg: SolverConfig):
@@ -120,7 +134,9 @@ def _family_masks(spec: LatticeSpec) -> Tuple[np.ndarray, ...]:
     return tuple(out)
 
 
+@functools.lru_cache(maxsize=64)
 def _masks_dev(spec: LatticeSpec, device):
+    """``_family_masks`` on ``device``, copied there once."""
     return tuple((torch.as_tensor(vv, device=device),
                   torch.as_tensor(pp, device=device))
                  for (vv, pp) in _family_masks(spec))
@@ -148,19 +164,28 @@ def _roll_bwd(a, fam, res):
 
 
 def _family_pass(pred, w, wb, lam_f, fam, mask, rest, comp, dt,
-                 cfg: SolverConfig, res, relax=None):
+                 cfg: SolverConfig, res, relax=None, approx_math=False):
     """One constraint pass on (3,res,res^2) pred.  ``mask`` folds validity
-    and (for GS) parity; relax=None => exact GS, float => Jacobi scaling."""
+    and (for GS) parity; relax=None => exact GS, float => Jacobi scaling.
+    ``approx_math``: rsqrt and the reciprocal, as the kernel's variant."""
     pb = _roll_fwd(pred, fam, res)
     d = pb - pred
     len_sq = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-    length = torch.sqrt(torch.clamp(len_sq, min=1e-24))
+    if approx_math:
+        inv_len = torch.rsqrt(torch.clamp(len_sq, min=1e-24))
+        length = len_sq * inv_len
+    else:
+        length = torch.sqrt(torch.clamp(len_sq, min=1e-24))
     c = length - rest
     alpha = comp / (dt * dt)
     if cfg.min_alpha_tilde > 0:
         alpha = max(alpha, cfg.min_alpha_tilde)
     denom = w + wb + alpha
-    dl = (-c - alpha * lam_f) / torch.clamp(denom, min=1e-30)
+    if approx_math:
+        dl = (-c - alpha * lam_f) * torch.reciprocal(
+            torch.clamp(denom, min=1e-30))
+    else:
+        dl = (-c - alpha * lam_f) / torch.clamp(denom, min=1e-30)
     if cfg.max_dlambda > 0:
         dl = torch.clamp(dl, -cfg.max_dlambda, cfg.max_dlambda)
     if cfg.max_dlambda_rel > 0:
@@ -183,7 +208,7 @@ def _family_pass(pred, w, wb, lam_f, fam, mask, rest, comp, dt,
     lam_f = lam_f + dl
     if cfg.lambda_clamp > 0:
         lam_f = torch.clamp(lam_f, -cfg.lambda_clamp, cfg.lambda_clamp)
-    dp = d * (dl / length)[None]
+    dp = d * (dl * inv_len if approx_math else dl / length)[None]
     pred = pred - w[None] * dp
     pred = pred + _roll_bwd(wb[None] * dp, fam, res)
     return pred, lam_f
@@ -235,6 +260,7 @@ def _tet_fields(spec: LatticeSpec):
             tdeg.reshape(res, res * res), rest6)
 
 
+@functools.lru_cache(maxsize=16)
 def _tet_dev(spec: LatticeSpec, device):
     paths, valid, tdeg, rest6 = _tet_fields(spec)
     return (paths, torch.as_tensor(valid, device=device),
@@ -265,14 +291,15 @@ def tet_constants(spec: LatticeSpec, cfg: SolverConfig, dt: float):
 
 
 def _tet_sweep(pred, w, lam_t, spec: LatticeSpec, cfg: SolverConfig, dt,
-               tet_dev):
+               tet_dev, approx_math=False):
     """Per-cell tet-volume Jacobi sweep, gather-free: each Kuhn path is an
     offset family, so the 4 endpoint gathers are rolls and the gradient
     scatter is the inverse rolls.  All 6 paths project against the SAME
     pred (Jacobi), full strength, then one mass-splitting apply
     ``pred += w / max(tdeg, 1) * delta``.  Each particle's delta sums its
     terms path by path: g0 at its own cell, then g1, g2, g3 from the cells
-    at -o1, -o2, -o3.  lam_t: (6, res, r2)."""
+    at -o1, -o2, -o3.  lam_t: (6, res, r2).  ``approx_math``: the multiplier
+    step times ``torch.reciprocal`` of its denominator."""
     paths, valid, tdeg, _ = tet_dev
     alpha, target, omega = tet_constants(spec, cfg, dt)
     res = spec.res
@@ -296,7 +323,11 @@ def _tet_sweep(pred, w, lam_t, spec: LatticeSpec, cfg: SolverConfig, dt,
         denom = (w * _dot3(g0, g0) + w1 * _dot3(g1, g1)
                  + w2 * _dot3(g2, g2) + w3 * _dot3(g3, g3) + alpha)
         lam_f = lam_t[pi]
-        dl = (-cerr - alpha * lam_f) / torch.clamp(denom, min=1e-30)
+        if approx_math:
+            dl = (-cerr - alpha * lam_f) * torch.reciprocal(
+                torch.clamp(denom, min=1e-30))
+        else:
+            dl = (-cerr - alpha * lam_f) / torch.clamp(denom, min=1e-30)
         active = valid & (denom > cfg.eps_denominator)
         dl = torch.where(active, dl, 0.0) * omega
         lam_parts.append(lam_f + dl)
@@ -360,11 +391,14 @@ def _boxes(pred, x, w, dt, cfg: SolverConfig, world):
 
 
 def _substep(x, v, w, f, lam, spec: LatticeSpec, cfg: SolverConfig, dt,
-             apply_ext: bool, masks_dev, lam_t, tet_dev, world):
+             apply_ext: bool, masks_dev, lam_t, tet_dev, world,
+             contact_on: bool = True, approx_math: bool = False):
     """One substep in (3,res,res^2) layout.  x,v,f: (3,res,r2); w: (res,r2);
     lam: (nfam,res,r2); lam_t: (6,res,r2) or None (the tet sweep runs when
     ``tet_dev`` is given); ``world``: the rigid world
-    (``ops/collision.RigidWorld``).  Returns (x, v, lam, lam_t)."""
+    (``ops/collision.RigidWorld``); ``contact_on=False`` leaves
+    self-collision out of this substep (the cadence).  Returns (x, v, lam,
+    lam_t)."""
     res = spec.res
 
     if cfg.lambda_mode == LambdaMode.RESET:
@@ -380,8 +414,8 @@ def _substep(x, v, w, f, lam, spec: LatticeSpec, cfg: SolverConfig, dt,
 
     # predict (reference gravity is a force: v += dt*w*(g + f_ext);
     # gravity_is_acceleration applies g mass-independently)
-    g = torch.tensor(cfg.gravity, dtype=x.dtype,
-                     device=x.device).reshape(3, 1, 1)
+    g = _integrate.gravity(tuple(cfg.gravity), x.dtype,
+                           x.device).reshape(3, 1, 1)
     ext = f if apply_ext else torch.zeros_like(f)
     if cfg.gravity_is_acceleration:
         if cfg.max_force > 0:
@@ -402,6 +436,11 @@ def _substep(x, v, w, f, lam, spec: LatticeSpec, cfg: SolverConfig, dt,
     pred = x + dt * v
     if cfg.world_bounds > 0:
         pred = torch.clamp(pred, -cfg.world_bounds, cfg.world_bounds)
+
+    sc_on = cfg.enable_self_collision and contact_on
+    # the curve order, once per substep from the predicted positions
+    sc_order = (_spatial_hash.morton_order(pred.reshape(3, -1).T, cfg)
+                if sc_on and _spatial_hash.needs_morton_order(cfg) else None)
 
     wb_per_fam = [_roll_fwd(w, fam, res) for fam in spec.families]
 
@@ -433,21 +472,28 @@ def _substep(x, v, w, f, lam, spec: LatticeSpec, cfg: SolverConfig, dt,
             if cfg.solve_mode == SolveMode.COLORED:
                 pred, lam_f = _family_pass(
                     pred, w, wb, lam_f, fam, m_even, rest, comp, dt, cfg,
-                    res)
+                    res, approx_math=approx_math)
                 pred, lam_f = _family_pass(
                     pred, w, wb, lam_f, fam, m_odd, rest, comp, dt, cfg,
-                    res)
+                    res, approx_math=approx_math)
             else:
                 pred, lam_f = _family_pass(
                     pred, w, wb, lam_f, fam, m_all, rest, comp, dt, cfg,
                     # intra-family conflict degree is 2, hence omega/2
-                    res, relax=0.5 * (cfg.omega if cfg.omega > 0 else 1.0))
+                    res, relax=0.5 * (cfg.omega if cfg.omega > 0 else 1.0),
+                    approx_math=approx_math)
             lam_parts.append(lam_f)
         lam = torch.stack(lam_parts)
 
         if tet_dev is not None:
-            pred, lam_t = _tet_sweep(pred, w, lam_t, spec, cfg, dt, tet_dev)
+            pred, lam_t = _tet_sweep(pred, w, lam_t, spec, cfg, dt, tet_dev,
+                                     approx_math)
 
+        if sc_on:
+            # before the floor and the colliders, as the general engine
+            flat = _spatial_hash.project_self_collision(
+                pred.reshape(3, -1).T, w.reshape(-1), sc_order, cfg)
+            pred = flat.T.reshape(pred.shape)
         if cfg.floor_mode == FloorMode.XPBD_INEQUALITY:
             pred = _floor_xpbd(pred, x, w, dt, cfg, world.ground)
         if world.n_boxes:
@@ -512,13 +558,16 @@ def _from_grid(state: SimState, x, v, lam, lam_t,
 
 def run_substeps_plain(state: SimState, spec: LatticeSpec,
                        cfg: SolverConfig, dt_sub: float, n_substeps: int,
-                       with_ext: bool = False) -> SimState:
+                       with_ext: bool = False,
+                       approx_math: bool = False) -> SimState:
     """The plain engine's substep loop on any device: ``n_substeps`` raw
-    substeps.  ``with_ext=True`` consumes ``state.ext_force`` on the first
+    substeps, self-collision on substep i iff ``i % self_collision_every ==
+    0``.  ``with_ext=True`` consumes ``state.ext_force`` on the first
     substep and zeroes it; ``with_ext=False`` neither applies nor clears it
-    (the semantics of the JAX package's fused runners)."""
-    check_supported(cfg, spec)
+    (the semantics of the JAX package's fused runners).  ``approx_math``:
+    the kernel variant's twin (module docstring)."""
     check_state(state, cfg)
+    every = contact_every(cfg)
     masks = _masks_dev(spec, state.device)
     tet_dev = (_tet_dev(spec, state.device) if cfg.enable_tet_volume
                else None)
@@ -527,15 +576,19 @@ def run_substeps_plain(state: SimState, spec: LatticeSpec,
     for i in range(n_substeps):
         x, v, lam, lam_t = _substep(x, v, w, f, lam, spec, cfg, dt_sub,
                                     with_ext and i == 0, masks, lam_t,
-                                    tet_dev, world)
+                                    tet_dev, world,
+                                    contact_on=i % every == 0,
+                                    approx_math=approx_math)
     return _from_grid(state, x, v, lam, lam_t, zero_ext=with_ext)
 
 
 def step_fn(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
             dt: float) -> SimState:
     """One physics step = cfg.substeps substeps; external forces consumed on
-    the first substep (SoftBodyParticleCPU force lifecycle).  Plain engine,
-    on any device."""
+    the first substep (SoftBodyParticleCPU force lifecycle); substep j of
+    the frame projects self-collision iff ``j % self_collision_every ==
+    0``, the cadence of the JAX ``step_fn``.  Plain engine, on any
+    device."""
     return run_substeps_plain(state, spec, cfg, dt / cfg.substeps,
                               cfg.substeps, with_ext=True)
 
@@ -550,16 +603,28 @@ def make_step(spec: LatticeSpec, cfg: SolverConfig, dt: float,
               n_steps: int = 1):
     """``SimState -> SimState`` advancing ``n_steps`` frames of
     ``cfg.substeps`` substeps, ``state.ext_force`` consumed on the first
-    substep and zeroed after.  Since the accumulator is zero after the
-    first substep, the frames run as one substep loop.  Dispatches on the
-    state's device through the kernel wrapper (CUDA: the kernel; CPU: this
-    engine).  A state carrying a ColliderSet runs a kernel runner built for
-    its collider counts (``kin_colliders``), one per count, so animating
-    the poses rebuilds nothing."""
+    substep and zeroed after.  The route (``fn.route``,
+    ``kernels/lattice_cuda.route``) is read from the config here:
+    ``"kernel"`` and ``"hybrid"`` go through ``lattice_cuda.make_cuda_step``
+    (the kernel, whose frames run as one substep loop since the accumulator
+    is zero after the first substep; or the hybrid contact step), which
+    dispatches on the state's device (CUDA: the kernel; CPU: this engine),
+    a state carrying a ColliderSet running a runner built for its collider
+    counts (``kin_colliders``), one per count, so animating the poses
+    rebuilds nothing; ``"plain"`` (self-collision every substep, or at a
+    cadence that does not divide the frame) runs ``multi_step_fn`` on the
+    state's device."""
     from ..kernels import lattice_cuda
 
-    return per_collider_count(lambda kin: lattice_cuda.make_cuda_step(
-        spec, cfg, dt, n_steps, kin_colliders=kin))
+    route = lattice_cuda.route(cfg)
+    if route == "plain":
+        def fn(state: SimState) -> SimState:
+            return multi_step_fn(state, spec, cfg, dt, n_steps)
+    else:
+        fn = per_collider_count(lambda kin: lattice_cuda.make_cuda_step(
+            spec, cfg, dt, n_steps, kin_colliders=kin))
+    fn.route = route
+    return fn
 
 
 def _tile(a: torch.Tensor, n_bodies: int) -> torch.Tensor:
@@ -592,8 +657,8 @@ def _from_wide(a: torch.Tensor, spec: LatticeSpec, b: int, k: int = 0):
 
 def run_substeps_plain_batched(state: SimState, spec: LatticeSpec,
                                cfg: SolverConfig, dt_sub: float,
-                               n_substeps: int,
-                               with_ext: bool = False) -> SimState:
+                               n_substeps: int, with_ext: bool = False,
+                               approx_math: bool = False) -> SimState:
     """The lane-folded ensemble engine (JAX ``solvers/lattice.py:597-680``),
     ``n_substeps`` raw substeps of a batched state on any device: the B
     bodies lie side by side along the lane axis, ``(3, res, B*r2)``, and
@@ -604,8 +669,12 @@ def run_substeps_plain_batched(state: SimState, spec: LatticeSpec,
     ``(B, nfam*N)``, lambda_tet ``(B, 6N)``, inv_mass ``(B, N)`` or a
     shared ``(N,)``.  ``with_ext`` as ``run_substeps_plain``; a ColliderSet
     on the state is one rigid world acting on every body (the B-1
-    ensemble's ``kin_colliders``)."""
-    check_supported(cfg, spec)
+    ensemble's ``kin_colliders``); ``approx_math`` as
+    ``run_substeps_plain``."""
+    if cfg.enable_self_collision:
+        raise NotImplementedError(
+            "lattice port: self-collision in a lane-folded ensemble is not "
+            "ported (the B-1 ensemble kernel does not run it)")
     check_state(state, cfg)
     b = state.positions.shape[0]
     res, r2 = spec.res, spec.res * spec.res
@@ -628,7 +697,7 @@ def run_substeps_plain_batched(state: SimState, spec: LatticeSpec,
     for i in range(n_substeps):
         x, v, lam, lam_t = _substep(x, v, w, f, lam, spec, cfg, dt_sub,
                                     with_ext and i == 0, masks, lam_t,
-                                    tet_dev, world)
+                                    tet_dev, world, approx_math=approx_math)
     out = state.replace(
         positions=_from_wide(x, spec, b), velocities=_from_wide(v, spec, b),
         lambda_dist=_from_wide(lam, spec, b, spec.n_families),
@@ -670,15 +739,25 @@ def make_batched_step(spec: LatticeSpec, cfg: SolverConfig, dt: float,
 def make_substep_runner(spec: LatticeSpec, cfg: SolverConfig, dt_sub: float,
                         n_substeps: int):
     """Flat loop over raw substeps (no ext forces; ``ext_force`` reads back
-    zero) — used by benchmarks.  Dispatches on the state's device like
-    ``make_step``."""
+    zero; self-collision on substep i iff ``i % self_collision_every ==
+    0``) — used by benchmarks.  Takes the route ``make_step`` takes
+    (``fn.route``): the kernel runner, the hybrid contact runner
+    (``lattice_cuda.make_hybrid_contact_runner``), or this engine's
+    ``run_substeps_plain`` on the state's device."""
     from ..kernels import lattice_cuda
 
-    run = per_collider_count(
-        lambda kin: lattice_cuda.make_cuda_substep_runner(
+    route = lattice_cuda.route(cfg)
+    if route == "plain":
+        def run(state: SimState) -> SimState:
+            return run_substeps_plain(state, spec, cfg, dt_sub, n_substeps)
+    else:
+        make = (lattice_cuda.make_hybrid_contact_runner if route == "hybrid"
+                else lattice_cuda.make_cuda_substep_runner)
+        run = per_collider_count(lambda kin: make(
             spec, cfg, dt_sub, n_substeps, kin_colliders=kin))
 
     def fn(state: SimState) -> SimState:
         return run(state).replace(ext_force=torch.zeros_like(state.ext_force))
 
+    fn.route = route
     return fn

@@ -240,31 +240,48 @@ def test_ensemble_refusals_at_build(what):
     """What ensembles do not carry raises NotImplementedError when the
     runner is built, naming its ROADMAP item: self-collision backends other
     than dense (B-4 carries one body; JAX's ensemble kernel refuses them
-    too), the global volume constraint (A-3), approx_math (A-4)."""
-    ptopo, _, _, _, _, _ = _jax_mesh("shared_mass")
+    too), the global volume constraint (A-3).  ``approx_math`` is carried
+    in both ensembles, as JAX's runners take it: there the runner builds,
+    and on the CPU every row of its result is the one-body approx twin's
+    to the bit."""
+    ptopo, st2, _, _, _, _ = _jax_mesh("shared_mass")
     cfg = port_config(MESH["dense_contact"][0])
     assert cfg.enable_self_collision
     spec = ptop.lattice_spec(3, braced=True)
     if what == "approx_math_lattice":
-        with pytest.raises(NotImplementedError, match="A-4"):
-            lc.make_cuda_substep_runner(spec, port_config(SolverConfig()),
-                                        cases.DT, 2, n_bodies=2,
-                                        approx_math=True)
+        lcfg = port_config(SolverConfig(substeps=2, iterations=2,
+                                        ground_height=0.0))
+        st = port.state_from_numpy(cases.lattice_inputs(3, 2),
+                                   device="cpu")
+        out = lc.make_cuda_substep_runner(spec, lcfg, cases.DT, 2,
+                                          n_bodies=2, approx_math=True)(st)
+        for b in range(2):
+            one = plat.run_substeps_plain(body_of(st, b), spec, lcfg,
+                                          cases.DT, 2, approx_math=True)
+            assert torch.equal(out.positions[b], one.positions)
+            assert torch.equal(out.lambda_dist[b], one.lambda_dist)
+        return
+    if what == "approx_math_mesh":
+        out = mc.make_mesh_cuda_substep_runner(
+            ptopo, cfg, cases.DT, 2, n_bodies=st2.positions.shape[0],
+            approx_math=True)(st2)
+        for b in range(st2.positions.shape[0]):
+            one = pgeneral.run_substeps_plain(body_of(st2, b), ptopo, cfg,
+                                              cases.DT, 2, approx_math=True)
+            assert torch.equal(out.positions[b], one.positions)
+            assert torch.equal(out.lambda_dist[b], one.lambda_dist)
         return
     kw = dict(n_bodies=2)
     match = "B-3 item 5"
     if what == "volume":
         cfg, match = cfg.replace(enable_self_collision=False,
                                  enable_volume=True), "A-3"
-    elif what == "approx_math_mesh":
-        kw["approx_math"], match = True, "A-4"
     else:
         cfg = cfg.replace(self_collision_backend=what)
     with pytest.raises(NotImplementedError, match=match):
         mc.make_mesh_cuda_substep_runner(ptopo, cfg, cases.DT, 2, **kw)
-    if "approx_math" not in kw:
-        with pytest.raises(NotImplementedError, match=match):
-            pgeneral.make_batched_step(ptopo, cfg, cases.DT)
+    with pytest.raises(NotImplementedError, match=match):
+        pgeneral.make_batched_step(ptopo, cfg, cases.DT)
 
 
 def test_normals_bounds_and_com_match_jax():

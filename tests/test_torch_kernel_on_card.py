@@ -44,6 +44,13 @@ state equal the CPU result to the bit.  The ensembles of
 equal to the single-body kernel on that body to the bit, in as many
 launches as one body takes, and the ensemble against its plain twin
 (lattice: |dx| < 1e-5, |dlambda| < 1e-6; mesh: that module's gates).
+``approx_math``: the lattice kernel against its approx twin on every
+lattice case (|dx| < 1e-4, multipliers within 1 %; rcp.approx is not
+IEEE) and the mesh kernel on every mesh case (JAX's band, 5e-3 and
+5e-4); the hybrid contact runner against the plain cadence (< 1e-5); the
+``hash`` and ``sorted`` backends through ``general.make_step`` on a CUDA
+state against the CPU (< 1e-4), and their passes under
+``torch.cuda.set_sync_debug_mode("error")``.
 """
 
 import pytest
@@ -558,3 +565,105 @@ def test_mesh_ensemble_rows_match_one_body_on_card(cuda, name):
     assert dx < ensemble_cases.dx_gate(cfg), dx
     ok, info = _lam_close(out, ref, "lambda_dist", mesh_cases.DLAM_DIST)
     assert ok or cfg.enable_self_collision, info
+
+
+# ---- approx_math, the lattice hybrid, hash and sorted on the card ---------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(CASES))
+def test_lattice_approx_kernel_tracks_twin_on_card(cuda, name):
+    """B-1 with ``approx_math`` against its plain twin (``torch.rsqrt``,
+    ``torch.reciprocal``): rcp.approx is not IEEE, so a tolerance, the
+    smoke's res-40 gate 1e-4 on positions; multipliers within 1 % of their
+    largest."""
+    cfg, inputs, substeps = CASES[name]
+    spec = ptop.lattice_spec(6, braced=inputs.get("braced", True))
+    state = state_from_numpy(lattice_cases.seeded_inputs(6, **inputs),
+                             device=cuda)
+    dt_sub, n_sub, with_ext = lattice_cases.run_length(cfg, substeps)
+    out = lc.make_cuda_substep_runner(spec, cfg, dt_sub, n_sub,
+                                      with_ext=with_ext,
+                                      approx_math=True)(state)
+    ref = plat.run_substeps_plain(state, spec, cfg, dt_sub, n_sub,
+                                  with_ext=with_ext, approx_math=True)
+    dx = float((out.positions - ref.positions).abs().max())
+    dlam = float((out.lambda_dist - ref.lambda_dist).abs().max())
+    lam = float(ref.lambda_dist.abs().max())
+    assert dx < 1e-4 and dlam <= 1e-2 * lam, (name, dx, dlam, lam)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(MESH_CASES))
+def test_mesh_approx_kernel_tracks_twin_on_card(cuda, name):
+    """B-3 with ``approx_math`` against its plain twin, within JAX's own
+    band for its approx kernel (5e-3 on positions, 5e-4 on multipliers:
+    ``tests/test_mesh_pallas.py:111-118``)."""
+    cfg, kind, kw, frames = MESH_CASES[name]
+    topo, fields = mesh_cases.case_inputs(kind, **kw)
+    state = state_from_numpy(fields, device=cuda)
+    n = frames * cfg.substeps
+    out = mc.make_mesh_cuda_substep_runner(topo, cfg, 1 / 60 / cfg.substeps,
+                                           n, with_ext=True,
+                                           approx_math=True)(state)
+    ref = pgeneral.run_substeps_plain(state, topo, cfg, 1 / 60 / cfg.substeps,
+                                      n, with_ext=True, approx_math=True)
+    assert float((out.positions - ref.positions).abs().max()) < 5e-3
+    for k in ("lambda_dist", "lambda_bend"):
+        r = getattr(ref, k)
+        if r.numel():
+            assert float((getattr(out, k) - r).abs().max()) < 5e-4, (name, k)
+
+
+@pytest.mark.gpu
+def test_lattice_hybrid_matches_plain_cadence_on_card(cuda):
+    """The hybrid contact runner (kernel chunks, plain stencil contact
+    substeps) against the plain engine's cadence on the card, for the
+    blocked pass of the plain engine and of B-4: the kernel chunks are the
+    plain engine's bits, so within 1e-5 (the smoke holds the 64k config
+    and prints the gap)."""
+    for backend in ("blocked", "blocked_pallas"):
+        cfg = CASES["bench"][0].replace(
+            substeps=6, enable_self_collision=True, particle_radius=0.09,
+            self_collision_backend=backend, collision_block_size=128,
+            block_neighbors=2, self_collision_every=3)
+        spec = ptop.lattice_spec(6, braced=True)
+        state = plat.make_lattice_state(spec, center=(0.0, 0.55, 0.0),
+                                        mass=0.001, device=cuda)
+        run = lc.make_hybrid_contact_runner(spec, cfg, 1 / 360, 8)
+        before = lc.launches
+        out = run(state)
+        torch.cuda.synchronize()
+        assert lc.launches > before
+        ref = plat.run_substeps_plain(state, spec, cfg, 1 / 360, 8)
+        assert float((out.positions - ref.positions).abs().max()) < 1e-5
+
+
+@pytest.mark.gpu
+def test_hash_and_sorted_on_a_cuda_state(cuda):
+    """``general.make_step`` takes ``hash`` and ``sorted`` on a CUDA state
+    (the plain engine on the card, ``route``) and tracks the CPU within
+    1e-4 over 5 frames; their passes make no host sync there."""
+    from softbodysimulation_tpu_torch.examples import config4_interactive_poke
+    from softbodysimulation_tpu_torch.ops import spatial_hash
+
+    topo, cfg, st = config4_interactive_poke.scene(device="cpu")
+    for c in (cfg, cfg.replace(self_collision_backend="sorted"),
+              cfg.replace(self_collision_every=2)):
+        step = pgeneral.make_step(topo, c, 1 / 60, n_steps=5)
+        card = step(st.to(cuda))
+        assert float((card.positions.cpu() - step(st).positions).abs()
+                     .max()) < 1e-4, (c.self_collision_backend,
+                                      c.self_collision_every, step.route)
+    pred, w = st.positions.to(cuda) + 0.01, st.inv_mass.to(cuda)
+    scfg = cfg.replace(self_collision_backend="sorted")
+    spatial_hash.self_collision_project(pred, w, cfg)    # constants copied
+    spatial_hash.self_collision_project_sorted(
+        pred, w, spatial_hash.morton_order(pred, scfg), scfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        spatial_hash.self_collision_project(pred, w, cfg)
+        order = spatial_hash.morton_order(pred, scfg)
+        spatial_hash.self_collision_project_sorted(pred, w, order, scfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)

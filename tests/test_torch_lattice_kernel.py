@@ -99,12 +99,39 @@ def test_unsupported_features_refused_at_build(what):
     and only a state without tet multipliers is refused, when it arrives.
     Box colliders are carried up to the kernel's table size: more are
     refused, config or kinematic.  Ensembles are carried: their runner
-    refuses what the single-body runner refuses (self-collision), and the
-    lane-folded step refuses a ColliderSet, as JAX's does."""
+    refuses what the single-body runner refuses (self-collision, which the
+    kernel's runner refuses as JAX's streamed runner does), and the
+    lane-folded step refuses a ColliderSet, as JAX's does.  ``approx_math``
+    is carried: the runner builds, on the CPU its result is the approx
+    twin's to the bit, and it tracks the exact runner within 1e-4
+    (``tests/test_pallas_kernel.py:230-244``).  The solver's step takes
+    self-collision: at every substep through the stencil engine (route
+    ``"plain"``)."""
     spec = ptop.lattice_spec(4, braced=True)
     cfg = port_config(SolverConfig(substeps=2, iterations=1))
     kw = {}
     build = lc.make_cuda_substep_runner
+    if what == "approx_math":
+        st = plat.make_lattice_state(spec, center=(0.0, 0.6, 0.0),
+                                     mass=0.001, device="cpu")
+        out = build(spec, cfg, DT_SUB, 8, approx_math=True)(st)
+        twin = plat.run_substeps_plain(st, spec, cfg, DT_SUB, 8,
+                                       approx_math=True)
+        exact = build(spec, cfg, DT_SUB, 8)(st)
+        assert torch.equal(out.positions, twin.positions)
+        assert torch.equal(out.lambda_dist, twin.lambda_dist)
+        assert float((out.positions - exact.positions).abs().max()) < 1e-4
+        assert not torch.equal(out.lambda_dist, exact.lambda_dist)
+        return
+    if what == "solver_step":
+        sc = cfg.replace(enable_self_collision=True)
+        step = plat.make_step(spec, sc, 1 / 60)
+        st = plat.make_lattice_state(spec, center=(0.0, 0.6, 0.0),
+                                     device="cpu")
+        assert step.route == "plain"
+        assert torch.equal(step(st).positions,
+                           plat.step_fn(st, spec, sc, 1 / 60).positions)
+        return
     if what == "tet_volume":
         run = build(spec, cfg.replace(enable_tet_volume=True), DT_SUB, 4)
         with pytest.raises(ValueError, match="tet_volume=True"):
@@ -119,8 +146,6 @@ def test_unsupported_features_refused_at_build(what):
         with pytest.raises(NotImplementedError):
             build(spec, cfg.replace(box_colliders=()), DT_SUB, 4,
                   kin_colliders=(0, lc.MAX_BOXES + 1))
-    elif what == "approx_math":
-        kw = dict(approx_math=True)
     elif what == "ensemble_runner":
         build(spec, cfg, DT_SUB, 4, n_bodies=2)
         cfg = cfg.replace(enable_self_collision=True)
@@ -135,9 +160,6 @@ def test_unsupported_features_refused_at_build(what):
                 plat.make_lattice_state(spec, device="cpu"), 2)
             plat.make_batched_step(spec, cfg, 1 / 60, n_bodies=2)(
                 st.replace(colliders=port.make_colliders(device="cpu")))
-        elif what == "solver_step":
-            plat.make_step(spec, cfg.replace(enable_self_collision=True),
-                           1 / 60)
         else:
             build(spec, cfg, DT_SUB, 4, **kw)
 

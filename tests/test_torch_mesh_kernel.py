@@ -120,10 +120,25 @@ def test_unsupported_features_refused_at_build(what):
     """B-3's features the port does not carry raise at build time, in both
     the kernel's runners and the plain engine's step.  Box and kinematic
     colliders are carried up to the kernel's table size: more are
-    refused.  Ensembles are carried with dense contact only."""
-    _, _, ptopo, _ = both("sphere")
+    refused.  Ensembles are carried with dense contact only.
+    ``approx_math`` is carried: the runner builds, on the CPU its result
+    is the approx twin's to the bit, and it stays within JAX's own band of
+    the exact result (5e-3, 5e-4: ``tests/test_mesh_pallas.py:111-118``)."""
+    _, _, ptopo, ps = both("sphere")
     cfg = port_config(C.SolverConfig(substeps=2, iterations=1))
     kw = {}
+    if what == "approx_math":
+        run = mc.make_mesh_cuda_substep_runner(ptopo, cfg, DT / 2, 4,
+                                               approx_math=True)
+        out = run(ps)
+        twin = pgeneral.run_substeps_plain(ps, ptopo, cfg, DT / 2, 4,
+                                           approx_math=True)
+        exact = pgeneral.run_substeps_plain(ps, ptopo, cfg, DT / 2, 4)
+        assert torch.equal(out.positions, twin.positions)
+        assert torch.equal(out.lambda_dist, twin.lambda_dist)
+        assert float((out.positions - exact.positions).abs().max()) < 5e-3
+        assert float((out.lambda_dist - exact.lambda_dist).abs().max()) < 5e-4
+        return
     if what == "volume":
         cfg = cfg.replace(enable_volume=True)
     elif what == "tet_volume":
@@ -147,8 +162,6 @@ def test_unsupported_features_refused_at_build(what):
         cfg = cfg.replace(enable_self_collision=True,
                           self_collision_backend="blocked")
         kw = dict(n_bodies=2)
-    elif what == "approx_math":
-        kw = dict(approx_math=True)
     elif what == "too_many_spheres":
         cfg = cfg.replace(sphere_colliders=((0.0, 0.0, 0.0, 0.1),)
                           * (mc.MAX_SPHERES + 1))

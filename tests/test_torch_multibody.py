@@ -165,9 +165,33 @@ REFUSED = ["hash_on_card", "sorted_on_card", "volume", "box_colliders",
 @pytest.mark.parametrize("what", REFUSED)
 def test_slice_refusals_at_build(what):
     """What the slice refuses raises NotImplementedError at build time, in
-    the order ROADMAP.md lists it."""
-    topo, _, _ = cases.contact_scene(cases.modules())
+    the order ROADMAP.md lists it.  Since carried, and held here: the mesh
+    kernel's ``approx_math`` (its runner builds; on the CPU it is the
+    approx twin to the bit); lattice self-collision at every substep (the
+    kernel's step still refuses it, as ``make_pallas_step`` does, and the
+    solver's step takes it through the stencil engine, route ``"plain"``);
+    ``hash`` and ``sorted`` (the kernel's step for the card still refuses
+    them, and ``general.make_step`` takes them through the plain engine)."""
+    topo, fields, _ = cases.contact_scene(cases.modules())
     cfg = port_config(CONTACT_CASES["dense_every1"][0])
+    if what == "approx_math":
+        st = port.state_from_numpy(fields, device="cpu")
+        out = mc.make_mesh_cuda_substep_runner(topo, cfg, DT / 4, 1,
+                                               approx_math=True)(st)
+        twin = pgeneral.run_substeps_plain(st, topo, cfg, DT / 4, 1,
+                                           approx_math=True)
+        assert torch.equal(out.positions, twin.positions)
+        assert torch.equal(out.lambda_dist, twin.lambda_dist)
+        return
+    if what in ("lattice_self_collision", "lattice_tets"):
+        spec = ptop.lattice_spec(3, braced=True)
+        flag = ("enable_self_collision" if what.endswith("collision")
+                else "enable_tet_volume")
+        bad = cfg.replace(**{flag: True})
+        with pytest.raises(NotImplementedError):
+            lc.make_cuda_step(spec, bad, DT)
+        assert plat.make_step(spec, bad, DT).route == "plain"
+        return
     with pytest.raises(NotImplementedError):
         if what in ("hash_on_card", "sorted_on_card"):
             backend = what.split("_")[0]
@@ -191,28 +215,17 @@ def test_slice_refusals_at_build(what):
             mc.make_mesh_cuda_substep_runner(
                 topo, cfg.replace(self_collision_backend="blocked"), DT / 4,
                 4, n_bodies=2)
-        elif what == "approx_math":
-            mc.make_mesh_cuda_substep_runner(topo, cfg, DT / 4, 4,
-                                             approx_math=True)
         elif what in ("dense_cadence", "blocked_cadence"):
             backend = what.split("_")[0]
             mc.make_mesh_cuda_step(topo, cfg.replace(
                 self_collision_backend=backend, self_collision_every=3), DT)
-        else:
-            spec = ptop.lattice_spec(3, braced=True)
-            flag = ("enable_self_collision" if what.endswith("collision")
-                    else "enable_tet_volume")
-            bad = cfg.replace(**{flag: True})
-            try:
-                lc.make_cuda_step(spec, bad, DT)
-            except NotImplementedError:
-                plat.make_step(spec, bad, DT)
-            raise AssertionError("the lattice kernel accepted it")
     if what in ("hash_on_card", "sorted_on_card"):
-        # the plain engine runs them for a CPU state
+        # the plain engine runs them, for a CPU state and on the card
         backend = what.split("_")[0]
         mc.make_mesh_cuda_step(topo, cfg.replace(
             self_collision_backend=backend), DT)
+        assert pgeneral.make_step(topo, cfg.replace(
+            self_collision_backend=backend), DT).route == "plain"
     with pytest.raises(ValueError):
         mc.make_mesh_hybrid_contact_step(topo, cfg, DT)
 
