@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Drives the port's lattice, mesh, contact, differentiable, spatial,
-kinematic-collider, ensemble, approx-math and contact-cadence main paths
-through the entry points a user calls and fails (nonzero exit) if any
-phase fails:
+kinematic-collider, ensemble, approx-math, contact-cadence and volume main
+paths through the entry points a user calls and fails (nonzero exit) if
+any phase fails:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch / CUDA
    versions;
@@ -248,7 +248,32 @@ phase fails:
    sorted passes and the curve order under
    ``torch.cuda.set_sync_debug_mode("error")``;
 37. ``entry()``'s ``fn`` once on the card against the CPU (< 1e-5), and
-   the bench twin's ``main()`` (its JSON line, 2 s windows).
+   the bench twin's ``main()`` (its JSON line, 2 s windows);
+38. B-3 with the global volume constraint against its plain twin on every
+   case of ``tests/test_torch_volume_cases.py`` (every solve mode under
+   every lambda mode, example 3's config, bending, dense contact and the
+   per-tet volume in JACOBI and COLORED, ensembles of two and three bodies
+   with a ``(B,)`` ``lambda_volume``, one with dense contact): every leaf
+   equal to the bit (beside dense contact, positions within 2e-4 and
+   ``lambda_volume`` within 1e-4), ``lambda_volume`` nonzero; ensemble rows against the single-body kernel to
+   the bit in one body's launches, and a shared scalar ``lambda_volume``
+   refused;
+39. the volume path at full width: example 3's inflated ball on
+   ``icosphere(5, 0.4)`` (10,242 particles, 20,480 triangles) through
+   ``general.make_step`` for 240 frames: finite, V/V0 > 1.05, the ball
+   resting on the collider (min distance to its centre > 0.75), launches
+   a substep; 16 substeps of parity from frame 120; the 240-frame drift
+   against the plain engine (< 1e-3); ms per substep of the kernel and the plain engine, and the
+   bound; the pressurized farm (phase 30's 32 x ``icosphere(4, 0.5)`` with
+   example 3's volume settings and a ``(32,)`` ``lambda_volume``, each
+   body dropped from its own height) for 240 frames: finite, V/V0 > 1.05
+   in every body, rows 0 and 31 equal to the single-body kernel to the bit,
+   launches equal to one body's, drift against plain on those rows < 1e-3,
+   ms per substep beside the plain twin;
+40. examples 1, 2, 3 and 9 at the JAX tests' cuts on the card against the
+   CPU: within 1e-5, or 3x the card's own spread when its positions are
+   moved one ulp before every frame (the band ``tests/test_torch_
+   examples.py`` holds the port to JAX with).
 
 Prints one JSON line of kernels (with each kernel's bound, the least time
 the card could take for the same work, from ``bound_ms``), the card's name
@@ -517,7 +542,10 @@ def mesh_work(topo, cfg, colliders=(0, 0), bodies=1):
     unless the mode is RESET (which zeroes them in the predict and never
     reads them); per iteration ~30 operations per edge,
     ~150 per hinge (normals, acos, sin, four gradients), ~120 per tet, ~10
-    per particle (the sums and the floor); and the contacts against
+    per particle (the sums and the floor), and with the volume on its
+    triangles, corner incidence rows and VOLUME_* operations (the
+    passes' scratch, an intermediate, not counted); and the contacts
+    against
     ``colliders = (spheres, boxes)`` (the config's unless given) once per
     iteration, twice with Chebyshev (``collider_work``).  An ensemble of
     ``bodies`` moves each body's state and multipliers and does each
@@ -533,11 +561,33 @@ def mesh_work(topo, cfg, colliders=(0, 0), bodies=1):
               + (4 * (n + 1 + 4 * h) if h else 0)
               + (4 * (n + 1 + 4 * t) + 4 * n if t else 0))
     ops = cfg.iterations * (30 * e + 150 * h + 120 * t + 10 * n)
+    if general.volume_on(cfg, topo):
+        tri = topo.triangles.shape[0]
+        # the triangles and their corner incidence rows (CSR) read once,
+        # the multiplier written (and read outside RESET)
+        shared += 12 * tri + 4 * (n + 1 + 3 * tri)
+        per_body += lam
+        ops += cfg.iterations * (VOLUME_TRI_OPS * tri
+                                 + VOLUME_PARTICLE_OPS * n + VOLUME_BLOCK_OPS)
     counts = (max(colliders[0], len(cfg.sphere_colliders)),
               max(colliders[1], len(cfg.box_colliders)))
     passes = cfg.iterations * (2 if general.accelerated(cfg) else 1)
     cb, cops = collider_work(n, counts, passes)
     return bodies * per_body + shared + cb, bodies * (ops + cops)
+
+
+# float32 operations of B-3's volume passes per iteration, counted from the
+# kernel bodies in csrc/mesh_xpbd.cu as B5_* below are counted.  Per
+# triangle: tri_kernel's three cross products (9 each), the volume term's
+# dot product (5) and nine divisions by 6 (41); vol_grad_kernel's row sums,
+# 3 adds for each of the triangle's 3 corners (9); vol_reduce_kernel's
+# strided sum (1).  Per particle: vol_grad_kernel's w |g|^2 (6),
+# vol_reduce_kernel's strided sum (1), the apply in particle_kernel (7).
+# Per body: the reduction block's two halving trees (2 x 255) and the
+# multiplier's update (8).
+VOLUME_TRI_OPS = 41 + 9 + 1
+VOLUME_PARTICLE_OPS = 6 + 1 + 7
+VOLUME_BLOCK_OPS = 2 * 255 + 8
 
 
 DIFF_DT = 1.0 / 240.0
@@ -1213,20 +1263,22 @@ def contact_phases(torch, np, built, K, cc, mc, general, scenes, is_finite,
           f"candidate pair tests, {touching} touching; bound "
           f"{b4_bound[0]:.5f} ms ({b4_bound[1]}: {PAIR_OPS} operations per "
           f"candidate pair, {TOUCH_OPS} more per touching pair)")
-    # what the plain engine's column-order hub sums (general.gather_sum,
-    # the hub rows on the device, one scan each) cost it per substep at
-    # this scene
+    # what the plain engine's column-order hub sums (ops/incidence
+    # .gather_sum, the hub rows on the device, one scan each) cost it per
+    # substep at this scene
+    from softbodysimulation_tpu_torch.ops.incidence import (Incidence,
+                                                            gather_sum)
+
     hub_ms = 0.0
     for table, width in ((topo.tet_incidence, 4 * topo.n_tets),
                          (topo.incidence, 2 * topo.n_edges)):
-        inc = general.Incidence.of(table.to("cuda"), width)
+        inc = Incidence.of(table.to("cuda"), width)
         bare = dataclasses.replace(inc, hub_rows=inc.hub_rows[:0],
                                    hub=inc.hub[:0])
         contrib = torch.randn((width, 3), device="cuda",
                               generator=torch.Generator(device="cuda").manual_seed(0))
-        hub_ms += (cuda_ms(torch, lambda: general.gather_sum(contrib, inc), 20)
-                   - cuda_ms(torch, lambda: general.gather_sum(contrib, bare),
-                             20))
+        hub_ms += (cuda_ms(torch, lambda: gather_sum(contrib, inc), 20)
+                   - cuda_ms(torch, lambda: gather_sum(contrib, bare), 20))
     print(f"# plain engine's hub rows (summed on the device in column "
           f"order, one scan each): {hub_ms * cfg.iterations:.4f} ms "
           f"per substep "
@@ -2898,6 +2950,331 @@ def cadence_phases(torch, np, smi, is_finite, main_state, main_plain):
     }
 
 
+# phase 39: the inflated ball of examples/config3_inflated_ball.py at full
+# width, icosphere(5, 0.4): 10,242 particles, 30,720 edges, 20,480
+# triangles
+BALL_SUBDIV = 5
+BALL_FRAMES = 240
+# the pressurized farm: phase 30's farm with example 3's volume settings
+VOLUME_FARM_ROWS = (0, FARM_BODIES - 1)
+# phase 40: examples 1, 2, 3 and 9 at the JAX tests' cuts
+# (tests/test_examples.py:18-45, :99-108), card against CPU, gated as
+# tests/test_torch_examples.py gates the port against JAX: within
+# EXAMPLE_TOL, or 3x the card's own spread under a one-ulp nudge of the
+# positions before every frame where a scene amplifies rounding (example
+# 3's ball rolls off the top of its collider: one ulp at the start grows
+# to about 1e-3 by frame 200)
+EXAMPLE_CUTS = {"config1_cube_drop": dict(res=4, steps=150),
+                "config2_icosphere_pinned": dict(subdivisions=1, steps=150),
+                "config3_inflated_ball": dict(subdivisions=1, steps=200),
+                "config9_tet_solid": dict(res=4, steps=120)}
+EXAMPLE_TOL = 1e-5
+VOLUME_LEAVES = ("positions", "velocities", "lambda_dist", "lambda_bend",
+                 "lambda_volume", "lambda_tet")
+
+
+def volume_leaf_diffs(out, ref):
+    return {k: float((getattr(out, k) - getattr(ref, k)).abs().max())
+            if getattr(ref, k) is not None and getattr(ref, k).numel()
+            else 0.0 for k in VOLUME_LEAVES}
+
+
+def volume_rows_differ(torch, out, rows):
+    """The (body, leaf) pairs where the ensemble's ``out`` differs from
+    ``rows`` (body -> the single-body kernel's result); a leaf the
+    ensemble does not carry (``lambda_tet`` without tets) is skipped."""
+    return [(b, k) for b, row in rows.items() for k in VOLUME_LEAVES
+            if getattr(out, k) is not None
+            and not torch.equal(getattr(out, k)[b], getattr(row, k))]
+
+
+def body_volumes(torch, positions, triangles):
+    """The enclosed volume of every body of a (B, N, 3) or (N, 3)
+    tensor."""
+    from softbodysimulation_tpu_torch.ops.volume import enclosed_volume
+
+    p = positions if positions.ndim == 3 else positions[None]
+    return torch.stack([enclosed_volume(b, triangles) for b in p])
+
+
+def volume_phases(torch, np, smi, is_finite):
+    """Phases 38-40: B-3's global volume constraint against its plain twin
+    on every case of ``tests/test_torch_volume_cases.py``, the full-width
+    inflated ball and the pressurized farm, and examples 1, 2, 3 and 9 on
+    the card against the CPU.  Returns the kernels line's new fields of
+    B-3 ("mesh") and the runs ``--profile`` traces ("profile")."""
+    import test_torch_volume_cases as V
+
+    from softbodysimulation_tpu_torch import (state_from_numpy,
+                                              state_from_topology)
+    from softbodysimulation_tpu_torch.core.state import body_of
+    from softbodysimulation_tpu_torch.examples import (
+        config1_cube_drop, config2_icosphere_pinned, config3_inflated_ball,
+        config9_tet_solid)
+    from softbodysimulation_tpu_torch.kernels import mesh_cuda as mc
+    from softbodysimulation_tpu_torch.solvers import general
+    from softbodysimulation_tpu_torch.topology import build, mesh
+
+    # 38. B-3 with the volume against its twin, one body and ensembles
+    t0 = time.perf_counter()
+    vol_err, n_exact = 0.0, 0
+    for name in V.volume_cases():
+        cfg, topo, fields, nb, frames = V.case_inputs(name)
+        st = state_from_numpy(fields, device="cuda")
+        one = mc.make_mesh_cuda_step(topo, cfg, V.DT, n_steps=frames)
+        torch.cuda.synchronize()
+        mc.launches = 0
+        if nb == 1:
+            out = one(st)
+            ref = general.multi_step_fn(st, topo, cfg, V.DT, frames)
+        else:
+            out = general.make_batched_step(topo, cfg, V.DT, frames)(st)
+            ref = general.run_substeps_plain_batched(
+                st, topo, cfg, V.DT / cfg.substeps, frames * cfg.substeps,
+                with_ext=True)
+        torch.cuda.synchronize()
+        launched = mc.launches
+        d = volume_leaf_diffs(out, ref)
+        bits = all(v == 0.0 for v in d.values())
+        must = V.card_exact(cfg)
+        n_exact += must
+        lam_v = float(out.lambda_volume.abs().min())
+        gate = V.dx_gate(cfg) if must else V.DX_CARD_CONTACT
+        print(f"# B-3 volume {name} x {nb}: max|dx|={d['positions']:.3e} "
+              f"max|dlam_v|={d['lambda_volume']:.3e} (min|lam_v| "
+              f"{lam_v:.3e}) max|dlam|={d['lambda_dist']:.3e} max|dlam_t|="
+              f"{d['lambda_tet']:.3e}; bit for bit {bits} (required: "
+              f"{must}; else |dx| < {gate}); {launched} launches over "
+              f"{frames * cfg.substeps} substeps")
+        if not (is_finite(out) and d["positions"] < gate
+                and d["lambda_volume"] < V.DLAM_VOLUME and lam_v > 0
+                and launched > 0 and (bits or not must)):
+            raise RuntimeError(f"B-3 volume {name} disagrees with plain: {d}")
+        vol_err = max(vol_err, d["positions"])
+        if nb > 1:
+            mc.launches = 0
+            rows = [one(body_of(st, b)) for b in range(nb)]
+            bad = volume_rows_differ(torch, out, dict(enumerate(rows)))
+            print(f"# B-3 volume {name}: rows equal to the single-body "
+                  f"kernel to the bit: {not bad}; launches {launched} vs "
+                  f"{mc.launches // nb} for one body")
+            if bad or launched != mc.launches // nb:
+                raise RuntimeError(f"B-3 volume ensemble {name}: rows {bad}")
+            try:
+                general.make_batched_step(topo, cfg, V.DT, 1)(
+                    st.replace(lambda_volume=st.lambda_volume[0]))
+            except ValueError as err:
+                if "lambda_volume" not in str(err):
+                    raise
+            else:
+                raise RuntimeError("a shared scalar lambda_volume ran in a "
+                                   "volume ensemble")
+    print(f"# phase 38: {len(V.volume_cases())} cases in "
+          f"{time.perf_counter() - t0:.1f} s; the {n_exact} without dense "
+          f"contact bit for bit")
+
+    # 39. the inflated ball at full width: 240 frames through B-3
+    m = mesh.icosphere(BALL_SUBDIV, radius=0.4)
+    pos, btopo = build.topology_from_mesh(m, compliance=5e-4, bending=False)
+    pos = pos + np.array([0.1, 2.0, 0.0], np.float32)
+    bcfg = config3_inflated_ball.config()
+    bstart = state_from_topology(btopo, pos, device="cuda")
+    bstep = general.make_step(btopo, bcfg, 1 / 60)
+    bdt_sub = 1 / 60 / bcfg.substeps
+    n_sub = BALL_FRAMES * bcfg.substeps
+    tri = btopo.triangles.to("cuda")
+    v0 = float(btopo.rest_volume)
+
+    def ball_rollout(st, step):
+        at120 = None
+        for frame in range(BALL_FRAMES):
+            if frame == BALL_FRAMES // 2:
+                at120 = st
+            st = step(st)
+        return st, at120
+
+    torch.cuda.synchronize()
+    mc.launches = 0
+    t1 = time.perf_counter()
+    ball, at120 = ball_rollout(bstart, bstep)
+    torch.cuda.synchronize()
+    ball_wall = time.perf_counter() - t1
+    ball_launches = mc.launches
+    ratio = float(body_volumes(torch, ball.positions, tri)[0]) / v0
+    rmin = float(torch.linalg.norm(ball.positions, dim=1).min())
+    print(f"# inflated ball: icosphere({BALL_SUBDIV}, 0.4), "
+          f"{btopo.n_particles} particles, {btopo.n_edges} edges, "
+          f"{btopo.triangles.shape[0]} triangles, {BALL_FRAMES} frames x "
+          f"{bcfg.substeps} substeps in {ball_wall:.3f} s wall, "
+          f"{ball_launches} launches ({ball_launches / n_sub:.3f} a "
+          f"substep); finite={is_finite(ball)} V/V0={ratio:.4f} (target "
+          f"{bcfg.pressure}) min distance to the collider centre "
+          f"{rmin:.4f} (radius 0.8) lambda_volume "
+          f"{float(ball.lambda_volume):.4e}")
+    if not (is_finite(ball) and ratio > 1.05 and rmin > 0.75
+            and ball_launches > 0):
+        raise RuntimeError("the inflated ball failed its health gates")
+    gates = (V.DX, 1e-6, 5e-6)
+    d = volume_leaf_diffs(
+        mc.make_mesh_cuda_substep_runner(btopo, bcfg, bdt_sub, 16)(at120),
+        general.run_substeps_plain(at120, btopo, bcfg, bdt_sub, 16))
+    print(f"# inflated ball parity from frame {BALL_FRAMES // 2}, 16 "
+          f"substeps: max|dx|={d['positions']:.3e} max|dlam|="
+          f"{d['lambda_dist']:.3e} max|dlam_v|={d['lambda_volume']:.3e}")
+    if not (d["positions"] < gates[0] and d["lambda_dist"] < gates[1]
+            and d["lambda_volume"] < V.DLAM_VOLUME):
+        raise RuntimeError(f"inflated ball: kernel parts from plain: {d}")
+    vol_err = max(vol_err, d["positions"])
+
+    def plain_step(st):
+        return general.step_fn(st, btopo, bcfg, 1 / 60)
+
+    plain, _ = ball_rollout(bstart, plain_step)
+    drift = float((ball.positions - plain.positions).abs().max())
+    print(f"# inflated ball drift vs plain, {BALL_FRAMES} frames from the "
+          f"same start: {drift:.3e} (gate {DRIFT_TOL})")
+    if not drift < DRIFT_TOL:
+        raise RuntimeError(f"inflated ball drifts from plain: {drift}")
+    vol_err = max(vol_err, drift)
+    n_k, n_p = 400, 20
+    k_ball = mc.make_mesh_cuda_substep_runner(btopo, bcfg, bdt_sub, n_k)
+    btimes, breps = timed_windows(torch, {
+        "plain": (lambda: general.run_substeps_plain(
+            at120, btopo, bcfg, bdt_sub, n_p), n_p),
+        "kernel": (lambda: k_ball(at120), n_k)})
+    ball_bound = bound_ms(*mesh_work(btopo, bcfg))
+    nb_ = btopo.n_particles
+    print(f"# inflated ball ({smi}): kernel "
+          f"{min(btimes['kernel']):.5f} ms/substep = "
+          f"{nb_ / min(btimes['kernel']) * 1e3:.4e} particle-substeps/s, "
+          f"plain {min(btimes['plain']):.5f} ms/substep (windows in turn "
+          f"order: kernel {btimes['kernel']}, plain {btimes['plain']}); "
+          f"bound {ball_bound[0]:.5f} ms ({ball_bound[1]}), kernel at "
+          f"{min(btimes['kernel']) / ball_bound[0]:.1f}x")
+
+    # the pressurized farm: 32 x icosphere(4, 0.5), a (32,) lambda_volume
+    ftopo, fcfg, fstate, _ = diff_scene(torch, "cuda")
+    vcfg = fcfg.replace(enable_volume=True, pressure=bcfg.pressure,
+                        volume_compliance=0.0)
+    farm = farm_state(torch, np, fstate, FARM_BODIES, (4.0, 2.0)).replace(
+        lambda_volume=torch.zeros(FARM_BODIES, device="cuda"))
+    fdt_sub = 1 / 60 / vcfg.substeps
+    f_sub = FARM_FRAMES * vcfg.substeps
+    torch.cuda.synchronize()
+    mc.launches = 0
+    t1 = time.perf_counter()
+    fout = general.make_batched_step(ftopo, vcfg, 1 / 60, FARM_FRAMES)(farm)
+    torch.cuda.synchronize()
+    farm_wall = time.perf_counter() - t1
+    farm_launches = mc.launches
+    ratios = body_volumes(torch, fout.positions,
+                          ftopo.triangles.to("cuda")) / float(
+                              ftopo.rest_volume)
+    single = mc.make_mesh_cuda_step(ftopo, vcfg, 1 / 60, FARM_FRAMES)
+    mc.launches = 0
+    rows = {b: single(body_of(farm, b)) for b in VOLUME_FARM_ROWS}
+    one_launches = mc.launches // len(rows)
+    bad = volume_rows_differ(torch, fout, rows)
+    drift = max(float((fout.positions[b] - general.run_substeps_plain(
+        body_of(farm, b), ftopo, vcfg, fdt_sub, f_sub,
+        with_ext=True).positions).abs().max()) for b in VOLUME_FARM_ROWS)
+    print(f"# pressurized farm: {FARM_BODIES} x {ftopo.n_particles} "
+          f"particles ({ftopo.triangles.shape[0]} triangles each), "
+          f"{FARM_FRAMES} frames x {vcfg.substeps} substeps in "
+          f"{farm_wall:.3f} s wall, {farm_launches} launches (one body: "
+          f"{one_launches}); finite={is_finite(fout)} V/V0 "
+          f"{float(ratios.min()):.4f}-{float(ratios.max()):.4f} min|lam_v| "
+          f"{float(fout.lambda_volume.abs().min()):.4e}; rows "
+          f"{list(VOLUME_FARM_ROWS)} equal to the single-body kernel to the "
+          f"bit: {not bad}; drift vs plain on them {drift:.3e} (gate "
+          f"{DRIFT_TOL})")
+    if not (is_finite(fout) and float(ratios.min()) > 1.05 and not bad
+            and farm_launches == one_launches and drift < DRIFT_TOL
+            and float(fout.lambda_volume.abs().min()) > 0):
+        raise RuntimeError("the pressurized farm failed its gates")
+    vol_err = max(vol_err, drift)
+    k_farm = mc.make_mesh_cuda_substep_runner(ftopo, vcfg, fdt_sub, 40,
+                                              n_bodies=FARM_BODIES)
+    ftimes, _ = timed_windows(torch, {
+        "plain": (lambda: general.run_substeps_plain_batched(
+            fout, ftopo, vcfg, fdt_sub, 2), 2),
+        "ensemble": (lambda: k_farm(fout), 40)}, min_s=0.5)
+    farm_bound = bound_ms(*mesh_work(ftopo, vcfg, bodies=FARM_BODIES))
+    print(f"# pressurized farm ({smi}): ensemble "
+          f"{min(ftimes['ensemble']):.5f} ms/substep, plain twin "
+          f"{min(ftimes['plain']):.5f} (windows in turn order: "
+          f"{ftimes}); bound {farm_bound[0]:.5f} ms ({farm_bound[1]}), "
+          f"{min(ftimes['ensemble']) / farm_bound[0]:.1f}x")
+
+    # 40. examples 1, 2, 3 and 9 on the card against the CPU
+    def nudged(make_step):
+        """``make_step`` whose stepper moves every coordinate one ulp up
+        before each frame."""
+        def make(topo, cfg, dt, n_steps=1):
+            step = make_step(topo, cfg, dt, n_steps=1)
+
+            def fn(st):
+                for _ in range(n_steps):
+                    st = step(st.replace(positions=torch.nextafter(
+                        st.positions, torch.full_like(st.positions,
+                                                      math.inf))))
+                return st
+            return fn
+        return make
+
+    def positions(result):
+        return (result[0] if isinstance(result, tuple) else result).positions
+
+    for name, kw in EXAMPLE_CUTS.items():
+        mod = {"config1_cube_drop": config1_cube_drop,
+               "config2_icosphere_pinned": config2_icosphere_pinned,
+               "config3_inflated_ball": config3_inflated_ball,
+               "config9_tet_solid": config9_tet_solid}[name]
+        t1 = time.perf_counter()
+        card = mod.run(verbose=False, device="cuda", **kw)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        cpu = mod.run(verbose=False, device="cpu", **kw)
+        t_cpu = time.perf_counter() - t1
+        engine = (mod.lat_engine if name == "config1_cube_drop"
+                  else mod.general)
+        make_step = engine.make_step
+        engine.make_step = nudged(make_step)
+        try:
+            spread = float((positions(mod.run(verbose=False, device="cuda",
+                                              **kw))
+                            - positions(card)).abs().max())
+        finally:
+            engine.make_step = make_step
+        gate = max(EXAMPLE_TOL, 3.0 * spread)
+        card_pos = positions(card)
+        gap = float((card_pos.cpu() - positions(cpu)).abs().max())
+        y = card_pos[:, 1]
+        print(f"# example {name} {kw}: card {t_card:.3f} s (CPU "
+              f"{t_cpu:.3f} s), max|dx| card vs CPU {gap:.3e} (gate "
+              f"{gate:.3e}: the card nudged one ulp a frame parts from "
+              f"itself by {spread:.3e}), finite="
+              f"{bool(torch.isfinite(card_pos).all())} ymin="
+              f"{float(y.min()):.4f} ymax={float(y.max()):.4f}")
+        if not (gap < gate and bool(torch.isfinite(card_pos).all())):
+            raise RuntimeError(f"example {name} on the card parts from the "
+                               f"CPU: {gap}")
+
+    return {
+        "mesh": {"volume_max_abs_err": vol_err,
+                 "volume_ms": min(btimes["kernel"]),
+                 "volume_plain_ms": min(btimes["plain"]),
+                 "volume_bound_ms": ball_bound[0],
+                 "volume_bound_by": ball_bound[1],
+                 "volume_launches": ball_launches,
+                 "volume_farm_ms": min(ftimes["ensemble"]),
+                 "volume_farm_plain_ms": min(ftimes["plain"]),
+                 "volume_farm_bound_ms": farm_bound[0]},
+        "profile": [(k_ball, at120), (k_farm, fout)],
+    }
+
+
 def main() -> int:
     if "--f64-witness" in sys.argv[1:]:
         return f64_witness()
@@ -2921,7 +3298,7 @@ def main() -> int:
 
 
 def smoke(torch, witness) -> int:
-    """Phases 1-37 (module docstring)."""
+    """Phases 1-40 (module docstring)."""
     sys.path.insert(0, HERE)
     import numpy as np
 
@@ -3252,6 +3629,10 @@ def smoke(torch, witness) -> int:
                              main_plain)
     lap("33-37")
 
+    # 38-40. the global volume constraint in B-3, examples 1, 2, 3 and 9
+    volume = volume_phases(torch, np, smi, is_finite)
+    lap("38-40")
+
     if "--profile" in sys.argv[1:]:
         profile_main_path(
             torch, lc.make_cuda_substep_runner(spec, cfg, dt_sub, 200),
@@ -3261,7 +3642,7 @@ def smoke(torch, witness) -> int:
                                                     200), cstate)
         for run, st in (contact["profile"] + diff["profile"]
                         + spatial["profile"] + ensembles["profile"]
-                        + cadence["profile"]):
+                        + cadence["profile"] + volume["profile"]):
             profile_main_path(torch, run, st)
 
     lat_bound = bound_ms(*lattice_work(spec, cfg))
@@ -3311,6 +3692,10 @@ def smoke(torch, witness) -> int:
         "kin_sweep_plain_ms": coll["mesh"]["plain_ms"],
         # approx_math at cloth_xl (phase 34)
         **cadence["mesh"],
+        # the global volume constraint (phases 38-39): parity, the
+        # full-width inflated ball's ms per substep, launches and bound,
+        # the pressurized farm's
+        **volume["mesh"],
     }, {
         "name": "contact_xpbd",
         "route": "cuda",

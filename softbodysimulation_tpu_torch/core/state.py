@@ -20,7 +20,8 @@ leaves carry a leading body axis (``LEAF_RANK``, ``body_of``,
 is, one shared ColliderSet acting on every body.  The
 topology carries no one-hot window matrices (``windows``, ``bend_windows``,
 ``tet_windows``): they are a layout for the TPU's matrix unit, and the
-port's engines gather by index instead.
+port's engines gather by index instead; it keeps ``tet_window_perm``, an
+index table whose presence marks a topology built with tet windows.
 """
 
 from __future__ import annotations
@@ -260,6 +261,9 @@ class Topology:
     tet_degree: Optional[torch.Tensor] = None        # (N,) f32
     tet_incidence: Optional[torch.Tensor] = None     # (N, Dt) i32
     num_tet_colors: int = 0
+    # (T,) i32 window slot -> tet, set by build_windowed_topology where
+    # JAX's tet windows fit: the windowed tet backend's precondition
+    tet_window_perm: Optional[torch.Tensor] = None
 
     @property
     def n_edges(self) -> int:
@@ -288,10 +292,9 @@ _TOPO_INT = {f.name for f in dataclasses.fields(Topology)
              if f.type == "int"}
 _TOPO_I32 = ("edges", "colors", "col_edge_ids", "hinges", "bend_colors",
              "bcol_hinge_ids", "triangles", "incidence", "bend_incidence",
-             "tets", "tcol_tet_ids", "tet_incidence")
+             "tets", "tcol_tet_ids", "tet_incidence", "tet_window_perm")
 # the JAX topology's one-hot window matrices, which the port does not carry
-_TOPO_WINDOW_FIELDS = ("windows", "bend_windows", "tet_windows",
-                       "tet_window_perm")
+_TOPO_WINDOW_FIELDS = ("windows", "bend_windows", "tet_windows")
 
 
 def topology_from_numpy(fields: Dict[str, Any],

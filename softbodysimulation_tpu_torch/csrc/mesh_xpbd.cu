@@ -15,14 +15,24 @@
 // solvers/general.py::_substep -- and none of its TPU machinery: no signed
 // one-hot gather/scatter matrices, no bf16 split compensation, no window
 // bases, no VMEM budget, and acosf in place of the polynomial Mosaic
-// needed.  The global volume constraint is refused by the wrapper
-// (kernels/mesh_cuda.py); traced materials are per-call rest and
-// alpha buffers; the spheres and boxes (the config's, or a ColliderSet's
+// needed.  Traced materials are per-call rest and alpha buffers; the spheres and boxes (the config's, or a ColliderSet's
 // traced poses, velocities and ground: mesh_pallas.py:881-898,
 // :1566-1590) come from the collider table of colliders.cuh, read by every
 // launch, so a new pose rebuilds nothing.  The structs and the
 // arithmetic the fused backward (mesh_diff_xpbd.cu, built into the same
 // library) shares live in mesh_xpbd.cuh.
+//
+// The global volume constraint (mesh_pallas.py volume_sweep, :1259-1313,
+// the math of ops/volume.py) after the tets and before the contacts of
+// every iteration, one multiplier a body: a triangle pass writes each
+// triangle's three corner gradients and its volume term; a particle pass
+// sums each particle's corner rows (CSR, column order) into a gradient
+// plane and w |g|^2; one block a body adds the volume terms and the
+// w |g|^2 in a fixed order (strided per thread, then a halving tree: the
+// plain twin's ops/volume.block_sum), forms dlambda and updates the
+// multiplier; the apply pred += w dlambda g rides in the particle pass that
+// carries the iteration's tail (contacts, Chebyshev, finalize).  No
+// atomics, so the sums are the same every run.
 //
 // Layout: x, v, pred (and the Chebyshev planes cur, prev) are (3, N)
 // float32 structure-of-arrays planes; lambda_dist (E), lambda_bend (H),
@@ -58,6 +68,8 @@
 //   per iteration, COLORED: one launch per colour of each family (a thread
 //     updates its constraint's lambda and endpoints in place; a colour
 //     shares no particle, so this is exact);
+//   per iteration, with the volume on: the triangle pass, the gradient
+//     pass, the reduction block and the apply (4 launches);
 //   then the contacts: without self-collision the last particle pass also
 //     projects floor and spheres, takes the Chebyshev step and, after the
 //     last iteration, finalizes; on a contact substep (i % every == 0) the
@@ -177,9 +189,9 @@ __device__ float bending_dl(const MeshParams& p, float pp[4][3],
   return dl;
 }
 
-// The lambda lifecycle of the three families, and predict (gravity, the
-// first substep's ext force, damping, clamps).  Grid: max(N, E, H, T)
-// threads.
+// The lambda lifecycle of the four families (the volume's in thread 0),
+// and predict (gravity, the first substep's ext force, damping, clamps).
+// Grid: max(N, E, H, T) threads.
 __global__ void predict_kernel(MeshParams p, MeshBuffers bb, int use_ext,
                                int save) {
   const MeshBuffers b = body_buffers(p, bb);
@@ -190,6 +202,8 @@ __global__ void predict_kernel(MeshParams p, MeshBuffers bb, int use_ext,
     b.blam[i] = p.lambda_mode == 1 ? b.blam[i] * p.lambda_decay : 0.f;
   if (i < p.n_tets)
     b.tlam[i] = p.lambda_mode == 1 ? b.tlam[i] * p.lambda_decay : 0.f;
+  if (i == 0 && p.n_tris > 0)
+    *b.vlam = p.lambda_mode == 1 ? *b.vlam * p.lambda_decay : 0.f;
   if (i >= p.n) return;
   const int n = p.n;
   const float wa = b.w[i];
@@ -403,6 +417,72 @@ __global__ void tet_color_kernel(MeshParams p, MeshBuffers bb, int color) {
   }
 }
 
+// The global volume constraint, pass 1 of 3: one thread per triangle
+// (p1, p2, p3) writes its corner gradients cross(p2, p3) / 6,
+// cross(p3, p1) / 6 and cross(p1, p2) / 6 to vcontrib rows t, T + t and
+// 2T + t, and its volume term p1 . (p2 x p3) to vterm[t].
+__global__ void tri_kernel(MeshParams p, MeshBuffers bb) {
+  const MeshBuffers b = body_buffers(p, bb);
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= p.n_tris) return;
+  const int n = p.n, nt = p.n_tris;
+  float q[3][3], g[3][3];
+  for (int k = 0; k < 3; ++k) load3(b.pred, n, b.tris[3 * t + k], q[k]);
+  cross3(q[1], q[2], g[0]);
+  cross3(q[2], q[0], g[1]);
+  cross3(q[0], q[1], g[2]);
+  b.vterm[t] = dot3(q[0], g[0]);
+  for (int k = 0; k < 3; ++k)
+    for (int c = 0; c < 3; ++c)
+      b.vcontrib[3 * (k * nt + t) + c] = g[k][c] / 6.f;
+}
+
+// Pass 2 of 3: one thread per particle adds its corner rows in CSR column
+// order into the gradient plane vgrad and writes w |g|^2 to vwg.
+__global__ void vol_grad_kernel(MeshParams p, MeshBuffers bb) {
+  const MeshBuffers b = body_buffers(p, bb);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.n) return;
+  float s[3] = {0.f, 0.f, 0.f};
+  for (int k = b.vinc_ptr[i]; k < b.vinc_ptr[i + 1]; ++k) {
+    const int j = b.vinc_cols[k];
+    for (int c = 0; c < 3; ++c) s[c] = s[c] + b.vcontrib[3 * j + c];
+  }
+  store3(b.vgrad, p.n, i, s);
+  b.vwg[i] = b.w[i] * dot3(s, s);
+}
+
+// Pass 3 of 3, one block of MX_THREADS per body: V and sum_i w_i |g_i|^2
+// (thread t adds elements t, t + MX_THREADS, ... in order, then a halving
+// tree), then ops/volume.py's dlambda with its safe divisor (denominator
+// > 1e-12), lambda += dlambda; the apply reads vdl.
+__global__ void vol_reduce_kernel(MeshParams p, MeshBuffers bb) {
+  const MeshBuffers b = body_buffers(p, bb);
+  __shared__ float s_v[MX_THREADS], s_w[MX_THREADS];
+  const int t = threadIdx.x;
+  float sv = 0.f, sw = 0.f;
+  for (int k = t; k < p.n_tris; k += MX_THREADS) sv = sv + b.vterm[k];
+  for (int k = t; k < p.n; k += MX_THREADS) sw = sw + b.vwg[k];
+  s_v[t] = sv;
+  s_w[t] = sw;
+  __syncthreads();
+  for (int half = MX_THREADS / 2; half > 0; half >>= 1) {
+    if (t < half) {
+      s_v[t] = s_v[t] + s_v[t + half];
+      s_w[t] = s_w[t] + s_w[t + half];
+    }
+    __syncthreads();
+  }
+  if (t != 0) return;
+  const float cerr = s_v[0] / 6.f - p.vol_target;
+  const float lam = *b.vlam;
+  const float denom = s_w[0] + p.vol_alpha;
+  const bool valid = denom > 1e-12f;
+  const float dl = (-cerr - p.vol_alpha * lam) / (valid ? denom : 1.f);
+  *b.vdl = valid ? dl : 0.f;
+  *b.vlam = lam + (valid ? dl : 0.f);
+}
+
 // Dense self-collision, pass 1 of 2: the mean of pred, in one block.
 __global__ void sc_mean_kernel(MeshParams p, MeshBuffers bb) {
   const MeshBuffers b = body_buffers(p, bb);
@@ -512,6 +592,10 @@ __global__ void particle_kernel(MeshParams p, MeshBuffers bb, SumSource src,
       for (int c = 0; c < 3; ++c) s[c] = s[c] / d;
     }
     for (int c = 0; c < 3; ++c) pc[c] = pc[c] + s[c];
+  }
+  if (flags & PF_VOLUME) {
+    const float s = wa * *b.vdl;
+    for (int c = 0; c < 3; ++c) pc[c] = pc[c] + s * b.vgrad[c * n + i];
   }
   if (sc.corr)
     for (int c = 0; c < 3; ++c)
@@ -624,6 +708,7 @@ int mesh_xpbd_run(const MeshParams* hp, const MeshBuffers* hb,
   const bool warm = p.lambda_mode == 2;
   const bool bending = p.bending && p.n_hinges > 0;
   const bool tets = p.tets_on && p.n_tets > 0;
+  const bool volume = p.n_tris > 0;
   const int contacts =
       (p.floor_mode == 1 || p.n_spheres > 0 || p.n_boxes > 0) ? PF_CONTACTS
                                                                : 0;
@@ -655,6 +740,18 @@ int mesh_xpbd_run(const MeshParams* hp, const MeshBuffers* hb,
     const int rc = contact_xpbd_corr(cp, cb, n_contact, stream);
     *out = {cb->corr, cb->order, cp->nb * cp->block, 0};
     return rc;
+  };
+  // the global volume constraint; its apply carries the iteration's tail
+  auto volume_pass = [&](int flags, float w) -> int {
+    tri_kernel<<<grid_for(p.n_tris, nb), block, 0, stream>>>(p, b);
+    MX_CHECK();
+    vol_grad_kernel<<<g_part, block, 0, stream>>>(p, b);
+    MX_CHECK();
+    vol_reduce_kernel<<<dim3(1, nb), MX_THREADS, 0, stream>>>(p, b);
+    MX_CHECK();
+    particles(no_sum, no_corr, PF_VOLUME | flags, w);
+    MX_CHECK();
+    return 0;
   };
 
   for (int i = 0; i < n_substeps; ++i) {
@@ -703,26 +800,32 @@ int mesh_xpbd_run(const MeshParams* hp, const MeshBuffers* hb,
             MX_CHECK();
           }
         }
-        if (last) {
+        if (volume) {
+          if (int rc = volume_pass(last, 0.f)) return rc;
+        } else if (last) {
           particles(no_sum, no_corr, last, 0.f);
           MX_CHECK();
         }
       } else {
         edge_kernel<<<grid_for(p.n_edges, nb), block, 0, stream>>>(p, b, 0);
         MX_CHECK();
-        particles(edge_sum, no_corr, bending || tets ? 0 : last, om[it]);
+        particles(edge_sum, no_corr, bending || tets || volume ? 0 : last,
+                  om[it]);
         MX_CHECK();
         if (bending) {
           hinge_kernel<<<grid_for(p.n_hinges, nb), block, 0, stream>>>(p, b);
           MX_CHECK();
-          particles(bend_sum, no_corr, tets ? 0 : last, om[it]);
+          particles(bend_sum, no_corr, tets || volume ? 0 : last, om[it]);
           MX_CHECK();
         }
         if (tets) {
           tet_kernel<<<grid_for(p.n_tets, nb), block, 0, stream>>>(p, b);
           MX_CHECK();
-          particles(tet_sum, no_corr, last, om[it]);
+          particles(tet_sum, no_corr, volume ? 0 : last, om[it]);
           MX_CHECK();
+        }
+        if (volume) {
+          if (int rc = volume_pass(last, om[it])) return rc;
         }
       }
       if (!contact) continue;

@@ -75,6 +75,9 @@ struct MeshParams {
   int mat_stride;      // floats between two bodies' rest and alpha: 0 for
                        // shared materials, E for per-body (B, E) ones
   int approx_math;     // rsqrt in the distance and bending passes
+  int n_tris;          // triangles of the global volume constraint, 0 off
+  float vol_target;    // float32(pressure) * rest volume
+  float vol_alpha;     // volume_compliance / dt^2
 };
 
 // Device pointers, all 8 bytes wide.  In an ensemble every per-body buffer
@@ -122,6 +125,15 @@ struct MeshBuffers {
   float* sc_corr;             // (3, N) dense self-collision correction
   float* sc_stats;            // (3) mean of pred (dense pass)
   const float* colliders;     // (1 + S + B, KIN_W) collider table
+  float* vlam;                // (1) the volume multiplier
+  float* vdl;                 // (1) the iteration's volume dlambda
+  float* vterm;               // (T) p1 . (p2 x p3) per triangle
+  float* vcontrib;            // (3T, 3) corner gradients, corner-major
+  float* vgrad;               // (3, N) dV/dp per particle
+  float* vwg;                 // (N) inv_mass * |dV/dp|^2
+  const int* tris;            // (T, 3) surface triangles
+  const int* vinc_ptr;        // (N + 1) CSR rows into vinc_cols
+  const int* vinc_cols;       // triangle-corner incidence: rows of vcontrib
 };
 
 enum {
@@ -132,6 +144,7 @@ enum {
   PF_CHEBY_SPLIT = 16,  // Chebyshev step, prev = cur; contacts follow in a
                         // later pass (self-collision needs the whole plane)
   PF_SETCUR = 32,    // cur = pred (the split step's second half)
+  PF_VOLUME = 64,    // pred += inv_mass * vdl * vgrad (the volume apply)
 };
 
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
@@ -314,7 +327,8 @@ __device__ __forceinline__ T* body_ptr(T* ptr, size_t offset) {
 // n_bodies > 1): its planes, multipliers, contributions, self-collision
 // scratch and ext force; its inverse masses when they are per body
 // (w_stride), its rest lengths and alphas when the materials are
-// (mat_stride).  Body 0 of a one-body launch is the buffers themselves.
+// (mat_stride); its volume multiplier and scratch.  Body 0 of a one-body
+// launch is the buffers themselves.
 __device__ __forceinline__ MeshBuffers body_buffers(const MeshParams& p,
                                                     MeshBuffers b) {
   const size_t body = blockIdx.y;
@@ -336,6 +350,12 @@ __device__ __forceinline__ MeshBuffers body_buffers(const MeshParams& p,
   b.contrib = body_ptr(b.contrib, body * 6 * p.n_edges);
   b.bcontrib = body_ptr(b.bcontrib, body * 3 * max(4 * p.n_hinges, 1));
   b.tcontrib = body_ptr(b.tcontrib, body * 12 * p.n_tets);
+  b.vlam = body_ptr(b.vlam, body);
+  b.vdl = body_ptr(b.vdl, body);
+  b.vterm = body_ptr(b.vterm, body * p.n_tris);
+  b.vcontrib = body_ptr(b.vcontrib, body * 9 * p.n_tris);
+  b.vgrad = body_ptr(b.vgrad, body * n3);
+  b.vwg = body_ptr(b.vwg, body * p.n);
   return b;
 }
 

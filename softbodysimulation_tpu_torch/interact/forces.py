@@ -3,9 +3,9 @@ SimState`` updates.
 
 Counterpart of ``softbodysimulation_tpu/interact/forces.py`` (``add_force``,
 ``add_uniform_force``, ``drag_force``, ``squeeze_impulse``, ``set_pinned``,
-``pin_indices``).  Each verb computes against the live positions on the
-state's device and returns a new state; a poke lands in ``ext_force`` and
-is consumed by the next step's first substep.
+``pin_indices``, ``add_wind``).  Each verb computes against the live
+positions on the state's device and returns a new state; a poke lands in
+``ext_force`` and is consumed by the next step's first substep.
 
 Divisions by a radius or a norm divide by a tensor: a Python-float divisor
 is turned into a multiply by its reciprocal on CUDA, which rounds
@@ -21,6 +21,7 @@ import torch
 
 from ..core.state import SimState
 from ..ops.distance import dot3
+from ..ops.normals import vertex_normals
 
 
 def _vec(state: SimState, a) -> torch.Tensor:
@@ -99,3 +100,31 @@ def pin_indices(state: SimState, indices, pinned=True,
         vel = vel.clone()
         vel[idx] = 0.0
     return state.replace(inv_mass=inv_mass, velocities=vel)
+
+
+def add_wind(state: SimState, topo, direction, strength: float = 1.0,
+             gustiness: float = 0.0, seed: int = 0) -> SimState:
+    """Aerodynamic wind load on the surface (JAX ``forces.py:63-84``): each
+    vertex takes ``strength * |n . d|`` along the unit wind direction d,
+    n its area-weighted unit normal (``ops/normals.vertex_normals`` over
+    ``topo.triangles``), so faces square to the wind catch it and edge-on
+    faces do not, on both sides of a sheet.  The direction is divided by
+    max(|d|, 1e-9) as a tensor.
+
+    ``gustiness > 0`` scales each magnitude by 1 + gustiness * u, u uniform
+    in [-1, 1) from ``torch.Generator(device=state.device)`` seeded with
+    ``seed``: the same seed on the same device gives the same forces, and
+    every magnitude stays within ``strength * catch * (1 +- gustiness)``.
+    JAX's PRNG stream has no counterpart without JAX (nor do the CPU's and
+    the card's generators agree), so with gusts only those properties hold
+    across packages and devices; without gusts the force is JAX's."""
+    d = _vec(state, direction)
+    d = d / torch.clamp(torch.sqrt(dot3(d, d)), min=1e-9)
+    normals = vertex_normals(state.positions, topo.triangles)
+    mag = dot3(normals, d).abs() * _vec(state, strength)
+    if gustiness > 0:
+        gen = torch.Generator(device=state.device).manual_seed(seed)
+        u = torch.rand(mag.shape, generator=gen, dtype=mag.dtype,
+                       device=state.device) * 2.0 - 1.0
+        mag = mag * (1.0 + _vec(state, gustiness) * u)
+    return state.replace(ext_force=state.ext_force + mag[..., None] * d)

@@ -21,13 +21,23 @@ the contact-free ones in the library, as the JAX hybrid step does; the
 library itself refuses them on a CUDA state (``check_cuda``), as JAX's
 mesh kernel does.
 
+The global volume constraint (``enable_volume``, ``ops/volume.py``) runs
+in the library after the tets and before the contacts of every iteration
+(``csrc/mesh_xpbd.cu``: a triangle pass, a particle pass, one reduction
+block a body, the apply), with one multiplier a body: ``lambda_volume``
+is ``()`` for one body and ``(B,)`` for an ensemble, where a shared
+scalar raises ``ValueError`` (``general.check_volume_leaf``), as JAX's
+kernel does.  ``tet_backend="windowed"`` runs the gather sweep, and
+without tet windows raises where JAX's engine does
+(``general.check_tet_windows``).
+
 ``approx_math`` (``mesh_pallas.py:810-811``) takes the distance
 projections' lengths and directions and the bending normals through
 rsqrt (``csrc/mesh_xpbd.cu``); the plain twin is ``solvers.general
-.run_substeps_plain(..., approx_math=True)``.  The TPU kernel's switch to
-bf16-truncated one-hot products under ``approx_math``
-(``mesh_pallas.py:874-876``) is an artifact of its matrix unit and is not
-carried.
+.run_substeps_plain(..., approx_math=True)``.  The volume stays exact, as
+in JAX's kernel.  The TPU kernel's switch to bf16-truncated one-hot
+products under ``approx_math`` (``mesh_pallas.py:874-876``) is an artifact
+of its matrix unit and is not carried.
 
 Device dispatch, with no fallback: a state on a CUDA device launches the
 kernel (or raises); a state on the CPU runs the kernel's plain version,
@@ -62,6 +72,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import re
 
 import numpy as np
 import torch
@@ -71,6 +82,7 @@ from ..core.config import FloorMode, LambdaMode, SolveMode, SolverConfig
 from ..core.state import SimState, Topology, body_contract, check_bodies
 from ..ops import collision as _collision
 from ..ops import integrate as _integrate
+from ..ops import volume as _volume
 from ..solvers import general as _general
 from . import _build
 from . import contact_cuda as _contact
@@ -125,7 +137,8 @@ class MeshParams(ctypes.Structure):
         ("tet_pressure", ctypes.c_float), ("sc_omega", ctypes.c_float),
         ("sc_diam", ctypes.c_float), ("n_bodies", ctypes.c_int),
         ("w_stride", ctypes.c_int), ("mat_stride", ctypes.c_int),
-        ("approx_math", ctypes.c_int),
+        ("approx_math", ctypes.c_int), ("n_tris", ctypes.c_int),
+        ("vol_target", ctypes.c_float), ("vol_alpha", ctypes.c_float),
     ]
 
 
@@ -136,7 +149,8 @@ _BUFFERS = ("x", "v", "w", "f", "pred", "cur", "prev", "lam", "blam",
             "bcol_ids",
             "bcol_valid", "tlam", "tcontrib", "tets", "trest", "talpha",
             "tdeg", "tinc_ptr", "tinc_cols", "tcol_ids", "tcol_valid",
-            "sc_corr", "sc_stats", "colliders")
+            "sc_corr", "sc_stats", "colliders", "vlam", "vdl", "vterm",
+            "vcontrib", "vgrad", "vwg", "tris", "vinc_ptr", "vinc_cols")
 
 
 class MeshBuffers(ctypes.Structure):
@@ -169,13 +183,12 @@ _SC_MODE = {"dense": 1, "blocked": 2, "blocked_pallas": 2}
 
 def _check_supported(cfg: SolverConfig, topo: Topology,
                      batched: bool = False, kin_colliders=None, device=None):
-    """Build-time refusals: the plain engine's, plus the kernel's options
-    that are not ported and its fixed table sizes; with a CUDA ``device``,
-    also what only the plain engine runs (``check_cuda``).  An ensemble
-    (``batched``) takes dense self-collision only: the blocked pass (B-4)
-    carries one body, and the JAX ensemble kernel refuses the other
-    backends too (``mesh_pallas.py:106-111, 911``)."""
-    _general.check_supported(cfg)
+    """Build-time refusals: the kernel's fixed table sizes and an edgeless
+    topology; with a CUDA ``device``, also what only the plain engine runs
+    (``check_cuda``).  An ensemble (``batched``) takes dense self-collision
+    only: the blocked pass (B-4) carries one body, and the JAX ensemble
+    kernel refuses the other backends too (``mesh_pallas.py:106-111,
+    911``)."""
     if device is not None and torch.device(device).type == "cuda":
         check_cuda(cfg, topo)
     if (batched and cfg.enable_self_collision
@@ -264,6 +277,13 @@ def make_params(topo: Topology, cfg: SolverConfig, dt: float) -> MeshParams:
     p.sc_omega = cfg.self_collision_omega
     p.sc_diam = 2.0 * cfg.particle_radius
     p.n_bodies = 1
+    if _general.volume_on(cfg, topo):
+        # the engine's rounding: the pressure to float32, then a float32
+        # product with the rest volume; alpha as JAX's weak float
+        p.n_tris = topo.triangles.shape[0]
+        p.vol_target = float(np.float32(cfg.pressure)
+                             * topo.rest_volume.cpu().numpy())
+        p.vol_alpha = cfg.volume_compliance / (dt * dt)
     return p
 
 
@@ -341,6 +361,10 @@ def _device_tables(topo: Topology, cfg: SolverConfig, dt: float,
         **{k: dev(v) for k, v in consts.items()})
     tables = [("inc", topo.incidence, 2 * topo.n_edges),
               ("binc", topo.bend_incidence, 4 * topo.n_hinges)]
+    if _general.volume_on(cfg, topo):
+        tables.append(("vinc",) + _volume.corner_table(topo.triangles,
+                                                       topo.n_particles))
+        tensors.update(tris=dev(topo.triangles))
     if topo.n_tets:
         tables.append(("tinc", topo.tet_incidence, 4 * topo.n_tets))
         tensors.update(tets=dev(topo.tets), trest=dev(topo.rest_tet_volumes),
@@ -355,9 +379,22 @@ def _device_tables(topo: Topology, cfg: SolverConfig, dt: float,
                          om=(ctypes.c_float * len(oms))(*oms))
 
 
+def reduction_threads() -> int:
+    """``MX_THREADS`` of ``csrc/mesh_xpbd.cuh``: the threads of the
+    kernel's reduction blocks, whose tree the plain volume sums copy
+    (``ops/volume.BLOCK``)."""
+    src = (_build.CSRC_DIR / "mesh_xpbd.cuh").read_text()
+    return int(re.search(r"#define MX_THREADS (\d+)", src).group(1))
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """Build on first use, load, and declare every entry point's types."""
+    if reduction_threads() != _volume.BLOCK:
+        raise RuntimeError(
+            f"MX_THREADS ({reduction_threads()}) is not ops/volume.BLOCK "
+            f"({_volume.BLOCK}): the plain volume sums would not be the "
+            "kernel's")
     lib = _build.load_library(LIB_NAME, SOURCES, NVCC_EXTRA)
     _contact.declare(lib)
     lib.mesh_xpbd_params_size.argtypes = []
@@ -427,6 +464,9 @@ def run_substeps_cuda(state: SimState, topo: Topology, cfg: SolverConfig,
     _check_supported(cfg, topo, batched=batched,
                      kin_colliders=(world.n_spheres, world.n_boxes))
     check_cuda(cfg, topo)
+    _general.check_tet_windows(cfg, topo, state)
+    if batched:
+        _general.check_volume_leaf(cfg, topo, state)
     if dev.type != "cuda":
         raise ValueError(f"mesh kernel: state on {dev}, not CUDA")
     n, e, h = topo.n_particles, topo.n_edges, topo.n_hinges
@@ -476,6 +516,12 @@ def run_substeps_cuda(state: SimState, topo: Topology, cfg: SolverConfig,
         t = topo.n_tets
         work.update(tlam=owned("lambda_tet", state.lambda_tet, t),
                     tcontrib=f32(b, 4 * t, 3))
+    if params.n_tris:
+        t = params.n_tris
+        work.update(vlam=_checked("lambda_volume", state.lambda_volume, lead,
+                                  dev).reshape(b).clone(),
+                    vdl=f32(b), vterm=f32(b, t), vcontrib=f32(b, 3 * t, 3),
+                    vgrad=f32(b, 3, n), vwg=f32(b, n))
     if params.sc_mode == 1:
         work.update(sc_corr=f32(b, 3, n), sc_stats=f32(b, 3))
     bufs = MeshBuffers(**{k: ctypes.c_void_p(work[k].data_ptr())
@@ -511,6 +557,8 @@ def run_substeps_cuda(state: SimState, topo: Topology, cfg: SolverConfig,
         lambda_dist=lam, lambda_bend=blam)
     if params.n_tets:
         out = out.replace(lambda_tet=work["tlam"])
+    if params.n_tris:
+        out = out.replace(lambda_volume=work["vlam"].reshape(lead))
     if with_ext:
         out = out.replace(ext_force=torch.zeros_like(state.ext_force))
     return out
@@ -558,7 +606,8 @@ def make_mesh_cuda_substep_runner(topo: Topology, cfg: SolverConfig,
     ``core/state.body_contract``): the ensemble contract of
     ``mesh_pallas.make_mesh_substep_runner`` (``:814-861``): positions,
     velocities, ext_force ``(B, N, 3)``, lambda_dist ``(B, E)``,
-    lambda_bend ``(B, H)``, lambda_tet ``(B, T)``; inv_mass a shared
+    lambda_bend ``(B, H)``, lambda_tet ``(B, T)``, with the volume on
+    lambda_volume ``(B,)`` (``ValueError`` otherwise); inv_mass a shared
     ``(N,)`` leaf, or with ``per_body_mass=True`` a per-body ``(B, N)``
     one (``ValueError`` without the batched contract, as in JAX);
     ``materials`` shared ``(E,)`` or per body ``(B, E)``; one ColliderSet
@@ -569,8 +618,8 @@ def make_mesh_cuda_substep_runner(topo: Topology, cfg: SolverConfig,
     body or an ensemble; on a CPU state its plain twin.
 
     An ensemble with another self-collision backend than ``dense`` raises
-    ``NotImplementedError`` here, at build time, as do the configurations
-    the plain engine refuses and, when ``device`` names a CUDA device, what
+    ``NotImplementedError`` here, at build time, as do more colliders than
+    the kernel's table holds and, when ``device`` names a CUDA device, what
     a CUDA state is refused (``check_cuda``; a CUDA state is checked again
     when it arrives)."""
     kin = None if kin_colliders is None else tuple(

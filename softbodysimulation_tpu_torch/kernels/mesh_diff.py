@@ -61,6 +61,7 @@ from ..core.state import SimState, Topology
 from ..ops import collision as _collision
 from ..ops import integrate as _integrate
 from ..ops.distance import dot3
+from ..ops.incidence import gather_sum
 from ..solvers import general as _general
 from . import mesh_cuda as _mesh
 from .diff import _LEAVES, _flatten, _unflatten
@@ -299,7 +300,7 @@ def _position_vjp(g_n, g_len, d, len_sq, length):
 def _scatter(g_d, T):
     """Each particle's sum of -g_d (a side) and +g_d (b side) over its
     incidence row, in column order (the sum order of the kernel)."""
-    return _general.gather_sum(torch.cat([-g_d, g_d]), T.incidence)
+    return gather_sum(torch.cat([-g_d, g_d]), T.incidence)
 
 
 def _sweep_bwd(g_after, glam, pred, lam_e, w, T, cfg, dt, acc_mat):

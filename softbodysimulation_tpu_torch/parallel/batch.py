@@ -18,6 +18,11 @@ are independent.  ``make_sharded_ensemble_diagnostics`` reduces each shard
 on its device and combines the per-shard scalars on the first entry (the
 ``pmax`` / ``psum`` / ``pmean`` of JAX).  Shards in separate processes
 (``torch.distributed``) are not carried.
+
+The global volume constraint runs in the batched general step (a ``(B,)``
+``lambda_volume``) and in ``make_sharded_general_step``; the sharded mesh
+rollouts refuse it, as JAX's do (they carry no volume multiplier, so JAX's
+kernel rejects the scalar it is handed).
 """
 
 from __future__ import annotations
@@ -259,6 +264,17 @@ def make_sharded_pallas_rollout(spec, cfg: SolverConfig, dt_sub: float,
     return stepper
 
 
+def _refuse_volume(topo, cfg: SolverConfig):
+    """The sharded mesh rollouts carry no volume multiplier: JAX's build
+    each shard's state with ``lambda_volume=zeros(())``
+    (``parallel/batch.py:263`` of the JAX package), which its ensemble
+    kernel refuses for a volume ensemble."""
+    if _general.volume_on(cfg, topo):
+        raise ValueError("the sharded mesh rollouts carry no lambda_volume "
+                         "leaf: volume-enabled ensembles need a (n_bodies,)"
+                         " lambda_volume (make_sharded_general_step)")
+
+
 def make_sharded_mesh_pallas_rollout(topo, cfg: SolverConfig, dt_sub: float,
                                      n_substeps: int, mesh, n_bodies: int,
                                      per_body_mass: bool = False,
@@ -268,7 +284,9 @@ def make_sharded_mesh_pallas_rollout(topo, cfg: SolverConfig, dt_sub: float,
     n_bodies=B_local, batched=True, with_ext=True)``; a CPU shard runs the
     plain engine body by body).  ``inv_mass`` is the shared ``(N,)`` leaf,
     on every shard, or with ``per_body_mass=True`` a ``(B, N)`` leaf split
-    with the bodies.  ``n_bodies`` is the global count."""
+    with the bodies.  ``n_bodies`` is the global count.  The volume
+    constraint raises ``ValueError`` (``_refuse_volume``)."""
+    _refuse_volume(topo, cfg)
     n_shards = len(mesh)
     if n_bodies % n_shards:
         raise ValueError(f"n_bodies={n_bodies} must divide the "
@@ -292,7 +310,9 @@ def make_differentiable_sharded_mesh_rollout(topo, cfg: SolverConfig,
     ``remat_chunk`` chunks the ext-free tail of the backward).  A loss over
     every shard's result differentiates back to each shard's leaves, and a
     shared ``inv_mass`` (one tensor handed to every shard) gathers the
-    bodies' cotangents from all shards."""
+    bodies' cotangents from all shards.  The volume constraint raises
+    ``ValueError`` (``_refuse_volume``)."""
+    _refuse_volume(topo, cfg)
     _diff._guard_exact_forward(kernel_kw)
     _diff._check_chunk(max(n_substeps - 1, 1), remat_chunk)
     n_shards = len(mesh)

@@ -22,9 +22,23 @@ contact substep, after the WARM_START pre-apply.  ``self_collision_every``
 gates it on the substep index (``i % every == 0``).
 
 The JAX engine's ``distance_backend`` / ``bending_backend`` "windowed" and
-"auto" spell the Jacobi sweep as one-hot matrix products; their result
-equals the gather spelling to float32 rounding (``general.py:116-129`` of
-the JAX package), so every backend runs the gather semantics here.
+"auto" and its ``tet_backend="windowed"`` spell the Jacobi sweeps as
+one-hot matrix products; their result equals the gather spelling to
+float32 rounding (``general.py:116-129, 299-370`` of the JAX package), so
+every backend runs the gather semantics here.  As in JAX, the windowed tet
+backend needs a topology built with tet windows (``tet_window_perm``,
+``topology/build.build_windowed_topology``) and raises ``ValueError``
+without one (``check_tet_windows``).
+
+The global volume constraint (``ops/volume.py``) is projected after the
+tets and before the contacts in every mode (COLORED, JACOBI, Chebyshev),
+neither relaxed by ``omega`` nor divided by a degree; its multiplier
+``lambda_volume`` is zeroed in RESET and WARM_START and decayed in DECAY.
+With the volume off it passes through untouched, as in JAX's kernel (its
+engine zeroes or decays a multiplier that nothing writes).  An ensemble
+with the volume on carries a ``(B,)`` ``lambda_volume`` (``ValueError``
+for a shared scalar, as JAX's ensemble kernel raises: ``check_volume_leaf``).
+``approx_math`` leaves the volume exact, as JAX's kernel does.
 
 The CPU tests hold this engine against the JAX engine, and on the card the
 kernel (``kernels/mesh_cuda.py``) is held against it.  ``make_step``
@@ -39,9 +53,7 @@ variant.
 The rigid world is the config's (floor, spheres, boxes), or, when the
 state carries a ``core/colliders.ColliderSet``, that set's traced poses,
 which replace the config's spheres, boxes and ground height (JAX
-``general.py:552-580``).  The global volume constraint and the windowed
-tet backend (``tet_backend="windowed"``) raise ``NotImplementedError``
-(``check_supported``).  An ensemble of one topology (batched leaves)
+``general.py:552-580``).  An ensemble of one topology (batched leaves)
 runs ``run_substeps_plain_batched`` / ``make_batched_step``.
 """
 
@@ -63,17 +75,37 @@ from ..ops import distance as _distance
 from ..ops import integrate as _integrate
 from ..ops import spatial_hash as _spatial_hash
 from ..ops import tet_volume as _tet_volume
+from ..ops import volume as _volume
+from ..ops.incidence import Incidence, gather_sum
 
 
-def check_supported(cfg: SolverConfig):
-    """Refuse, at build time, what this slice of the port does not carry."""
-    windowed_tets = cfg.enable_tet_volume and cfg.tet_backend == "windowed"
-    for flag, what in ((cfg.enable_volume, "the global volume constraint"),
-                       (windowed_tets,
-                        "the windowed tet backend (one-hot tet windows)")):
-        if flag:
-            raise NotImplementedError(f"mesh port: {what} is not ported "
-                                      f"(ROADMAP A-3)")
+def volume_on(cfg: SolverConfig, topo: Topology) -> bool:
+    """Whether the global volume constraint runs (JAX ``has_volume``)."""
+    return cfg.enable_volume and topo.triangles.shape[0] > 0
+
+
+def check_tet_windows(cfg: SolverConfig, topo: Topology, state: SimState):
+    """``tet_backend="windowed"`` on a state that carries tet multipliers
+    needs a topology with tet windows, as in JAX (``general.py:537-541``):
+    refused at call time, in every solve mode."""
+    if (cfg.tet_backend == "windowed" and cfg.enable_tet_volume
+            and topo.n_tets > 0 and state.lambda_tet is not None
+            and topo.tet_window_perm is None):
+        raise ValueError("tet_backend='windowed' requires a topology with "
+                         "tet windows (build_windowed_topology; centroid "
+                         "fans exceed the window bound and stay on gather)")
+
+
+def check_volume_leaf(cfg: SolverConfig, topo: Topology, state: SimState):
+    """A batched state with the volume on carries one multiplier a body:
+    a shared scalar ``lambda_volume`` would mean body 0 alone in
+    WARM_START and DECAY (JAX ``mesh_pallas.py:1977-1986``)."""
+    n_b = state.positions.shape[0]
+    if volume_on(cfg, topo) and tuple(state.lambda_volume.shape) != (n_b,):
+        raise ValueError(
+            f"volume-enabled ensembles need a (n_bodies,) lambda_volume "
+            f"leaf; got shape {tuple(state.lambda_volume.shape)} for "
+            f"n_bodies={n_b}")
 
 
 def check_state(state: SimState):
@@ -120,6 +152,8 @@ class _Tables:
     tet: Tuple[torch.Tensor, ...]         # i0, i1, i2, i3 (empty: no tets)
     tet_incidence: Optional["Incidence"]
     tet_colors: Tuple[torch.Tensor, ...]
+    tris: Optional[torch.Tensor]          # (T, 3) with the volume on
+    corner_incidence: Optional[Incidence]  # ops/volume.corner_incidence
     omega: torch.Tensor                   # omega (0 => 1) as float32
     edge_scale: torch.Tensor              # omega / max(deg_a, deg_b, 1)
     hinge_scale: torch.Tensor             # omega / max(bend degree, 1)
@@ -157,6 +191,7 @@ def _tables(topo: Topology, cfg: SolverConfig, device: str) -> _Tables:
     es, hs, ws = (torch.as_tensor(a, device=device)
                   for a in relax_scales(topo, cfg))
     has_tets = t.n_tets > 0
+    has_volume = volume_on(cfg, t)
     return _Tables(
         ea=edges[:, 0], eb=edges[:, 1],
         hinge=tuple(hinges[:, k] for k in range(4)),
@@ -170,80 +205,13 @@ def _tables(topo: Topology, cfg: SolverConfig, device: str) -> _Tables:
                        if has_tets else None),
         tet_colors=(buckets(t.tcol_tet_ids, t.tcol_valid) if has_tets
                     else ()),
+        tris=t.triangles.long() if has_volume else None,
+        corner_incidence=(_volume.corner_incidence(t.triangles,
+                                                   t.n_particles)
+                          if has_volume else None),
         omega=torch.tensor(cfg.omega if cfg.omega > 0 else 1.0,
                            dtype=torch.float32, device=device),
         edge_scale=es, hinge_scale=hs, warm_scale=ws, topo=t)
-
-
-# a row with more entries than this is a hub (the centre of a tet fan)
-HUB_WIDTH = 32
-
-
-@dataclasses.dataclass(frozen=True)
-class Incidence:
-    """A padded incidence table split for the column-order row sum: the
-    first ``narrow.shape[1]`` columns of every row (enough for every row
-    but the hubs), and the hubs' whole rows (``hub_rows``, ``hub``)."""
-
-    narrow: torch.Tensor          # (N, Dn) int64
-    hub_rows: torch.Tensor        # (R,) int64
-    hub: torch.Tensor             # (R, D) int64
-
-    @staticmethod
-    def of(incidence: torch.Tensor, pad: int) -> "Incidence":
-        """Split a table whose pad index (one past the contributions) is
-        ``pad``."""
-        inc = incidence.long()
-        counts = (inc < pad).sum(dim=1)
-        wide = counts > HUB_WIDTH
-        dn = int(counts[~wide].max()) if bool((~wide).any()) else 0
-        rows = torch.nonzero(wide).flatten()
-        return Incidence(narrow=inc[:, :max(dn, 1)], hub_rows=rows,
-                         hub=inc[rows])
-
-
-class _HubRowSum(torch.autograd.Function):
-    """``head`` (R, 3) continued by the columns of ``cols`` (R, W, 3), one
-    column at a time in column order: the running float32 sum of the CUDA
-    kernel's particle passes, on the tensors' own device.  Backward: the
-    exact VJP of a sum, the row cotangent broadcast to every column."""
-
-    @staticmethod
-    def forward(ctx, head, cols):
-        ctx.width = cols.shape[1]
-        stack = torch.cat([head[:, None], cols], dim=1)
-        if stack.device.type == "cpu":
-            # numpy's running sum is sequential in float32 (torch's CPU
-            # cumsum accumulates in float64)
-            run = np.add.accumulate(stack.numpy(), axis=1)[:, -1]
-            return torch.from_numpy(np.ascontiguousarray(run))
-        # a CUDA scan along a dimension that is neither the innermost nor
-        # the only one gives each (row, coordinate) one thread that adds
-        # the columns in order in float32 (ATen's scan_outer_dim): the
-        # kernel's sum, in one launch
-        return torch.cumsum(stack, dim=1)[:, -1]
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, g[:, None, :].expand(-1, ctx.width, -1)
-
-
-def gather_sum(contrib: torch.Tensor, incidence: Incidence):
-    """Row i: the sum of ``contrib[incidence[i, k]]`` over k, in column
-    order (the pad index points one past the end, at an appended zero row)
-    -- the order of the CUDA kernel's particle passes.  A hub's row goes on
-    past the narrow columns through ``_HubRowSum``, so its hundreds of
-    columns do not widen every row."""
-    full = torch.cat([contrib, contrib.new_zeros((1, 3))])
-    cols = incidence.narrow
-    delta = full[cols[:, 0]]
-    for k in range(1, cols.shape[1]):
-        delta = delta + full[cols[:, k]]
-    if incidence.hub_rows.numel():
-        run = _HubRowSum.apply(delta[incidence.hub_rows],
-                               full[incidence.hub[:, cols.shape[1]:]])
-        delta = delta.index_put((incidence.hub_rows,), run)
-    return delta
 
 
 # --------------------------------------------------------------- distance
@@ -387,23 +355,26 @@ def _substep(x, v, w, f, lam, T: _Tables, cfg: SolverConfig, dt,
              apply_ext: bool, contact_on: bool,
              world: _collision.RigidWorld, approx_math: bool = False):
     """One substep on (N, 3) tensors; ``lam`` = (lambda_dist, lambda_bend,
-    lambda_tet or None).  ``contact_on=False`` leaves self-collision out of
-    this substep (the contact cadence).  ``world``: the rigid world
-    (``ops/collision.RigidWorld``).  ``approx_math``: the mesh kernel's
-    variant's twin in the distance and bending projections.  Returns (x,
-    v, lam)."""
-    lam_d, lam_b, lam_t = lam
+    lambda_volume, lambda_tet or None).  ``contact_on=False`` leaves
+    self-collision out of this substep (the contact cadence).  ``world``:
+    the rigid world (``ops/collision.RigidWorld``).  ``approx_math``: the
+    mesh kernel's variant's twin in the distance and bending projections.
+    Returns (x, v, lam)."""
+    lam_d, lam_b, lam_v, lam_t = lam
+    has_volume = T.tris is not None
     # lambda lifecycle: WARM_START carries only distance impulses (they are
-    # pre-applied); bending and tets restart fresh except in DECAY
+    # pre-applied); bending, volume and tets restart fresh except in DECAY
     if cfg.lambda_mode == LambdaMode.RESET:
         lam_d = torch.zeros_like(lam_d)
     else:
         lam_d = lam_d * cfg.lambda_decay
     if cfg.lambda_mode == LambdaMode.DECAY:
         lam_b = lam_b * cfg.lambda_decay
+        lam_v = lam_v * cfg.lambda_decay if has_volume else lam_v
         lam_t = None if lam_t is None else lam_t * cfg.lambda_decay
     else:
         lam_b = torch.zeros_like(lam_b)
+        lam_v = torch.zeros_like(lam_v) if has_volume else lam_v
         lam_t = None if lam_t is None else torch.zeros_like(lam_t)
 
     pred, v = _integrate.predict(x, v, w, f, dt, cfg, apply_ext=apply_ext)
@@ -435,7 +406,7 @@ def _substep(x, v, w, f, lam, T: _Tables, cfg: SolverConfig, dt,
             pred = world.project_boxes(pred, x, w, dt, cfg)
         return pred
 
-    def project_all(pred, lam_d, lam_b, lam_t):
+    def project_all(pred, lam_d, lam_b, lam_v, lam_t):
         solve = _solve_distance_colored if colored else _solve_distance_jacobi
         pred, lam_d = solve(pred, lam_d, w, T, cfg, dt, approx_math)
         if has_bending:
@@ -445,7 +416,11 @@ def _substep(x, v, w, f, lam, T: _Tables, cfg: SolverConfig, dt,
         if has_tets:
             solve = _solve_tets_colored if colored else _solve_tets_jacobi
             pred, lam_t = solve(pred, lam_t, w, T, cfg, dt)
-        return project_contacts(pred), lam_d, lam_b, lam_t
+        if has_volume:
+            pred, lam_v = _volume.volume_project(
+                pred, w, T.tris, T.topo.rest_volume, lam_v, dt, cfg,
+                T.corner_incidence)
+        return project_contacts(pred), lam_d, lam_b, lam_v, lam_t
 
     if accelerated(cfg):
         # Chebyshev semi-iterative acceleration; the momentum step can
@@ -453,19 +428,21 @@ def _substep(x, v, w, f, lam, T: _Tables, cfg: SolverConfig, dt,
         # once more after it
         prev = pred
         for om in chebyshev_omegas(cfg):
-            new, lam_d, lam_b, lam_t = project_all(pred, lam_d, lam_b, lam_t)
+            new, lam_d, lam_b, lam_v, lam_t = project_all(pred, lam_d, lam_b,
+                                                          lam_v, lam_t)
             acc = om * (cfg.jacobi_gamma * (new - pred) + pred - prev) + prev
             if has_contacts:
                 acc = project_contacts(acc)
             prev, pred = pred, acc
     else:
         for _ in range(cfg.iterations):
-            pred, lam_d, lam_b, lam_t = project_all(pred, lam_d, lam_b, lam_t)
+            pred, lam_d, lam_b, lam_v, lam_t = project_all(pred, lam_d, lam_b,
+                                                           lam_v, lam_t)
 
     x, v = _integrate.finalize(x, pred, w, dt)
     if cfg.floor_mode == FloorMode.VELOCITY_REFLECT:
         x, v = world.reflect_floor(x, v, w, dt, cfg)
-    return x, v, (lam_d, lam_b, lam_t)
+    return x, v, (lam_d, lam_b, lam_v, lam_t)
 
 
 def contact_every(cfg: SolverConfig) -> int:
@@ -504,22 +481,24 @@ def run_substeps_plain(state: SimState, topo: Topology, cfg: SolverConfig,
     compliances for this call; the topology's cached tables are kept.
     ``approx_math``: the mesh kernel's variant's twin (``ops/distance
     .length_and_unit``, ``ops/bending``)."""
-    check_supported(cfg)
     check_state(state)
+    check_tet_windows(cfg, topo, state)
     T = _tables(topo, cfg, str(state.device))
     if materials is not None:
         T = with_materials(T, materials)
     every = contact_every(cfg)
     world = _collision.RigidWorld.of(cfg, state.colliders, state.device)
     x, v = state.positions, state.velocities
-    lam = (state.lambda_dist, state.lambda_bend, state.lambda_tet)
+    lam = (state.lambda_dist, state.lambda_bend, state.lambda_volume,
+           state.lambda_tet)
     for i in range(n_substeps):
         x, v, lam = _substep(x, v, state.inv_mass, state.ext_force, lam, T,
                              cfg, dt_sub, with_ext and i == 0,
                              contact_on=i % every == 0, world=world,
                              approx_math=approx_math)
     out = state.replace(positions=x, velocities=v, lambda_dist=lam[0],
-                        lambda_bend=lam[1], lambda_tet=lam[2])
+                        lambda_bend=lam[1], lambda_volume=lam[2],
+                        lambda_tet=lam[3])
     if with_ext:
         out = out.replace(ext_force=torch.zeros_like(state.ext_force))
     return out
@@ -537,7 +516,9 @@ def run_substeps_plain_batched(state: SimState, topo: Topology,
     ``(E,)`` or per-body ``(B, E)`` tensors.  A loop, not ``torch.func
     .vmap``: the engine's index updates and the kernels' ctypes calls do
     not trace.  Autograd flows through it, a shared leaf's gradient summed
-    over the bodies."""
+    over the bodies.  With the volume on, ``lambda_volume`` is ``(B,)``
+    (``check_volume_leaf``)."""
+    check_volume_leaf(cfg, topo, state)
     per_body = (materials is not None
                 and materials["rest_lengths"].ndim == 2)
     bodies = []
@@ -590,8 +571,6 @@ def make_step(topo: Topology, cfg: SolverConfig, dt: float,
 
     route = mesh_cuda.route(cfg)
     if route == "plain":
-        check_supported(cfg)
-
         def fn(state: SimState) -> SimState:
             return multi_step_fn(state, topo, cfg, dt, n_steps)
     else:

@@ -1,7 +1,7 @@
 """Assemble a ``Topology`` of tensors from host-side mesh data (NumPy).
 
 Counterpart of ``softbodysimulation_tpu/topology/build.py``
-(``build_topology`` with its tetrahedra, ``_build_incidence``,
+(``build_topology`` with its tetrahedra, ``build_incidence``,
 ``build_windowed_topology``, ``validate_topology``, ``topology_from_mesh``,
 ``BodySpec``, ``BodySlices``, ``merge_topologies``): the same NumPy
 arithmetic, so every field equals the JAX builder's, integers exactly and
@@ -135,7 +135,7 @@ def build_topology(
             tcol_tet_ids=_t(tcol_ids, np.int32),
             tcol_valid=_t(tcol_valid, np.float32),
             tet_degree=_t(tdeg, np.float32),
-            tet_incidence=_t(_build_incidence(tets, n), np.int32),
+            tet_incidence=_t(build_incidence(tets, n), np.int32),
             num_tet_colors=num_tcolors,
         )
 
@@ -159,8 +159,8 @@ def build_topology(
         rest_volume=_t(rest_volume, np.float32),
         degree=_t(deg, np.float32),
         bend_degree=_t(bdeg, np.float32),
-        incidence=_t(_build_incidence(edges, n), np.int32),
-        bend_incidence=_t(_build_incidence(hinges, n), np.int32),
+        incidence=_t(build_incidence(edges, n), np.int32),
+        bend_incidence=_t(build_incidence(hinges, n), np.int32),
         num_colors=num_colors,
         num_bend_colors=num_bcolors,
         n_particles=n,
@@ -168,8 +168,8 @@ def build_topology(
     )
 
 
-def _build_incidence(constraints: np.ndarray, n: int,
-                     pad_multiple: int = 4) -> np.ndarray:
+def build_incidence(constraints: np.ndarray, n: int,
+                    pad_multiple: int = 4) -> np.ndarray:
     """(N, D) indices into the flattened (K*arity) contribution array; for
     constraint k touching particle p as its a-th endpoint, the contribution
     index is a*K + k.  Rows padded with K*arity (an appended zero row)."""
@@ -200,6 +200,9 @@ def build_windowed_topology(
     hinges: Optional[np.ndarray] = None,
     triangles: Optional[np.ndarray] = None,
     rest_lengths: Optional[np.ndarray] = None,
+    block_edges: int = 128,
+    max_window: int = 1024,
+    seg_align: int = 128,
     colored: bool = False,
     order: Optional[np.ndarray] = None,
     **kw,
@@ -208,7 +211,10 @@ def build_windowed_topology(
     particles renumbered by reverse Cuthill-McKee (or ``order``, new ->
     old), edges and hinges stable-sorted by min endpoint, tets renumbered
     in their own order, and with ``colored=True`` the edges re-sorted
-    colour-major (stable).  Returns
+    colour-major (stable).  ``tet_window_perm`` (the tets sorted by min
+    endpoint) is set where JAX's tet windows would fit ``max_window``
+    (``tet_window_perm``), as JAX sets it only where its window builder
+    succeeds.  Returns
     ``(positions_permuted (N,3) f32, Topology)`` — build the state from the
     returned positions."""
     from . import windows as _windows
@@ -256,7 +262,35 @@ def build_windowed_topology(
     topo = build_topology(pos2, e2, comp, hinges=hinges,
                           triangles=triangles, rest_lengths=rest_lengths,
                           **kw)
+    if topo.n_tets:
+        perm = tet_window_perm(topo.tets.numpy(), min(block_edges, 128),
+                               max_window, seg_align)
+        if perm is not None:
+            topo = topo.replace(tet_window_perm=_t(perm, np.int32))
     return pos2.astype(np.float32), topo
+
+
+def tet_window_perm(tets: np.ndarray, block: int, max_window: int,
+                    seg_align: int) -> Optional[np.ndarray]:
+    """The tets' min-endpoint sort (slot -> tet), or None where JAX's tet
+    windows (``topology/windows.build_hinge_windows`` of the JAX package:
+    blocks of ``block`` sorted tets, the last one repeated to pad, each
+    block's particle span from its base rounded down to ``seg_align``,
+    rounded up to it) would exceed ``max_window``, as for a centroid fan's
+    hub on a large mesh."""
+    from . import windows as _windows
+
+    order = _windows.sort_hinges_by_window(tets)
+    t = np.asarray(tets, np.int64)[order]
+    k = max(1, -(-len(t) // block))
+    if k * block > len(t):
+        t = np.vstack([t, np.tile(t[-1:], (k * block - len(t), 1))])
+    blocks = t.reshape(k, block, 4)
+    bases = (blocks.min(axis=(1, 2)) // seg_align) * seg_align
+    span = int((blocks.max(axis=(1, 2)) - bases + 1).max())
+    if seg_align * -(-span // seg_align) > max_window:
+        return None
+    return order.astype(np.int32)
 
 
 def validate_topology(topo: Topology) -> dict:

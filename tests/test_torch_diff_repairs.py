@@ -19,7 +19,7 @@ from softbodysimulation_tpu.topology import mesh as jmesh
 
 from softbodysimulation_tpu_torch.kernels import diff as kdiff
 from softbodysimulation_tpu_torch.ops import bending as pbending
-from softbodysimulation_tpu_torch.solvers import general as pgeneral
+from softbodysimulation_tpu_torch.ops import incidence as pincidence
 from softbodysimulation_tpu_torch.topology import build as pbuild
 from softbodysimulation_tpu_torch.topology import mesh as pmesh
 
@@ -111,7 +111,7 @@ def test_hub_row_gradients_match_jax():
     pmods = contact_cases.modules()
     pos, jtopo = contact_cases.tet_body("ball1", jmods)
     _, ptopo = contact_cases.tet_body("ball1", pmods)
-    hub = pgeneral.Incidence.of(ptopo.tet_incidence, 4 * ptopo.n_tets)
+    hub = pincidence.Incidence.of(ptopo.tet_incidence, 4 * ptopo.n_tets)
     assert hub.hub_rows.numel() == 1
     jcfg = jconfig.SolverConfig(
         substeps=4, iterations=4, damping=0.02,

@@ -240,10 +240,11 @@ def test_ensemble_refusals_at_build(what):
     """What ensembles do not carry raises NotImplementedError when the
     runner is built, naming its ROADMAP item: self-collision backends other
     than dense (B-4 carries one body; JAX's ensemble kernel refuses them
-    too), the global volume constraint (A-3).  ``approx_math`` is carried
-    in both ensembles, as JAX's runners take it: there the runner builds,
-    and on the CPU every row of its result is the one-body approx twin's
-    to the bit."""
+    too).  ``approx_math`` is carried in both ensembles, as JAX's runners
+    take it: there the runner builds, and on the CPU every row of its
+    result is the one-body approx twin's to the bit.  The global volume
+    constraint is carried with a ``(B,)`` ``lambda_volume``
+    (``_volume_ensemble_matches_vmapped_jax``)."""
     ptopo, st2, _, _, _, _ = _jax_mesh("shared_mass")
     cfg = port_config(MESH["dense_contact"][0])
     assert cfg.enable_self_collision
@@ -271,17 +272,72 @@ def test_ensemble_refusals_at_build(what):
             assert torch.equal(out.positions[b], one.positions)
             assert torch.equal(out.lambda_dist[b], one.lambda_dist)
         return
+    if what == "volume":
+        _volume_ensemble_matches_vmapped_jax()
+        return
     kw = dict(n_bodies=2)
     match = "B-3 item 5"
-    if what == "volume":
-        cfg, match = cfg.replace(enable_self_collision=False,
-                                 enable_volume=True), "A-3"
-    else:
-        cfg = cfg.replace(self_collision_backend=what)
+    cfg = cfg.replace(self_collision_backend=what)
     with pytest.raises(NotImplementedError, match=match):
         mc.make_mesh_cuda_substep_runner(ptopo, cfg, cases.DT, 2, **kw)
     with pytest.raises(NotImplementedError, match=match):
         pgeneral.make_batched_step(ptopo, cfg, cases.DT)
+
+
+def _volume_ensemble_matches_vmapped_jax():
+    """``tests/test_parallel.py:163``'s configuration (``icosphere(1,
+    0.4)``, pressure 1.2) for two bodies through the port's batched step
+    with a ``(2,)`` lambda_volume: each row the one-body engine's to the
+    bit, JAX's vmapped engine (``make_batched_general_step``) within 2e-5
+    and its multipliers within 1e-4 (``tests/test_mesh_pallas.py:781``),
+    both bodies inflating; a shared scalar ``lambda_volume`` raises
+    ``ValueError`` naming it, as JAX's ensemble kernel does
+    (``mesh_pallas.py:1977-1986``)."""
+    from softbodysimulation_tpu.topology import build as jb
+    from softbodysimulation_tpu.topology import mesh as jm
+    from softbodysimulation_tpu_torch.ops.volume import enclosed_volume
+    from softbodysimulation_tpu_torch.topology import build as pb
+    from softbodysimulation_tpu_torch.topology import mesh as pm
+
+    jcfg = SolverConfig(substeps=2, iterations=4, damping=0.05,
+                        enable_volume=True, pressure=1.2,
+                        lambda_mode=LambdaMode.DECAY, lambda_decay=0.97,
+                        ground_height=-10.0)
+    cfg = port_config(jcfg)
+    pos, jtopo = jb.topology_from_mesh(jm.icosphere(1, radius=0.4),
+                                       compliance=5e-4)
+    ppos, ptopo = pb.topology_from_mesh(pm.icosphere(1, radius=0.4),
+                                        compliance=5e-4)
+    np.testing.assert_array_equal(pos, ppos)
+    bodies = np.stack([pos + np.array([0, 2 + i, 0], np.float32)
+                       for i in range(2)])
+    n, e = pos.shape[0], ptopo.n_edges
+    fields = {"positions": bodies, "velocities": np.zeros_like(bodies),
+              "inv_mass": np.ones((2, n), np.float32),
+              "ext_force": np.zeros_like(bodies),
+              "lambda_dist": np.zeros((2, e), np.float32),
+              "lambda_bend": np.zeros((2, 0), np.float32),
+              "lambda_volume": np.zeros((2,), np.float32)}
+    jout = jbatch.make_batched_general_step(jtopo, jcfg, cases.DT,
+                                            n_steps=12)(
+        jstate_mod.SimState(**{k: jnp.asarray(v) for k, v in
+                               fields.items()}))
+    st = port.state_from_numpy(fields, device="cpu")
+    step = pgeneral.make_batched_step(ptopo, cfg, cases.DT, 12)
+    out = step(st)
+    one = pgeneral.make_step(ptopo, cfg, cases.DT, 12)
+    v0 = float(ptopo.rest_volume)
+    for b in range(2):
+        row = one(body_of(st, b))
+        assert torch.equal(out.positions[b], row.positions)
+        assert torch.equal(out.lambda_volume[b], row.lambda_volume)
+        assert float(enclosed_volume(out.positions[b],
+                                     ptopo.triangles)) > 1.05 * v0
+    assert dmax(jout.positions, out.positions) < 2e-5
+    assert dmax(jout.lambda_volume, out.lambda_volume) < 1e-4
+    assert float(out.lambda_volume.abs().min()) > 0
+    with pytest.raises(ValueError, match="lambda_volume"):
+        step(st.replace(lambda_volume=st.lambda_volume[0]))
 
 
 def test_normals_bounds_and_com_match_jax():

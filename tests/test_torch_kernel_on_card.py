@@ -50,7 +50,13 @@ IEEE) and the mesh kernel on every mesh case (JAX's band, 5e-3 and
 5e-4); the hybrid contact runner against the plain cadence (< 1e-5); the
 ``hash`` and ``sorted`` backends through ``general.make_step`` on a CUDA
 state against the CPU (< 1e-4), and their passes under
-``torch.cuda.set_sync_debug_mode("error")``.
+``torch.cuda.set_sync_debug_mode("error")``.  The global volume
+constraint in B-3 on every case of ``test_torch_volume_cases.py``: the
+kernel against its plain twin (positions, velocities and every multiplier
+to the bit, ``lambda_volume`` included; beside dense contact at the
+contact cases' gates), ensemble rows against the
+single-body kernel to the bit in one body's launches, and a shared scalar
+``lambda_volume`` refused in a volume ensemble.
 """
 
 import pytest
@@ -65,6 +71,7 @@ from softbodysimulation_tpu_torch.kernels import spatial_cuda as sc
 from softbodysimulation_tpu_torch.parallel import spatial as psp
 from softbodysimulation_tpu_torch.solvers import general as pgeneral
 from softbodysimulation_tpu_torch.solvers import lattice as plat
+from softbodysimulation_tpu_torch.ops import incidence
 from softbodysimulation_tpu_torch.ops import spatial_hash as psh
 from softbodysimulation_tpu_torch.topology import lattice as ptop
 
@@ -75,12 +82,14 @@ import test_torch_diff_cases as diff_cases
 import test_torch_ensemble_cases as ensemble_cases
 import test_torch_mesh_cases as mesh_cases
 import test_torch_spatial_cases as spatial_cases
+import test_torch_volume_cases as volume_cases
 
 CASES = lattice_cases.parity_cases()
 MESH_CASES = mesh_cases.mesh_cases()
 TET_CASES = contact_cases.tet_cases()
 CONTACT_CASES = contact_cases.contact_cases()
 DIFF_CASES = diff_cases.diff_cases()
+VOLUME_CASES = volume_cases.volume_cases()
 
 
 @pytest.fixture
@@ -298,9 +307,9 @@ def test_hub_row_sum_on_card_is_the_column_order_fold(cuda):
     run = head.to(cuda)
     for k in range(cols.shape[1]):
         run = run + cols[:, k].to(cuda)
-    got = pgeneral._HubRowSum.apply(head.to(cuda), cols.to(cuda))
+    got = incidence._HubRowSum.apply(head.to(cuda), cols.to(cuda))
     assert torch.equal(got, run)
-    assert torch.equal(pgeneral._HubRowSum.apply(head, cols), run.cpu())
+    assert torch.equal(incidence._HubRowSum.apply(head, cols), run.cpu())
 
 
 # ---- the spatial slab kernel (B-6) and B-1's tet sweep ---------------------
@@ -667,3 +676,59 @@ def test_hash_and_sorted_on_a_cuda_state(cuda):
         spatial_hash.self_collision_project_sorted(pred, w, order, scfg)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+# ---- the global volume constraint in B-3 ------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(VOLUME_CASES))
+def test_mesh_kernel_volume_matches_plain_on_card(cuda, name):
+    """B-3 with the volume against its plain twin, one body through the
+    step and ensembles through ``general.make_batched_step``: every leaf
+    to the bit (beside dense contact: positions within 2e-4,
+    ``lambda_volume`` within 1e-4, the other multipliers within 1 % of
+    their largest, ``test_torch_volume_cases.card_exact``); an ensemble's
+    rows equal the single-body kernel's in as many launches as one body
+    takes."""
+    from softbodysimulation_tpu_torch.core.state import body_of
+
+    cfg, topo, fields, nb, frames = volume_cases.case_inputs(name)
+    st = state_from_numpy(fields, device=cuda)
+    one = mc.make_mesh_cuda_step(topo, cfg, volume_cases.DT, n_steps=frames)
+    mc.launches = 0
+    if nb == 1:
+        out = one(st)
+        ref = pgeneral.multi_step_fn(st, topo, cfg, volume_cases.DT, frames)
+    else:
+        out = pgeneral.make_batched_step(topo, cfg, volume_cases.DT,
+                                         frames)(st)
+        ref = pgeneral.run_substeps_plain_batched(
+            st, topo, cfg, volume_cases.DT / cfg.substeps,
+            frames * cfg.substeps, with_ext=True)
+    torch.cuda.synchronize()
+    launched, mc.launches = mc.launches, 0
+    assert launched > 0
+    keys = ("positions", "velocities", "lambda_dist", "lambda_bend",
+            "lambda_volume") + (("lambda_tet",) if topo.n_tets else ())
+    diffs = {k: float((getattr(out, k) - getattr(ref, k)).abs().max())
+             if getattr(ref, k).numel() else 0.0 for k in keys}
+    print(f"B-3 volume {name}: {diffs}")
+    if volume_cases.card_exact(cfg):
+        for k in keys:
+            assert torch.equal(getattr(out, k), getattr(ref, k)), (name, k)
+    else:
+        assert diffs["positions"] < volume_cases.DX_CARD_CONTACT
+        assert diffs["lambda_volume"] < volume_cases.DLAM_VOLUME
+        _lam_gates(out, ref, [(k, 1.0) for k in keys if k.startswith(
+            "lambda_") and k != "lambda_volume"])
+    assert float(out.lambda_volume.abs().min()) > 0.0
+    if nb > 1:
+        rows = [one(body_of(st, b)) for b in range(nb)]
+        assert launched == mc.launches // nb
+        for b, row in enumerate(rows):
+            for k in keys:
+                assert torch.equal(getattr(out, k)[b], getattr(row, k)), (
+                    name, b, k)
+        with pytest.raises(ValueError, match="lambda_volume"):
+            pgeneral.make_batched_step(topo, cfg, volume_cases.DT, 1)(
+                st.replace(lambda_volume=st.lambda_volume[0]))

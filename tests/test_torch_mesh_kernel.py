@@ -24,13 +24,18 @@ from jax.experimental.pallas import tpu as pltpu
 from softbodysimulation_tpu.core import config as jconfig
 from softbodysimulation_tpu.core import state as jstate_mod
 from softbodysimulation_tpu.kernels import mesh_pallas
+from softbodysimulation_tpu.solvers import general as jgeneral
 from softbodysimulation_tpu.topology import build as jbuild
 from softbodysimulation_tpu.topology import mesh as jmesh
 
 import softbodysimulation_tpu_torch as port
 from softbodysimulation_tpu_torch.kernels import _build
 from softbodysimulation_tpu_torch.kernels import mesh_cuda as mc
+from softbodysimulation_tpu_torch.ops import volume as pvolume
 from softbodysimulation_tpu_torch.solvers import general as pgeneral
+from softbodysimulation_tpu_torch.topology import build as pbuild
+from softbodysimulation_tpu_torch.topology import lattice as ptop
+from softbodysimulation_tpu_torch.topology import tets as ptets
 
 import test_torch_mesh_cases as mesh_cases
 from test_torch_state import port_config
@@ -123,10 +128,56 @@ def test_unsupported_features_refused_at_build(what):
     refused.  Ensembles are carried with dense contact only.
     ``approx_math`` is carried: the runner builds, on the CPU its result
     is the approx twin's to the bit, and it stays within JAX's own band of
-    the exact result (5e-3, 5e-4: ``tests/test_mesh_pallas.py:111-118``)."""
-    _, _, ptopo, ps = both("sphere")
+    the exact result (5e-3, 5e-4: ``tests/test_mesh_pallas.py:111-118``).
+    The global volume constraint is carried: on the CPU the runner's result
+    is its plain twin's to the bit and JAX's engine's within the mesh
+    gates (``lambda_volume`` within 1e-4, ``tests/test_mesh_pallas.py:781``).
+    The windowed tet backend is carried as the gather sweep: with tet
+    windows it equals the gather backend to the bit, and without them it
+    raises ``ValueError`` where JAX's engine does."""
+    jtopo, js, ptopo, ps = both("sphere")
     cfg = port_config(C.SolverConfig(substeps=2, iterations=1))
     kw = {}
+    if what == "volume":
+        jcfg = C.SolverConfig(substeps=2, iterations=2, enable_volume=True,
+                              pressure=1.5, volume_compliance=1e-4,
+                              lambda_mode=C.LambdaMode.DECAY,
+                              ground_height=0.0, friction=0.3)
+        cfg = port_config(jcfg)
+        out = mc.make_mesh_cuda_substep_runner(ptopo, cfg, DT / 2, 4)(ps)
+        twin = pgeneral.run_substeps_plain(ps, ptopo, cfg, DT / 2, 4)
+        for k in ("positions", "lambda_dist", "lambda_volume"):
+            assert torch.equal(getattr(out, k), getattr(twin, k)), k
+        jout = jgeneral.make_step(jtopo, jcfg, DT, n_steps=2)(js)
+        assert_gates(jout, out, cfg)
+        assert abs(float(jout.lambda_volume)
+                   - float(out.lambda_volume)) < 1e-4
+        assert float(out.lambda_volume) != 0.0
+        pgeneral.make_step(ptopo, cfg, DT)
+        return
+    if what == "tet_volume":
+        res = 3
+        pos = ptop.lattice_points(res) + np.array([0, 1.0, 0], np.float32)
+        tt = ptets.fix_orientation(pos, ptets.cube_lattice_tets(res))
+        args = (pos, ptets.tet_edges(tt), 1e-4)
+        tkw = dict(tets=tt, tet_compliance=0.0,
+                   triangles=ptets.boundary_faces(tt))
+        wpos, wtopo = pbuild.build_windowed_topology(*args, **tkw)
+        assert wtopo.tet_window_perm is not None
+        tcfg = cfg.replace(enable_tet_volume=True, tet_pressure=1.3)
+        st = port.state_from_topology(wtopo, wpos, device="cpu")
+        gather = mc.make_mesh_cuda_substep_runner(wtopo, tcfg, DT / 2, 4)(st)
+        win = mc.make_mesh_cuda_substep_runner(
+            wtopo, tcfg.replace(tet_backend="windowed"), DT / 2, 4)(st)
+        for k in ("positions", "lambda_tet"):
+            assert torch.equal(getattr(win, k), getattr(gather, k)), k
+        plain = pbuild.build_topology(*args, **tkw)
+        assert plain.tet_window_perm is None
+        with pytest.raises(ValueError, match="tet windows"):
+            mc.make_mesh_cuda_substep_runner(
+                plain, tcfg.replace(tet_backend="windowed"), DT / 2, 4)(
+                    port.state_from_topology(plain, pos, device="cpu"))
+        return
     if what == "approx_math":
         run = mc.make_mesh_cuda_substep_runner(ptopo, cfg, DT / 2, 4,
                                                approx_math=True)
@@ -139,12 +190,7 @@ def test_unsupported_features_refused_at_build(what):
         assert float((out.positions - exact.positions).abs().max()) < 5e-3
         assert float((out.lambda_dist - exact.lambda_dist).abs().max()) < 5e-4
         return
-    if what == "volume":
-        cfg = cfg.replace(enable_volume=True)
-    elif what == "tet_volume":
-        # tets run; their windowed (one-hot) backend is not ported
-        cfg = cfg.replace(enable_tet_volume=True, tet_backend="windowed")
-    elif what == "box_colliders":
+    if what == "box_colliders":
         cfg = cfg.replace(box_colliders=((0.0, 0.3, 0.0, 0.5, 0.3, 0.5),)
                           * (mc.MAX_BOXES + 1))
     elif what == "kin_colliders":
@@ -211,6 +257,8 @@ def test_structs_mirror_the_cuda_source():
         fields = _c_struct_fields(src, struct)
         assert [f[0] for f in fields] == [f[0] for f in cls._fields_]
         assert ctypes.sizeof(cls) == sum(w for _, w in fields)
+    # the plain volume sums take the tree of the kernel's reduction block
+    assert mc.reduction_threads() == pvolume.BLOCK == 256
 
     cfg, kind, kw, _ = mesh_cases.mesh_cases()["sphere_collider_clamps"]
     _, _, ptopo, _ = both(kind, **kw)

@@ -31,7 +31,7 @@ from softbodysimulation_tpu_torch.topology import windows as pwindows
 
 import test_torch_mesh_cases as mesh_cases
 
-WINDOW_FIELDS = {"windows", "bend_windows", "tet_windows", "tet_window_perm"}
+WINDOW_FIELDS = {"windows", "bend_windows", "tet_windows"}
 
 
 def jax_fields(jtopo):

@@ -171,9 +171,39 @@ def test_slice_refusals_at_build(what):
     kernel's step still refuses it, as ``make_pallas_step`` does, and the
     solver's step takes it through the stencil engine, route ``"plain"``);
     ``hash`` and ``sorted`` (the kernel's step for the card still refuses
-    them, and ``general.make_step`` takes them through the plain engine)."""
+    them, and ``general.make_step`` takes them through the plain engine);
+    the global volume constraint (the kernel's step builds with dense
+    contact and tets, and on the CPU it is the plain engine to the bit and
+    JAX's engine within the contact gate, ``lambda_volume`` within 1e-4)."""
     topo, fields, _ = cases.contact_scene(cases.modules())
-    cfg = port_config(CONTACT_CASES["dense_every1"][0])
+    jcfg, frames = CONTACT_CASES["dense_every1"]
+    cfg = port_config(jcfg)
+    if what == "volume":
+        st = port.state_from_numpy(fields, device="cpu")
+        vcfg = cfg.replace(enable_volume=True, pressure=1.2)
+        out = mc.make_mesh_cuda_step(topo, vcfg, DT, n_steps=frames)(st)
+        ref = pgeneral.multi_step_fn(st, topo, vcfg, DT, frames)
+        for k in ("positions", "lambda_dist", "lambda_volume", "lambda_tet"):
+            assert torch.equal(getattr(out, k), getattr(ref, k)), k
+        jtopo, _, _ = cases.contact_scene(
+            cases.modules("softbodysimulation_tpu"))
+        js = jstate_mod.SimState(**{k: jnp.asarray(v)
+                                    for k, v in fields.items()})
+        jout = jgeneral.make_step(
+            jtopo, dataclasses.replace(jcfg, enable_volume=True,
+                                       pressure=1.2), DT,
+            n_steps=frames)(js)
+        dpos = np.abs(np.asarray(jout.positions)
+                      - out.positions.numpy()).max()
+        assert dpos < cases.DX_CONTACT, dpos
+        assert abs(float(jout.lambda_volume)
+                   - float(out.lambda_volume)) < 1e-4
+        assert topo.triangles.shape[0] > 0 and topo.n_tets > 0
+        assert float(out.lambda_volume) != 0.0
+        # the volume moved the scene: without it JAX lands elsewhere
+        assert np.abs(_jax_run("dense_every1") - np.asarray(
+            jout.positions)).max() > 10 * max(dpos, 1e-6)
+        return
     if what == "approx_math":
         st = port.state_from_numpy(fields, device="cpu")
         out = mc.make_mesh_cuda_substep_runner(topo, cfg, DT / 4, 1,
@@ -198,8 +228,6 @@ def test_slice_refusals_at_build(what):
             mc.make_mesh_cuda_step(
                 topo, cfg.replace(self_collision_backend=backend), DT,
                 device="cuda")
-        elif what == "volume":
-            mc.make_mesh_cuda_step(topo, cfg.replace(enable_volume=True), DT)
         elif what == "box_colliders":
             # carried up to the kernel's table size
             mc.make_mesh_cuda_step(topo, cfg.replace(
