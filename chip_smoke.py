@@ -11,8 +11,10 @@ any phase fails:
 1. the card (``nvidia-smi`` name and power limit) and the torch / CUDA
    versions;
 2. the CUDA lattice kernel built from ``softbodysimulation_tpu_torch/csrc``
-   with ``nvcc`` (sm_90a), and the build time (the four libraries' ``nvcc``
-   runs are started together);
+   with ``nvcc`` (sm_90a), the build time (the four libraries' ``nvcc``
+   runs are started together) and ``-Xptxas -v``'s registers, spills and
+   shared memory of each kernel, the persistent kernel's three barrier
+   variants among them;
 3. kernel vs its plain PyTorch version on the card, at res 6 over 12-18
    substeps, for each configuration the CPU tests hold against the JAX
    package (``tests/test_torch_cases.py``): max |dx| < 1e-5,
@@ -21,17 +23,24 @@ any phase fails:
    lattice, 64,000 particles) through ``make_cuda_substep_runner`` for 2000
    substeps, with ``bench.py``'s health gates (finite, ymin > -1e-2, height
    > 0.5), its drift gate (max |dx| < 1e-3 against the plain version from
-   the same start) and the kernel's launch count; then, from the rested
-   state with seeded velocity jitter, 16 substeps of kernel vs plain at
-   the parity gates of phase 3;
+   the same start) and the kernel's launch count (one persistent launch
+   for the call); then, from the rested state with seeded velocity
+   jitter, 16 substeps of kernel vs plain at the parity gates of phase 3,
+   and the persistent kernel against the per-pass loop to the bit, exact
+   and approx;
 5. the entry configuration (res 16, WARM_START) through ``make_cuda_step``
    for 60 frames with a poke at frame 10: finite, ``ext_force`` reads back
-   0, and the poke moves the centre of mass; then, from that state and a
-   second poke, 4 frames (16 substeps, multipliers carried between them)
-   of ``make_cuda_step`` vs the plain ``multi_step_fn`` at the same gates;
+   0, and the poke moves the centre of mass, one launch a frame; then,
+   from that state and a second poke, 4 frames (16 substeps, multipliers
+   carried between them) of ``make_cuda_step`` vs the plain
+   ``multi_step_fn`` at the same gates; ms per substep of one frame a
+   call, the persistent kernel against the per-pass loop (``b1_designs``:
+   in turns, per-pass, persistent, persistent, per-pass, with their
+   launches a call);
 6. particle-substeps/s of the kernel and of the plain version at res 40,
    timed with CUDA events over windows of at least a second, two windows
-   each, taken in turns; the best window and the range are printed;
+   each, taken in turns; the best window and the range are printed; the
+   persistent kernel against the per-pass loop as in phase 5;
 7. the CUDA mesh kernel built from the same directory, its build time and
    ``-Xptxas -v`` registers and spills;
 8. mesh kernel vs plain on the card for every case the CPU tests hold
@@ -152,6 +161,7 @@ any phase fails:
    in 4 slabs against B-1 at res 40; ``solid_lattice`` through B-1 and the
    plain engine; and B-6's bound (``lattice_work`` at the slab shapes,
    plus the exchanged planes where the slabs sit on more than one card);
+   B-1's two designs at res 128 and at ``solid_lattice``, as in phase 5;
 26. the lattice kernel with the rigid world against its plain version for
    every case of ``tests/test_torch_collider_cases.py`` at phase 3's gates
    (config boxes; kinematic spheres and boxes with velocities; an
@@ -164,7 +174,8 @@ any phase fails:
    sweeping against the sphere, 60 frames each through the kernel and
    the plain engine (the same gates, the box emptied or the slab moved);
    ms per substep of that config with poses and without, and launches
-   per substep with and without (equal, also at ``flagship_perf``);
+   per substep with and without (equal, also at ``flagship_perf``); B-1's
+   two designs with poses, as in phase 5;
 27. the mesh kernel with the rigid world against the plain engine for the
    mesh cases of that module at phase 8's gates; ``cloth_xl`` with a
    kinematic sphere sweeping through it for 240 frames through the kernel
@@ -187,7 +198,7 @@ any phase fails:
    substeps) through ``config5_batch_1024.run`` (``make_batched_step``,
    the launches read around it): finite, ymin > -1e-2, unit normals,
    bodies 0, 511 and 1023 equal to the single-body kernel to the bit,
-   launches a substep equal to one body's, 480-substep drift against the
+   launches a call equal to one body's, 480-substep drift against the
    plain engine < 1e-3;
 30. the B-3 ensembles: every mesh case of that module (shared and per-body
    masses, per-body materials, bending, COLORED, tets, dense contact, a
@@ -219,9 +230,10 @@ any phase fails:
    contact farm), its plain twin and the single-body kernel looped over
    its bodies, timed as phase 10 times (CUDA events, windows in turns,
    of at least half a second);
-   launches a substep (the ensemble's equal to one body's); the bounds
-   (``lattice_work`` x B, ``mesh_work`` with B bodies' state and the
-   shared tables once);
+   launches a call (B-1) or a substep (B-3), the ensemble's equal to one
+   body's; the bounds (``lattice_work`` x B, ``mesh_work`` with B bodies'
+   state and the shared tables once); B-1's two designs at example 5, as
+   in phase 5;
 33. B-1 with ``approx_math`` (rsqrtf and the approximate reciprocal) at
    ``bench.py``'s workload, phase 4's start: the two intrinsics against
    ``torch.rsqrt`` and ``torch.reciprocal`` on 2^20 floats (how many
@@ -229,7 +241,8 @@ any phase fails:
    gates and the drift against phase 4's exact plain rollout (< 1e-3, as
    ``bench.py`` gates it); 16 substeps against its plain twin from the
    rested state with velocity jitter (< 1e-4); ms per substep, exact and
-   approx, in timed windows;
+   approx, in timed windows; B-1's two designs with approx, as in phase
+   5;
 34. B-3 with ``approx_math`` at ``cloth_xl`` from a poked, loaded state:
    16 substeps against its twin (positions < 5e-3, multipliers < 5e-4,
    JAX's band for its approx kernel) with its launches; ms per substep,
@@ -273,10 +286,17 @@ any phase fails:
 40. examples 1, 2, 3 and 9 at the JAX tests' cuts on the card against the
    CPU: within 1e-5, or 3x the card's own spread when its positions are
    moved one ulp before every frame (the band ``tests/test_torch_
-   examples.py`` holds the port to JAX with).
+   examples.py`` holds the port to JAX with);
+41. B-1's barriers (``barrier_phase``): ``__syncthreads`` with whole
+   bodies a block against the grid barrier for bodies of 64 to 1,728
+   particles, one and many; the grid barrier at res 40 on 250, 125 and
+   65 blocks; the persistent kernel against the per-pass loop from res 64
+   to res 100.
 
 Prints one JSON line of kernels (with each kernel's bound, the least time
-the card could take for the same work, from ``bound_ms``), the card's name
+the card could take for the same work, from ``bound_ms``; B-1's row adds
+its design, barrier, the per-pass loop's ms and every shape's pair of
+designs), the card's name
 and power limit, and as its last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits nonzero and prints no result.
 ``--profile`` adds a torch.profiler breakdown of each main path (device
@@ -467,6 +487,126 @@ def timed_windows(torch, runs, min_s=1.0, warm=True):
         times[key].append(cuda_ms(torch, fn, reps[key], warm=False)
                           / per_call)
     return times, reps
+
+
+# B-1's two designs at each shape the smoke times (b1_designs): the
+# persistent kernel (one launch a call, every route) and the per-pass loop
+# it replaced (one launch a pass, the yardstick)
+B1_DESIGNS = []
+
+
+def b1_designs(torch, lc, label, st, spec, cfg, dt_sub, n_sub, smi,
+               min_s=0.5, **kw):
+    """ms per substep of the per-pass loop and the persistent kernel on one
+    call of ``n_sub`` substeps from ``st``, in turns (per-pass, persistent,
+    persistent, per-pass), their launches per call, and, for the
+    persistent kernel, its plan; recorded in B1_DESIGNS."""
+    def run(design):
+        return lambda: lc.run_substeps_cuda(st, spec, cfg, dt_sub, n_sub,
+                                            design=design, **kw)
+
+    runs = {"per_pass": (run("per_pass"), n_sub),
+            "persistent": (run("persistent"), n_sub)}
+    calls = {}
+    for key, (fn, _) in runs.items():
+        before = lc.launches
+        fn()
+        calls[key] = lc.launches - before
+    times, reps = timed_windows(torch, runs, min_s=min_s)
+    bodies = st.positions.shape[0] if kw.get("batched") else 1
+    sched = lc.schedule_for(spec, bodies, st.device)
+    rec = dict(shape=label, substeps_per_call=n_sub,
+               ms=min(times["persistent"]), per_pass_ms=min(times["per_pass"]),
+               windows=times["persistent"], per_pass_windows=times["per_pass"],
+               launches_per_call=calls["persistent"],
+               per_pass_launches_per_call=calls["per_pass"],
+               barrier=sched.barrier, grid=sched.grid, chunk=sched.chunk)
+    spread = max(max(v) - min(v) for v in times.values())
+    rec["speedup"] = rec["per_pass_ms"] / rec["ms"]
+    rec["beats_by_more_than_spread"] = (rec["per_pass_ms"] - rec["ms"]
+                                        > spread)
+    B1_DESIGNS.append(rec)
+    print(f"# B-1 designs, {label} ({smi}), {n_sub} substeps a call: "
+          f"per-pass {rec['per_pass_ms']:.5f} ms/substep "
+          f"({calls['per_pass']} launches a call; windows "
+          f"{times['per_pass']}), persistent {rec['ms']:.5f} ms/substep "
+          f"({calls['persistent']} launch a call; windows "
+          f"{times['persistent']}; {sched.barrier} barrier, {sched.grid} "
+          f"blocks of {sched.chunk} particles): {rec['speedup']:.2f}x, "
+          f"beyond the windows' spread {spread:.5f}: "
+          f"{rec['beats_by_more_than_spread']}")
+    return rec
+
+
+# phase 41: the bodies whose barrier is timed both ways (res, bodies):
+# ensembles of some 64k particles and single bodies, around BLOCK_BODY_MAX
+CROSSOVER = [(4, 1024), (6, 304), (8, 128), (10, 64), (12, 38), (6, 1),
+             (8, 1), (10, 1), (12, 1)]
+# phase 41: one body from L2-resident to far beyond it (res, substeps a
+# call), the persistent kernel against the per-pass loop
+DESIGN_SIZES = [(64, 200), (80, 100), (100, 50)]
+
+
+def barrier_phase(torch, lc, lat, top, cfg, smi):
+    """41. The persistent kernel's barriers, in turns at each shape:
+    ``__syncthreads`` with whole bodies a block against the grid barrier
+    across CROSSOVER; the grid barrier at res 40 on fewer, fuller blocks;
+    the persistent kernel against the per-pass loop on one body from res
+    64 to res 100 (DESIGN_SIZES).  Rest lattices under the bench
+    configuration, ms per substep."""
+    t0 = time.perf_counter()
+    out = {"crossover": []}
+
+    def windows(spec, bodies, n_sub, barriers):
+        st = lat.make_lattice_state(spec, center=(0.0, 0.6, 0.0),
+                                    mass=0.001, device="cuda")
+        if bodies > 1:
+            st = st.replace(**{k: getattr(st, k).expand(
+                bodies, *getattr(st, k).shape).contiguous()
+                for k in ("positions", "velocities", "ext_force",
+                          "lambda_dist")})
+        runs = {}
+        for b in barriers:
+            sched = lc.schedule_for(spec, bodies, st.device, barrier=b)
+            runs[b] = (lambda sc=sched: lc.run_substeps_cuda(
+                st, spec, cfg, 1 / 480, n_sub, batched=bodies > 1,
+                schedule=sc), n_sub)
+        times, _ = timed_windows(torch, runs, min_s=0.3)
+        return {b: min(t) for b, t in times.items()}, times
+
+    for res, bodies in CROSSOVER:
+        best, times = windows(top.lattice_spec(res, braced=True), bodies,
+                              40, ("block", lc.GRID_BARRIER))
+        out["crossover"].append(dict(res=res, bodies=bodies, **best))
+        print(f"# barrier crossover, {bodies} x res {res} ({res ** 3} "
+              f"particles a body; {smi}): block {best['block']:.5f}, "
+              f"{lc.GRID_BARRIER} {best[lc.GRID_BARRIER]:.5f} ms/substep "
+              f"(windows in turns {times}); the shape's rule takes "
+              f"{lc.choose_barrier(top.lattice_spec(res, braced=True))}")
+    # fewer blocks, more particles a thread: the barrier's cost against a
+    # thread's own
+    spec = top.lattice_spec(40, braced=True)
+    st = lat.make_lattice_state(spec, center=(0.0, 0.6, 0.0), mass=0.001,
+                                device="cuda")
+    sms, per_sm = lc.device_occupancy(st.device.index, lc.GRID_BARRIER)
+    runs = {}
+    for g in (250, 132, 66):
+        sc = lc.plan_schedule(spec, 1, sms, per_sm, grid=g)
+        runs[f"{sc.grid} blocks of {sc.chunk}"] = (
+            lambda sc=sc: lc.run_substeps_cuda(st, spec, cfg, 1 / 480, 400,
+                                               schedule=sc), 400)
+    times, _ = timed_windows(torch, runs, min_s=0.3)
+    out["grid_sizes"] = {k: min(v) for k, v in times.items()}
+    print(f"# grid sizes at res 40, {lc.GRID_BARRIER} barrier ({smi}), ms "
+          f"a substep: {out['grid_sizes']} (windows in turns {times})")
+    for res, n_sub in DESIGN_SIZES:
+        spec = top.lattice_spec(res, braced=True)
+        st = lat.make_lattice_state(spec, center=(0.0, 0.6, 0.0),
+                                    mass=0.001, device="cuda")
+        b1_designs(torch, lc, f"rest res {res} ({res ** 3} particles)", st,
+                   spec, cfg, 1 / 480, n_sub, smi, min_s=0.3)
+    print(f"# time: phase 41 took {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
@@ -1704,6 +1844,10 @@ def spatial_phases(torch, np, spatial_build, lattice_build, smi,
         "solid B-1": (lambda: k_solid(out), n_solid),
         "solid plain": (lambda: lat.run_substeps_plain(
             out, tspec, tcfg, tdt_sub, tcfg.substeps), tcfg.substeps)})
+    b1_designs(torch, lc, f"res {SPATIAL_RES} (bench config, fast_math "
+               f"off)", res_out, sspec, scfg, sdt_sub, n_b6, smi)
+    b1_designs(torch, lc, "solid_lattice res 40", out, tspec, tcfg, tdt_sub,
+               n_solid, smi)
     for group, rp, n in ((times, reps, sspec.n_particles),
                          (t40, r40, spec40.n_particles),
                          (tsol, rsol, tspec.n_particles)):
@@ -1929,8 +2073,10 @@ def collider_phases(torch, np, smi, is_finite):
     print(f"# B-1 sweep config ({smi}): with poses "
           f"{min(times['poses']):.5f} ms/substep, without "
           f"{min(times['no poses']):.5f} ms/substep (best of two windows; "
-          f"{times}); launches per substep {per['poses']:.0f} with poses, "
-          f"{per['no poses']:.0f} without")
+          f"{times}); launches per substep {per['poses']:.5f} with poses, "
+          f"{per['no poses']:.5f} without ({n_k} substeps a call)")
+    b1_designs(torch, lc, f"sphere_sweep res {SWEEP_RES} with poses", mid,
+               spec, cfg, dt / cfg.substeps, 240, smi)
     if per["poses"] != per["no poses"]:
         raise RuntimeError(f"poses changed the launches per substep: {per}")
     fstate, _, finfo = scenes.flagship_perf(res=SWEEP_RES, device="cuda")
@@ -1943,8 +2089,8 @@ def collider_phases(torch, np, smi, is_finite):
                                     kin_colliders=kin)(st_)
         per[key] = lc.launches / 8
     print(f"# B-1 at the main path's config (flagship_perf res "
-          f"{SWEEP_RES}): launches per substep {per['poses']:.0f} with a "
-          f"kinematic sphere, {per['no poses']:.0f} without")
+          f"{SWEEP_RES}): launches per substep {per['poses']:.5f} with a "
+          f"kinematic sphere, {per['no poses']:.5f} without (8 a call)")
     if per["poses"] != per["no poses"]:
         raise RuntimeError(f"poses changed the launches per substep: {per}")
     out["lattice"] = dict(kin_err=errs["kin"], box_err=errs["box"],
@@ -2578,7 +2724,9 @@ def ensemble_phases(torch, np, smi, is_finite):
         for name in ("ensemble", "loop"):
             counter.launches = 0
             runs[name][0]()
-            per_sub[name] = counter.launches / runs[name][1] / (
+            # B-1 launches once a call; B-3 once a pass
+            per_sub[name] = counter.launches / (
+                1 if key == "lattice" else runs[name][1]) / (
                 1 if name == "ensemble" else n_bodies_)
         times, reps = timed_windows(torch, runs, min_s=0.5)
         total = n_bodies_ * n_part
@@ -2588,12 +2736,16 @@ def ensemble_phases(torch, np, smi, is_finite):
                   f"{best[k]:.5f} ms/substep = {total / best[k] * 1e3:.4e} "
                   f"particle-substeps/s (windows in turn order: {times[k]}, "
                   f"{reps[k]} calls each)")
-        print(f"# {key} ensemble launches a substep: {per_sub['ensemble']:.3f}"
-              f" for {n_bodies_} bodies, {per_sub['loop']:.3f} for one body; "
+        print(f"# {key} ensemble launches a "
+              f"{'call' if key == 'lattice' else 'substep'}: "
+              f"{per_sub['ensemble']:.3f} for {n_bodies_} bodies, "
+              f"{per_sub['loop']:.3f} for one body; "
               f"the ensemble {best['loop'] / best['ensemble']:.1f}x the loop")
         if per_sub["ensemble"] != per_sub["loop"]:
             raise RuntimeError(f"{key} ensemble launches grow with bodies")
         results[key] = (best, times, per_sub)
+    b1_designs(torch, lc, f"example 5 ({nb5} x res {spec5.res})", start5,
+               spec5, cfg5, 1 / 240, 40, smi, batched=True)
     print(f"# time: phase 32 took {time.perf_counter() - t0:.1f} s")
 
     lat_bound = bound_ms(*[nb5 * x for x in lattice_work(spec5, cfg5)])
@@ -2621,7 +2773,8 @@ def ensemble_phases(torch, np, smi, is_finite):
         "library_ms": None,
         "bodies": nb5,
         "loop_ms": lb["loop"],
-        "launches_per_substep": results["lattice"][2]["ensemble"],
+        # one launch a call of the persistent kernel, for every body
+        "launches_per_call": results["lattice"][2]["ensemble"],
     }, {
         "name": "mesh_xpbd_ensemble",
         "route": "cuda",
@@ -2767,6 +2920,8 @@ def cadence_phases(torch, np, smi, is_finite, main_state, main_plain):
           f"exact {ms_exact:.5f}, approx {ms_approx:.5f} "
           f"({spec.n_particles / ms_approx * 1e3:.4e} "
           f"particle-substeps/s)")
+    b1_designs(torch, lc, f"bench res {settings.res} approx_math", state,
+               spec, cfg, dt_sub, n_long, smi, approx_math=True)
 
     # 34. B-3 approx on cloth_xl, from a loaded state (30 frames under
     # gravity, a poke out of the plane, 10 more frames)
@@ -3298,7 +3453,7 @@ def main() -> int:
 
 
 def smoke(torch, witness) -> int:
-    """Phases 1-40 (module docstring)."""
+    """Phases 1-41 (module docstring)."""
     sys.path.insert(0, HERE)
     import numpy as np
 
@@ -3383,8 +3538,9 @@ def smoke(torch, witness) -> int:
         raise RuntimeError(f"floor violated: ymin={ymin}")
     if height <= 0.5:
         raise RuntimeError(f"cube degenerated: height={height}")
-    if main_launches <= 0:
-        raise RuntimeError("the main path launched no kernel")
+    if main_launches != 1:
+        raise RuntimeError(f"the main path took {main_launches} launches "
+                           f"for one call, not the persistent kernel's 1")
     plain = lat.run_substeps_plain(state, spec, cfg, dt_sub, MAIN_SUBSTEPS)
     # phase 33 holds B-1's approx_math to this exact rollout
     main_state, main_plain = state, plain
@@ -3405,6 +3561,18 @@ def smoke(torch, witness) -> int:
         lc.make_cuda_substep_runner(spec, cfg, dt_sub, n_cmp)(start),
         lat.run_substeps_plain(start, spec, cfg, dt_sub, n_cmp), start,
         dt_sub, n_cmp, is_finite))
+    for approx in (False, True):
+        a, b = (lc.run_substeps_cuda(start, spec, cfg, dt_sub, n_cmp,
+                                     approx_math=approx, design=d)
+                for d in ("persistent", "per_pass"))
+        same = all(torch.equal(getattr(a, k), getattr(b, k)) for k in
+                   ("positions", "velocities", "lambda_dist"))
+        print(f"# bench res {RES_MAIN}, approx_math={approx}: the "
+              f"persistent kernel equals the per-pass loop to the bit over "
+              f"{n_cmp} substeps: {same}")
+        if not same:
+            raise RuntimeError("B-1's persistent kernel parts from its "
+                               "per-pass loop")
 
     # 5. the entry configuration with a poke
     ecfg = C.SolverConfig(substeps=4, iterations=1, damping=0.02,
@@ -3428,9 +3596,13 @@ def smoke(torch, witness) -> int:
     shift = float((poked.positions.mean(0)
                    - control.positions.mean(0)).abs().max())
     ok_entry = is_finite(poked) and is_finite(control)
+    entry_launches = lc.launches - before
     print(f"# entry: res 16 WARM_START, 60 frames x 4 substeps, "
-          f"{lc.launches - before} launches, finite={ok_entry}, "
+          f"{entry_launches} launches ({entry_launches / 120:.3f} a call "
+          f"of one frame), finite={ok_entry}, "
           f"poke moved the COM by {shift:.4f} vs the unpoked run")
+    if entry_launches != 120:
+        raise RuntimeError("the entry step is not one launch a call")
     if not ok_entry or shift <= 1e-3:
         raise RuntimeError(f"entry phase failed: finite={ok_entry} "
                            f"shift={shift}")
@@ -3444,6 +3616,10 @@ def smoke(torch, witness) -> int:
         lc.make_cuda_step(espec, ecfg, 1 / 60, n_steps=4)(start),
         lat.multi_step_fn(start, espec, ecfg, 1 / 60, 4), start,
         1 / 60 / ecfg.substeps, 4 * ecfg.substeps, is_finite))
+
+    b1_designs(torch, lc, "entry res 16 (one frame a call)", poked, espec,
+               ecfg, 1 / 60 / ecfg.substeps, ecfg.substeps, smi,
+               with_ext=True)
 
     # 6. throughput at res 40 (CUDA events), kernel and plain, in turns,
     # each window at least a second long
@@ -3470,6 +3646,9 @@ def smoke(torch, witness) -> int:
         print(f"# throughput range {key}: {lo:.5f}-{hi:.5f} ms/substep = "
               f"{n / hi * 1e3:.4e}-{n / lo * 1e3:.4e} particle-substeps/s "
               f"(windows in turn order: {times[key]})")
+
+    bench_designs = b1_designs(torch, lc, f"bench res {RES_MAIN}", state,
+                               spec, cfg, dt_sub, n_k, smi, min_s=1.0)
 
     lap("1-6")
 
@@ -3633,6 +3812,11 @@ def smoke(torch, witness) -> int:
     volume = volume_phases(torch, np, smi, is_finite)
     lap("38-40")
 
+    # 41. B-1's barriers: the block / grid crossover, grid sizes, and the
+    # designs beyond L2
+    barriers = barrier_phase(torch, lc, lat, top, cfg, smi)
+    lap("41")
+
     if "--profile" in sys.argv[1:]:
         profile_main_path(
             torch, lc.make_cuda_substep_runner(spec, cfg, dt_sub, 200),
@@ -3673,6 +3857,15 @@ def smoke(torch, witness) -> int:
         # approx_math at the bench workload and the hybrid contact runner
         # at the 64k cadence config (phases 33, 35)
         **cadence["lattice"],
+        # the persistent design (one launch a call) against the per-pass
+        # loop it replaced, at phase 6's shape and every other timed shape,
+        # and its barriers (phase 41)
+        "design": "persistent",
+        "barrier": bench_designs["barrier"],
+        "per_pass_ms": bench_designs["per_pass_ms"],
+        "persistent_ms": bench_designs["ms"],
+        "designs": B1_DESIGNS,
+        **barriers,
     }, {
         "name": "mesh_xpbd",
         "route": "cuda",

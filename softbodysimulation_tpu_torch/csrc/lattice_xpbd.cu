@@ -19,8 +19,8 @@
 // Ensembles (lattice_pallas.py n_bodies > 1, :545, :692, :868,
 // :1596-1641): B bodies of one spec lie one after another, particle l of
 // body b at a = b * res^3 + l in every plane (x, v, pred, w, ext, each
-// lambda plane, the tet planes), so n = B * res^3 threads run one launch
-// per pass for the whole ensemble.  cell_of and shift_cell take a
+// lambda plane, the tet planes), so one launch runs the whole ensemble's
+// n = B * res^3 particles.  cell_of and shift_cell take a
 // particle's coordinates within its body, and its neighbours with the
 // rolls' wrap inside that body: the CUDA form of the TPU kernel's lane
 // index taken mod res^2.  The family masks and the tet tables are the one
@@ -29,49 +29,87 @@
 // is shared: every body sees the same rigid world.  The TPU kernel's
 // 128-lane padding has no counterpart.
 //
-// Each substep is one launch per pass on the caller's stream, with no host
-// sync inside the loop:
+// A substep runs these passes, in this order:
 //   predict (gravity, first-substep ext force, damping, clamps) with the
 //     lambda reset / decay folded in (the tet multipliers' too);
 //   WARM_START: one pre-apply pass per family;
 //   per iteration: one pass per family (JACOBI) or two parity passes
-//     (COLORED), then the per-cell tet sweep (two launches), then the
+//     (COLORED), then the per-cell tet sweep (two passes), then the
 //     contacts -- the XPBD floor, the boxes, the spheres, the order of
-//     solvers/lattice.py -- in one launch; the last iteration's contacts
-//     share it with finalize (VELOCITY_REFLECT).
+//     solvers/lattice.py -- and, after the last iteration, finalize
+//     (VELOCITY_REFLECT).
 // The spheres and boxes come from the collider table of colliders.cuh (the
 // config's constants, or a ColliderSet's traced poses and velocities, whose
 // friction then acts on the velocity relative to the collider; the
 // set's ground height replaces the config's).  A new pose is a new table,
 // read by the next launch: the TPU kernel's box block
 // (lattice_pallas.py:1360-1409) and pose table (:576-589) in one.
-// A family pass is gather-only, with no atomics: thread a reads the
+// A family pass is gather-only, with no atomics: particle a reads the
 // pass-entry positions from one buffer and writes another (ping-pong).  It
 // computes its own constraint (a, a+d) -- the lambda it writes -- and
 // recomputes, from the same inputs with the same arithmetic, the constraint
 // anchored at a-d; it writes p_a - w_a*dp_a + w_a*dp_{a-d}, the term order of
 // _family_pass.  Lambda planes ping-pong the same way, because the a-d
-// constraint reads the pass-entry multiplier at a-d.
+// constraint reads the pass-entry multiplier at a-d.  The passes are the
+// __device__ functions of lattice_xpbd.cuh.
 //
 // What bounds it on the card: at res 40 the state (x, v, two pred buffers,
-// ext, w, 2 x 13 lambda planes) is about 10 MB and lives in the 50 MB L2, and
-// a pass is ~100 flops per particle, so with about 15 launches of a
-// 64k-thread grid per substep the launch overhead, not HBM or the ALUs,
-// should set the pace.  The design does nothing about that yet, by choice:
-// a persistent kernel, CUDA graphs or shared-memory slab tiling come later.
+// ext, w, 2 x 13 lambda planes) is about 10 MB and lives in the 50 MB L2,
+// and a pass is ~100 flops and a few dozen bytes of L2 traffic a particle,
+// well under a microsecond of work for the whole card.  Launched one
+// kernel a pass (15 a substep), each pass cost the 3.3-4.4 us of a launch,
+// a fresh grid that ramps up and drains, and the integer divisions of
+// every thread's coordinates and partners: launches, not HBM or the ALUs,
+// set the pace.  So a call is one persistent launch
+// (lattice_persistent_kernel) that runs every substep, the passes
+// separated by barriers:
+//   - each block owns a fixed tile of particles for the whole call (block
+//     j: [j * chunk, (j + 1) * chunk)), and each thread its particles at a
+//     stride of the block size; a particle's coordinates are worked out
+//     once a call and carried to the next by additions, and a partner is
+//     the particle plus its offset (FastNbr), with no division;
+//   - whole bodies in a block (ensembles of small bodies) synchronise with
+//     __syncthreads(): no pass reads across a body, so such a block needs
+//     no other block;
+//   - one body across blocks synchronises the whole grid, launched
+//     cooperatively (cudaLaunchCooperativeKernel: a grid that cannot be
+//     co-resident is refused, never run) with a counting barrier on a
+//     global counter (release add, acquire spin), which timed ahead of
+//     cooperative_groups' grid.sync() at every size tried (PERF.md), so
+//     grid.sync() was dropped; kernels/lattice_cuda.py plans the tiles,
+//     the kind of barrier and the grid from the shape alone;
+//   - a pass issues all of a particle's reads before its first write:
+//     without __restrict__ (the kernel writes what later passes read) the
+//     compiler keeps reads after writes, and a thread would wait for L2
+//     twice a pass;
+//   - fusions that keep every bit: the contacts and finalize run in the
+//     tail of the iteration's last pass, on the value the pass computed,
+//     and the next substep's predict (pointwise) right after finalize, in
+//     the same thread, into the buffer the pass wrote; the multipliers are
+//     reset or decayed in place.  Predict is not folded into the first
+//     pass (that would predict each tile's halo twice).
+// A tile and its halo are read straight from L2 each pass: the state
+// fits in L2, and a shared-memory copy of a tile would still have to be
+// written back for its neighbours before the next barrier (the shared-
+// memory form was not built).  What bounds it now: a pass's latency, one
+// trip to L2 and a few hundred dependent instructions a particle, with one
+// particle a thread (fuller threads are slower: chip_smoke.py phase 41),
+// and the barrier; res 128's 2.1M particles no longer fit in L2.
+// The per-pass loop (one launch a pass, lattice_xpbd_run_per_pass) stays
+// as the yardstick the persistent kernel is timed and checked against.
 //
 // The per-cell tet sweep (solvers/lattice.py::_tet_sweep; the TPU kernel's
 // in-kernel sweep, lattice_pallas.py:591-659 and :1189) projects the 6 Kuhn
 // paths of every cell against the same pred (Jacobi), then applies
-// pred += w / max(tdeg, 1) * delta.  No atomics: tet_cell_kernel writes each
+// pred += w / max(tdeg, 1) * delta.  No atomics: tet_cell_one writes each
 // path's multiplier and its four endpoint terms dl*g_k to per-endpoint
 // planes (72 floats a particle, 18 MB at res 40, L2-resident), and
-// tet_apply_kernel sums a particle's incidences in the plain engine's
+// tet_apply_one sums a particle's incidences in the plain engine's
 // order, path by path: g0 at its own cell, then g1, g2, g3 from the cells
 // at -o1, -o2, -o3 (with the rolls' wrap, whose cells carry dl = 0).  The
 // tet degree and the valid-cell mask (_tet_fields' tdeg and valid) are two
 // more planes of the same scratch, built once a run on the device by
-// tet_tables_kernel from integer coordinates, so no table is uploaded.
+// tet_tables_one from integer coordinates, so no table is uploaded.
 // With that order the sweep equals the plain engine to the bit.
 //
 // Floats stay IEEE (built without --use_fast_math, with -fmad=false): sqrtf
@@ -92,55 +130,17 @@
 #include "lattice_xpbd.cuh"
 
 #define LX_THREADS 256
-// the tet sweep's scratch planes: 72 endpoint terms, then the tables
-#define TET_TDEG 72
-#define TET_VALID 73
-#define TET_PLANES 74
 
-// A particle of an ensemble of bodies stored one after another (body b's
-// particle l at a = b * body_n + l), and its lattice coordinates within
-// its body.
-struct Cell {
-  int a, base, x, c, y, z;
-};
+// barrier kinds (kernels/lattice_cuda.py BARRIERS)
+#define LX_BLOCK 0     // __syncthreads(): whole bodies in a block
+#define LX_GRID_CTR 1  // counting barrier on a global counter
 
-__device__ __forceinline__ Cell cell_of(const LatticeParams& p, int a) {
-  const int r2 = p.res * p.res;
-  Cell q;
-  q.a = a;
-  q.base = (a / p.body_n) * p.body_n;
-  const int l = a - q.base;
-  q.x = l / r2;
-  q.c = l - q.x * r2;
-  q.y = q.c / p.res;
-  q.z = q.c - q.y * p.res;
-  return q;
+__device__ __forceinline__ void store3(float* buf, int n, int a,
+                                       const float o[3]) {
+  for (int c = 0; c < 3; ++c) buf[c * n + a] = o[c];
 }
 
-// Roll-consistent neighbour at offset step * (dx, dy, dz) in the same
-// body: x mod res, the lane y*res+z mod res^2, as the plain engine's rolls
-// wrap, so no pass reads across a body boundary.
-__device__ __forceinline__ Cell shift_cell(const LatticeParams& p,
-                                           const Cell& q, int dx, int dy,
-                                           int dz, int step) {
-  const int res = p.res, r2 = res * res;
-  const int k = dy * res + dz;
-  Cell o;
-  o.base = q.base;
-  o.x = (q.x + step * dx + res) % res;
-  o.c = (q.c + step * k + r2) % r2;
-  o.y = o.c / res;
-  o.z = o.c - o.y * res;
-  o.a = q.base + o.x * r2 + o.c;
-  return o;
-}
-
-// Along family f: step = +1 gives the partner a+d, step = -1 the anchor a-d
-// whose partner is a.
-__device__ __forceinline__ Cell step_cell(const LatticeParams& p, int f,
-                                          const Cell& q, int step) {
-  return shift_cell(p, q, p.fam[f][0], p.fam[f][1], p.fam[f][2], step);
-}
+// ---- the per-pass loop: one launch a pass, one thread a particle ---------
 
 __global__ void warm_pass_kernel(LatticeParams p, int f,
                                  const float* __restrict__ w,
@@ -149,50 +149,10 @@ __global__ void warm_pass_kernel(LatticeParams p, int f,
                                  const float* __restrict__ lam_in,
                                  float* __restrict__ lam_out) {
   const int a = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n = p.n;
-  if (a >= n) return;
-  const Cell q = cell_of(p, a);
-  const Cell fw = step_cell(p, f, q, 1);
-  const Cell bw = step_cell(p, f, q, -1);
-  const float wa = w[a];
-  const float pa[3] = {pin[a], pin[n + a], pin[2 * n + a]};
-  float o[3] = {pa[0], pa[1], pa[2]};
-
-  const float lam_a = warm_lambda(p, f, lam_in[a], wa, w[fw.a]);
-  lam_out[a] = lam_a;
-  if (fam_valid(p, f, q.x, q.y, q.z)) {
-    float d[3];
-    for (int c = 0; c < 3; ++c) d[c] = pin[c * n + fw.a] - pa[c];
-    const float len =
-        sqrtf(fmaxf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2], 1e-24f));
-    const float s = lam_a / len;
-    for (int c = 0; c < 3; ++c) o[c] = pa[c] - wa * (d[c] * s);
-  }
-  if (fam_valid(p, f, bw.x, bw.y, bw.z)) {
-    const float lam_b = warm_lambda(p, f, lam_in[bw.a], w[bw.a], wa);
-    float d[3];
-    for (int c = 0; c < 3; ++c) d[c] = pa[c] - pin[c * n + bw.a];
-    const float len =
-        sqrtf(fmaxf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2], 1e-24f));
-    const float s = lam_b / len;
-    for (int c = 0; c < 3; ++c) o[c] = o[c] + wa * (d[c] * s);
-  }
-  for (int c = 0; c < 3; ++c) pout[c * n + a] = o[c];
-}
-
-// An edge's length for a family pass: sqrt(max(|d|^2, 1e-24)), or with
-// approx_math |d|^2 * rsqrt(max(|d|^2, 1e-24)), *inv then holding that
-// rsqrt, by which the correction's scale multiplies in place of dividing
-// by the length (lattice_pallas.py:1053-1056, :1099).
-__device__ __forceinline__ float edge_length(const LatticeParams& p,
-                                             const float d[3], float* inv) {
-  const float len_sq = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
-  if (p.approx_math) {
-    *inv = rsqrtf(fmaxf(len_sq, 1e-24f));
-    return len_sq * *inv;
-  }
-  *inv = 0.f;
-  return sqrtf(fmaxf(len_sq, 1e-24f));
+  if (a >= p.n) return;
+  float o[3];
+  warm_one<WrapNbr>(p, f, cell_of(p, a), w, pin, lam_in, lam_out, o);
+  store3(pout, p.n, a, o);
 }
 
 __global__ void family_pass_kernel(LatticeParams p, int f, int sel,
@@ -202,160 +162,40 @@ __global__ void family_pass_kernel(LatticeParams p, int f, int sel,
                                    const float* __restrict__ lam_in,
                                    float* __restrict__ lam_out) {
   const int a = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n = p.n;
-  if (a >= n) return;
-  const Cell q = cell_of(p, a);
-  const float wa = w[a];
-  const float pa[3] = {pin[a], pin[n + a], pin[2 * n + a]};
-  float o[3] = {pa[0], pa[1], pa[2]};
-
-  // own constraint (a, a+d)
-  const float lam_a = lam_in[a];
-  float dl_a = 0.f;
-  if (fam_mask(p, f, sel, q.x, q.y, q.z)) {
-    const Cell fw = step_cell(p, f, q, 1);
-    float d[3], inv;
-    for (int c = 0; c < 3; ++c) d[c] = pin[c * n + fw.a] - pa[c];
-    const float len = edge_length(p, d, &inv);
-    dl_a = constraint_dl(p, f, len, wa, w[fw.a], lam_a, jacobi);
-    const float s = p.approx_math ? dl_a * inv : dl_a / len;
-    for (int c = 0; c < 3; ++c) o[c] = pa[c] - wa * (d[c] * s);
-  }
-  float lam_new = lam_a + dl_a;
-  if (p.lambda_clamp > 0.f)
-    lam_new = clampf(lam_new, -p.lambda_clamp, p.lambda_clamp);
-  lam_out[a] = lam_new;
-
-  // the constraint (a-d, a), recomputed from the pass-entry inputs
-  const Cell bw = step_cell(p, f, q, -1);
-  if (fam_mask(p, f, sel, bw.x, bw.y, bw.z)) {
-    float d[3], inv;
-    for (int c = 0; c < 3; ++c) d[c] = pa[c] - pin[c * n + bw.a];
-    const float len = edge_length(p, d, &inv);
-    const float dl_b =
-        constraint_dl(p, f, len, w[bw.a], wa, lam_in[bw.a], jacobi);
-    const float s = p.approx_math ? dl_b * inv : dl_b / len;
-    for (int c = 0; c < 3; ++c) o[c] = o[c] + wa * (d[c] * s);
-  }
-  for (int c = 0; c < 3; ++c) pout[c * n + a] = o[c];
+  if (a >= p.n) return;
+  float o[3];
+  family_one<WrapNbr>(p, f, sel, jacobi, cell_of(p, a), w, pin, lam_in,
+                      lam_out, o);
+  store3(pout, p.n, a, o);
 }
 
-__device__ __forceinline__ void cross3(const float* a, const float* b,
-                                       float* o) {
-  o[0] = a[1] * b[2] - a[2] * b[1];
-  o[1] = a[2] * b[0] - a[0] * b[2];
-  o[2] = a[0] * b[1] - a[1] * b[0];
-}
-
-__device__ __forceinline__ float dot3(const float* a, const float* b) {
-  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
-}
-
-// The tet sweep's tables, once a run: terms plane TET_TDEG holds each
-// particle's tet degree (the valid cells whose paths have it as a corner:
-// the anchor q - o_k of corner k must lie in [0, res - 2]^3), plane
-// TET_VALID 1 where the cell anchored at the particle is valid, else 0.
 __global__ void tet_tables_kernel(LatticeParams p, float* __restrict__ terms) {
   const int a = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n = p.n;
-  if (a >= n) return;
-  const Cell q = cell_of(p, a);
-  const int cmax = p.res - 2;   // a valid cell's largest coordinate
-  float tdeg = 0.f;
-  for (int pi = 0; pi < 6; ++pi) {
-    for (int k = 0; k < 4; ++k) {
-      int ox = 0, oy = 0, oz = 0;
-      if (k > 0) {
-        ox = p.tet_off[pi][k - 1][0];
-        oy = p.tet_off[pi][k - 1][1];
-        oz = p.tet_off[pi][k - 1][2];
-      }
-      const int ax = q.x - ox, ay = q.y - oy, az = q.z - oz;
-      if (ax >= 0 && ax <= cmax && ay >= 0 && ay <= cmax && az >= 0 &&
-          az <= cmax)
-        tdeg += 1.f;
-    }
-  }
-  terms[(size_t)TET_TDEG * n + a] = tdeg;
-  terms[(size_t)TET_VALID * n + a] =
-      q.x <= cmax && q.y <= cmax && q.z <= cmax ? 1.f : 0.f;
+  if (a >= p.n) return;
+  tet_tables_one(p, cell_of(p, a), terms);
 }
 
-// The tet sweep's projection: thread a is the anchor cell (origin corner)
-// of the 6 Kuhn paths; it updates their multipliers in place and writes
-// dl*g_k for corners k = 0..3 to terms[((pi*4 + k)*3 + c)*n + a].
 __global__ void tet_cell_kernel(LatticeParams p, const float* __restrict__ w,
                                 const float* __restrict__ pin,
                                 float* __restrict__ lam_t,
                                 float* __restrict__ terms) {
   const int a = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n = p.n;
-  if (a >= n) return;
-  const Cell q = cell_of(p, a);
-  const bool valid = terms[(size_t)TET_VALID * n + a] != 0.f;
-  const float wa = w[a];
-  const float pa[3] = {pin[a], pin[n + a], pin[2 * n + a]};
-  for (int pi = 0; pi < 6; ++pi) {
-    float e[3][3], wk[3], g[4][3];
-    for (int k = 0; k < 3; ++k) {
-      const int* o = p.tet_off[pi][k];
-      const Cell ck = shift_cell(p, q, o[0], o[1], o[2], 1);
-      for (int c = 0; c < 3; ++c) e[k][c] = pin[c * n + ck.a] - pa[c];
-      wk[k] = w[ck.a];
-    }
-    cross3(e[1], e[2], g[1]);
-    cross3(e[2], e[0], g[2]);
-    cross3(e[0], e[1], g[3]);
-    for (int c = 0; c < 3; ++c) g[0][c] = -((g[1][c] + g[2][c]) + g[3][c]);
-    const float cerr = dot3(e[0], g[1]) - p.tet_target;
-    const float denom = wa * dot3(g[0], g[0]) + wk[0] * dot3(g[1], g[1]) +
-                        wk[1] * dot3(g[2], g[2]) + wk[2] * dot3(g[3], g[3]) +
-                        p.tet_alpha;
-    const size_t li = (size_t)pi * n + a;
-    const float lam = lam_t[li];
-    const float num = -cerr - p.tet_alpha * lam;
-    float dl = p.approx_math ? num * approx_rcp(fmaxf(denom, 1e-30f))
-                             : num / fmaxf(denom, 1e-30f);
-    dl = (valid && denom > p.eps_denominator ? dl : 0.f) * p.tet_omega;
-    lam_t[li] = lam + dl;
-    for (int k = 0; k < 4; ++k)
-      for (int c = 0; c < 3; ++c)
-        terms[((size_t)(pi * 4 + k) * 3 + c) * n + a] = dl * g[k][c];
-  }
+  if (a >= p.n) return;
+  tet_cell_one<WrapNbr>(p, cell_of(p, a), w, pin, lam_t, terms);
 }
 
-// The tet sweep's apply: particle a sums its terms in the plain engine's
-// order and moves by w / max(tdeg, 1) times the sum.
 __global__ void tet_apply_kernel(LatticeParams p, const float* __restrict__ w,
                                  const float* __restrict__ pin,
                                  const float* __restrict__ terms,
                                  float* __restrict__ pout) {
   const int a = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n = p.n;
-  if (a >= n) return;
-  const Cell q = cell_of(p, a);
-  float delta[3] = {0.f, 0.f, 0.f};
-  for (int pi = 0; pi < 6; ++pi) {
-    for (int k = 0; k < 4; ++k) {
-      int src = a;
-      if (k > 0) {
-        const int* o = p.tet_off[pi][k - 1];
-        src = shift_cell(p, q, o[0], o[1], o[2], -1).a;
-      }
-      for (int c = 0; c < 3; ++c)
-        delta[c] = delta[c] + terms[((size_t)(pi * 4 + k) * 3 + c) * n + src];
-    }
-  }
-  const float tdeg = terms[(size_t)TET_TDEG * n + a];
-  const float coef = w[a] / fmaxf(tdeg, 1.f);
-  for (int c = 0; c < 3; ++c)
-    pout[c * n + a] = pin[c * n + a] + coef * delta[c];
+  if (a >= p.n) return;
+  float o[3];
+  tet_apply_one<WrapNbr>(p, cell_of(p, a), w, pin, terms, o);
+  store3(pout, p.n, a, o);
 }
 
-// Contacts of one iteration (XPBD floor, boxes, spheres) on pred in place,
-// and, after the last iteration, finalize (velocity from the position
-// change, pinned particles held, VELOCITY_REFLECT floor) into x and v.
-// tab: the collider table (colliders.cuh).
+// Contacts of one iteration on pred in place, or finalize into x and v.
 __global__ void contact_finalize_kernel(LatticeParams p, int do_contacts,
                                         int do_finalize,
                                         float* __restrict__ x,
@@ -366,82 +206,244 @@ __global__ void contact_finalize_kernel(LatticeParams p, int do_contacts,
   const int a = blockIdx.x * blockDim.x + threadIdx.x;
   const int n = p.n;
   if (a >= n) return;
-  const float wa = w[a];
   float pc[3] = {pred[a], pred[n + a], pred[2 * n + a]};
-  float xc[3] = {x[a], x[n + a], x[2 * n + a]};
-  const float gh = tab[0];
+  contact_finalize_one(p, do_contacts, do_finalize, a, x, v, w, pc, tab,
+                       pred);
+}
 
-  if (do_contacts) {
-    if (p.floor_mode == 1) {
-      const float pen = gh - pc[1];
-      const float denom = wa + p.floor_alpha;
-      const float dl = pen / fmaxf(denom, 1e-30f);
-      const bool hit = pen > 0.f && wa >= p.static_eps &&
-                       fabsf(denom) >= p.eps_denominator;
-      if (hit) {
-        const float p0 = pc[0] - (pc[0] - xc[0]) * p.friction;
-        const float p1 = pc[1] + wa * dl;
-        const float p2 = pc[2] - (pc[2] - xc[2]) * p.friction;
-        pc[0] = p0;
-        pc[1] = p1;
-        pc[2] = p2;
+// ---- the persistent kernel: one launch a call ----------------------------
+
+// A call's buffers (lattice_xpbd_run's arguments).  No pointer is
+// __restrict__: the kernel writes, between barriers, what it reads later.
+struct RunArgs {
+  float* x;
+  float* v;
+  const float* w;
+  const float* f;
+  float* lam;
+  float* lam_scratch;
+  float* pred_a;
+  float* pred_b;
+  float* lam_t;
+  float* terms;
+  const float* tab;
+  unsigned long long* counter;  // LX_GRID_CTR's, zeroed before the launch
+  int n_substeps;
+  int ext_first;
+  int chunk;  // particles a block owns: [blockIdx.x * chunk, + chunk)
+};
+
+// A thread's walk over its particles: the first from integer division,
+// once a call, each next one a stride of blockDim.x further on, its
+// coordinates carried with additions (the stride split into bodies, x, y
+// and z once; one carry per axis at most).
+struct Walker {
+  int res, body_n, stride, sb, sx, sy, sz;
+
+  __device__ Walker(const LatticeParams& p, int stride_) {
+    res = p.res;
+    body_n = p.body_n;
+    stride = stride_;
+    const int r2 = res * res;
+    sb = stride / body_n;
+    int l = stride - sb * body_n;
+    sx = l / r2;
+    l -= sx * r2;
+    sy = l / res;
+    sz = l - sy * res;
+  }
+
+  __device__ __forceinline__ void next(Cell& q) const {
+    q.a += stride;
+    q.z += sz;
+    q.y += sy;
+    q.x += sx;
+    int b = sb;
+    if (q.z >= res) { q.z -= res; ++q.y; }
+    if (q.y >= res) { q.y -= res; ++q.x; }
+    if (q.x >= res) { q.x -= res; ++b; }
+    q.base += b * body_n;
+    q.c = q.y * res + q.z;
+  }
+};
+
+__device__ __forceinline__ void red_release_add(unsigned long long* ptr) {
+  asm volatile("red.release.gpu.global.add.u64 [%0], %1;"
+               :: "l"(ptr), "l"(1ull) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long ld_acquire(
+    const unsigned long long* ptr) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(ptr) : "memory");
+  return v;
+}
+
+// The barrier between passes.  LX_GRID_CTR: every block's thread 0 adds 1
+// to the counter with release semantics after the block's barrier (so its
+// block's writes go with it) and spins with acquire loads until all
+// gridDim.x blocks have arrived at this barrier, the k-th of the call:
+// the counter only grows, so it needs neither a reset nor a sense flag.
+template <int KIND>
+struct Barrier {
+  unsigned long long* counter;
+  unsigned long long target;
+
+  __device__ void sync() {
+    if constexpr (KIND == LX_BLOCK) {
+      __syncthreads();
+    } else {
+      __syncthreads();
+      target += gridDim.x;
+      if (threadIdx.x == 0) {
+        red_release_add(counter);
+        while (ld_acquire(counter) < target) {
+        }
+      }
+      __syncthreads();
+    }
+  }
+};
+
+// The contacts and finalize of particle a on its iterate pc, the tail of
+// the iteration's last pass (pc to pred[a] unless the iteration is the
+// last), and, when `next`, the next substep's predict into pred.
+__device__ __forceinline__ void tail_one(const LatticeParams& p,
+                                         const RunArgs& r, int a,
+                                         int has_contacts, bool last,
+                                         bool next, float pc[3], float* pred,
+                                         float* lam_next) {
+  contact_finalize_one(p, has_contacts, last, a, r.x, r.v, r.w, pc, r.tab,
+                       pred);
+  if (next)
+    predict_one(p, a, r.x, r.v, r.w, nullptr, pred, lam_next, lam_next,
+                r.lam_t);
+}
+
+#define LX_EACH(q) for (Cell q = first; q.a < hi; walk.next(q))
+
+// Every substep of a call, one block's tile, the passes of the per-pass
+// loop in its order with a barrier between two that read each other's
+// output.  Buffers: the iterate ping-pongs between pred_a and pred_b; family
+// f's multipliers are in lam (buffer 0) or lam_scratch (1), the buffer
+// index advancing with each of f's passes (every family runs as many
+// passes as the others, so one index `fb` at substep boundaries).
+template <int KIND>
+__global__ void __launch_bounds__(LX_THREADS)
+    lattice_persistent_kernel(LatticeParams p, RunArgs r) {
+  Barrier<KIND> bar{r.counter, 0ull};
+  const int n = p.n;
+  const int lo = blockIdx.x * r.chunk;
+  const int hi = min(lo + r.chunk, n);
+  const Walker walk(p, blockDim.x);
+  const Cell first = cell_of(p, lo + (int)threadIdx.x);
+  const int has_contacts =
+      p.floor_mode == 1 || p.n_spheres > 0 || p.n_boxes > 0;
+  const int nwarm = p.lambda_mode == 2 ? 1 : 0;
+  const int npass = p.colored ? 2 : 1;
+  const int per_sub = nwarm + p.iterations * npass;  // passes a family
+#define LAM(i) ((i) ? r.lam_scratch : r.lam)
+
+  if (p.tets) LX_EACH(q) tet_tables_one(p, q, r.terms);
+  float* cur = r.pred_a;  // the substep's predicted positions
+  float* oth = r.pred_b;
+  int fb = 0;
+  bool predicted = false;
+  for (int i = 0; i < r.n_substeps; ++i) {
+    const int fb_next = fb ^ (per_sub & 1);
+    if (!predicted)
+      LX_EACH(q) predict_one(p, q.a, r.x, r.v, r.w,
+                             (r.ext_first && i == 0) ? r.f : nullptr, cur,
+                             LAM(fb), LAM(fb), r.lam_t);
+    bar.sync();
+    float* pin = cur;
+    float* pout = oth;
+    for (int fi = 0; fi < nwarm * p.nfam; ++fi) {
+      const float* lin = LAM(fb) + (size_t)fi * n;
+      float* lout = LAM(fb ^ 1) + (size_t)fi * n;
+      LX_EACH(q) {
+        float o[3];
+        warm_one<FastNbr>(p, fi, q, r.w, pin, lin, lout, o);
+        store3(pout, n, q.a, o);
+      }
+      bar.sync();
+      float* t = pin; pin = pout; pout = t;
+    }
+    for (int it = 0; it < p.iterations; ++it) {
+      const bool last = it == p.iterations - 1;
+      const bool tail = has_contacts || last;
+      const bool next = last && i + 1 < r.n_substeps;
+      for (int fi = 0; fi < p.nfam; ++fi) {
+        for (int ps = 0; ps < npass; ++ps) {
+          const int li = fb ^ ((nwarm + it * npass + ps) & 1);
+          const float* lin = LAM(li) + (size_t)fi * n;
+          float* lout = LAM(li ^ 1) + (size_t)fi * n;
+          const bool fused =
+              tail && !p.tets && fi == p.nfam - 1 && ps == npass - 1;
+          LX_EACH(q) {
+            float o[3];
+            family_one<FastNbr>(p, fi, p.colored ? ps : -1,
+                                p.colored ? 0 : 1, q, r.w, pin, lin, lout,
+                                o);
+            if (fused)
+              tail_one(p, r, q.a, has_contacts, last, next, o, pout,
+                       LAM(fb_next));
+            else
+              store3(pout, n, q.a, o);
+          }
+          float* t = pin; pin = pout; pout = t;
+          if (!(fused && last)) bar.sync();
+        }
+      }
+      if (p.tets) {
+        LX_EACH(q) tet_cell_one<FastNbr>(p, q, r.w, pin, r.lam_t, r.terms);
+        bar.sync();
+        LX_EACH(q) {
+          float o[3];
+          tet_apply_one<FastNbr>(p, q, r.w, pin, r.terms, o);
+          if (tail)
+            tail_one(p, r, q.a, has_contacts, last, next, o, pout,
+                     LAM(fb_next));
+          else
+            store3(pout, n, q.a, o);
+        }
+        float* t = pin; pin = pout; pout = t;
+        if (!(tail && last)) bar.sync();
+      } else if (p.nfam == 0 && tail) {
+        // an iteration without passes: its contacts on pred in place
+        LX_EACH(q) {
+          float o[3] = {pin[q.a], pin[n + q.a], pin[2 * n + q.a]};
+          tail_one(p, r, q.a, has_contacts, last, next, o, pin,
+                   LAM(fb_next));
+        }
+        if (!last) bar.sync();
       }
     }
-    for (int b = 0; b < p.n_boxes; ++b)
-      box_project(box_row(tab, p.n_spheres, b), wa, p.static_eps, p.dt,
-                  p.box_dt_fr, xc, pc);
-    for (int s = 0; s < p.n_spheres; ++s) {
-      const float* r = sphere_row(tab, s);
-      float dv[3], nrm[3], vel[3];
-      for (int c = 0; c < 3; ++c) dv[c] = pc[c] - r[c];
-      const float dist = sqrtf(
-          fmaxf(dv[0] * dv[0] + dv[1] * dv[1] + dv[2] * dv[2], 1e-24f));
-      for (int c = 0; c < 3; ++c) nrm[c] = dv[c] / dist;
-      const float penet = r[3] - dist;
-      const bool act = penet > 0.f && wa >= p.static_eps;
-      if (act)
-        for (int c = 0; c < 3; ++c) pc[c] = pc[c] + nrm[c] * penet;
-      // friction relative to the collider's velocity (0 for the config's)
-      for (int c = 0; c < 3; ++c) vel[c] = (pc[c] - xc[c]) / p.dt - r[4 + c];
-      const float vdot = vel[0] * nrm[0] + vel[1] * nrm[1] + vel[2] * nrm[2];
-      if (act)
-        for (int c = 0; c < 3; ++c)
-          pc[c] = pc[c] - (vel[c] - vdot * nrm[c]) * p.sphere_dt_fr;
+    predicted = p.iterations > 0 && i + 1 < r.n_substeps;
+    cur = pin;
+    oth = pout;
+    fb = fb_next;
+  }
+  if (fb) {
+    // every family's multipliers end in lam_scratch: back to lam, once the
+    // last pass's readers are done
+    bar.sync();
+    LX_EACH(q) for (int fi = 0; fi < p.nfam; ++fi) {
+      const size_t k = (size_t)fi * n + q.a;
+      r.lam[k] = r.lam_scratch[k];
     }
   }
+#undef LAM
+}
 
-  if (!do_finalize) {
-    for (int c = 0; c < 3; ++c) pred[c * n + a] = pc[c];
-    return;
-  }
-  const bool pinned = wa == 0.f;
-  float vc[3];
-  for (int c = 0; c < 3; ++c) {
-    vc[c] = pinned ? 0.f : (pc[c] - xc[c]) / p.dt;
-    xc[c] = pinned ? xc[c] : pc[c];
-  }
-  if (p.floor_mode == 2) {
-    const float pen = gh - xc[1];
-    const bool hit = pen > 0.f && wa > 0.f;
-    const bool falling = hit && vc[1] < 0.f;
-    const float vy = fabsf(vc[1]) * p.restitution + pen * p.penetration_kick;
-    const float v1 = falling ? vy : vc[1];
-    const float normal_force = fabsf(v1) + pen * p.normal_force_scale;
-    const float h_speed =
-        sqrtf(fmaxf(vc[0] * vc[0] + vc[2] * vc[2], 1e-24f));
-    const bool moving = h_speed > 1e-3f;
-    const float fmag =
-        fminf(h_speed, normal_force * p.floor_friction_coeff * p.dt);
-    const float scalef = (falling && moving) ? fmag / h_speed : 0.f;
-    if (hit) xc[1] = gh + p.floor_offset;
-    vc[0] = vc[0] - vc[0] * scalef;
-    vc[1] = v1;
-    vc[2] = vc[2] - vc[2] * scalef;
-  }
-  for (int c = 0; c < 3; ++c) {
-    x[c * n + a] = xc[c];
-    v[c * n + a] = vc[c];
-  }
+#undef LX_EACH
+
+static const void* persistent_fn(int kind) {
+  if (kind == LX_BLOCK) return (const void*)lattice_persistent_kernel<LX_BLOCK>;
+  if (kind == LX_GRID_CTR)
+    return (const void*)lattice_persistent_kernel<LX_GRID_CTR>;
+  return nullptr;
 }
 
 // A diagnostic off every path: out[i] = rsqrtf(x[i]) and out[n + i] =
@@ -453,6 +455,13 @@ __global__ void approx_probe_kernel(const float* __restrict__ x,
   if (i >= n) return;
   out[i] = rsqrtf(x[i]);
   out[n + i] = approx_rcp(x[i]);
+}
+
+static bool bad_params(const LatticeParams& p, const float* colliders,
+                       const float* lam_t, const float* tet_terms) {
+  return p.nfam > LX_MAX_FAM || p.nfam < 0 || p.n_spheres > LX_MAX_SPHERES ||
+         p.n_boxes > LX_MAX_BOXES || !colliders || p.body_n <= 0 ||
+         p.n % p.body_n != 0 || (p.tets && (!lam_t || !tet_terms));
 }
 
 extern "C" {
@@ -471,29 +480,97 @@ const char* lattice_xpbd_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Advance n_substeps substeps on `stream`.  x, v: (3, N) in/out; w: (N);
-// f: (3, N) ext force consumed on the first substep when ext_first, else
-// unused; lam: (nfam, N) in/out; lam_scratch: (nfam, N) and pred_a,
-// pred_b: (3, N) scratch; lam_t: (6, N) tet multipliers in/out, or null
-// when the state has none; tet_terms: (TET_PLANES, N) scratch when p.tets;
-// colliders: the collider table (1 + n_spheres + n_boxes, KIN_W).
-// *n_launched counts the kernels launched.  Returns a cudaError_t;
+// The persistent kernel of barrier `kind` on `device`: its threads a block
+// (LX_THREADS), the blocks of it one SM holds at once, the SMs, and
+// whether the device launches cooperatively.  Returns a cudaError_t.
+int lattice_xpbd_occupancy(int device, int kind, int* threads,
+                           int* blocks_per_sm, int* n_sms, int* coop) {
+  const void* fn = persistent_fn(kind);
+  if (!fn) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn,
+                                                        LX_THREADS, 0);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(n_sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(coop, cudaDevAttrCooperativeLaunch, device);
+  *threads = LX_THREADS;
+  return (int)err;
+}
+
+// Advance n_substeps substeps on `stream` in one launch of the persistent
+// kernel.  x, v: (3, N) in/out; w: (N); f: (3, N) ext force consumed on
+// the first substep when ext_first, else unused; lam: (nfam, N) in/out;
+// lam_scratch: (nfam, N) and pred_a, pred_b: (3, N) scratch; lam_t: (6, N)
+// tet multipliers in/out, or null when the state has none; tet_terms:
+// (TET_PLANES, N) scratch when p.tets; colliders: the collider table
+// (1 + n_spheres + n_boxes, KIN_W).  kind: LX_BLOCK (grid blocks of
+// `chunk` particles, a whole number of bodies each) or LX_GRID_CTR (a
+// cooperative launch of `grid` blocks, planned by kernels/lattice_cuda.py
+// to fit the device at once; counter: one 64-bit word of scratch, zeroed
+// here).  *n_launched counts the kernels launched (1, or 0 for no
+// substep).  Returns a cudaError_t: the cooperative launch itself refuses
+// a grid that cannot be co-resident (cudaErrorCooperativeLaunchTooLarge);
 // nothing is synchronised.
 int lattice_xpbd_run(const LatticeParams* hp, int device, float* x, float* v,
                      const float* w, const float* f, int ext_first,
                      float* lam, float* lam_scratch, float* pred_a,
                      float* pred_b, float* lam_t, float* tet_terms,
-                     const float* colliders, int n_substeps,
+                     const float* colliders, int n_substeps, int kind,
+                     int grid, int chunk, unsigned long long* counter,
                      long long* n_launched, void* stream_handle) {
+  const LatticeParams p = *hp;
+  cudaStream_t stream = (cudaStream_t)stream_handle;
+  *n_launched = 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const void* fn = persistent_fn(kind);
+  if (!fn || bad_params(p, colliders, lam_t, tet_terms) || grid <= 0 ||
+      chunk <= 0 || (long long)grid * chunk < p.n ||
+      (kind == LX_BLOCK && chunk % p.body_n != 0) ||
+      (kind == LX_GRID_CTR && !counter))
+    return (int)cudaErrorInvalidValue;
+  if (n_substeps <= 0) return (int)cudaSuccess;
+
+  RunArgs r{x, v, w, f, lam, lam_scratch, pred_a, pred_b, lam_t, tet_terms,
+            colliders, counter, n_substeps, ext_first, chunk};
+  if (kind == LX_BLOCK) {
+    lattice_persistent_kernel<LX_BLOCK><<<grid, LX_THREADS, 0, stream>>>(p,
+                                                                         r);
+    err = cudaGetLastError();
+  } else {
+    err = cudaMemsetAsync(counter, 0, sizeof(unsigned long long), stream);
+    if (err != cudaSuccess) return (int)err;
+    void* args[] = {(void*)&p, (void*)&r};
+    err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(LX_THREADS), args,
+                                      0, stream);
+  }
+  if (err != cudaSuccess) return (int)err;
+  *n_launched = 1;
+  return (int)cudaSuccess;
+}
+
+// The yardstick: the same substeps as lattice_xpbd_run, one launch a pass
+// (LX_THREADS threads a block, one a particle), the design the persistent
+// kernel replaced.  No route reaches it; chip_smoke.py and the card tests
+// time and check the persistent kernel against it.  *n_launched counts the
+// kernels launched.
+int lattice_xpbd_run_per_pass(const LatticeParams* hp, int device, float* x,
+                              float* v, const float* w, const float* f,
+                              int ext_first, float* lam, float* lam_scratch,
+                              float* pred_a, float* pred_b, float* lam_t,
+                              float* tet_terms, const float* colliders,
+                              int n_substeps, long long* n_launched,
+                              void* stream_handle) {
   const LatticeParams p = *hp;
   cudaStream_t stream = (cudaStream_t)stream_handle;
   long long launched = 0;
   *n_launched = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (p.nfam > LX_MAX_FAM || p.n_spheres > LX_MAX_SPHERES ||
-      p.n_boxes > LX_MAX_BOXES || !colliders || p.body_n <= 0 ||
-      p.n % p.body_n != 0 || (p.tets && (!lam_t || !tet_terms)))
+  if (bad_params(p, colliders, lam_t, tet_terms))
     return (int)cudaErrorInvalidValue;
 
   const dim3 grid((p.n + LX_THREADS - 1) / LX_THREADS);

@@ -6,6 +6,17 @@
 // built from its own .cu, so the kernels here compile into each.  The
 // colliders (spheres, boxes, a ColliderSet's ground) are not constants: the
 // lattice kernel reads them from a device table (colliders.cuh).
+//
+// The lattice kernel's passes are __device__ functions of one particle
+// (predict_one, warm_one, family_one, tet_tables_one, tet_cell_one,
+// tet_apply_one, contact_finalize_one), called by both of its designs: the
+// per-pass kernels, one launch a pass, and the persistent kernel, one
+// launch a call (lattice_xpbd.cu).  A neighbour policy says how a pass
+// finds a particle's partners: WrapNbr with the rolls' wrap-around from
+// integer division (the per-pass kernels), FastNbr by adding the offset to
+// coordinates carried from particle to particle (the persistent kernel).
+// Where a partner is read, the two give the same index, so both designs
+// run the same arithmetic on the same values.
 
 #pragma once
 
@@ -143,20 +154,16 @@ __device__ __forceinline__ float warm_lambda(const LatticeParams& p, int f,
   return lam;
 }
 
-// Predict (gravity, the ext force when f is given, damping, clamps) of n
-// particles, with the lambda reset / decay folded in: lam_src may alias
-// lam_dst, since each thread touches only its own entries.  lam_t (the tet
+// Predict (gravity, the ext force when f is given, damping, clamps) of
+// particle a, with the lambda reset / decay folded in: lam_src may alias
+// lam_dst, since only particle a's entries are touched.  lam_t (the tet
 // multipliers, 6 planes) is null when the state has none.
-__global__ void predict_kernel(LatticeParams p, const float* __restrict__ x,
-                               float* __restrict__ v,
-                               const float* __restrict__ w,
-                               const float* __restrict__ f,
-                               float* __restrict__ pred,
-                               const float* lam_src, float* lam_dst,
-                               float* __restrict__ lam_t) {
-  const int a = blockIdx.x * blockDim.x + threadIdx.x;
+__device__ __forceinline__ void predict_one(const LatticeParams& p, int a,
+                                            const float* x, float* v,
+                                            const float* w, const float* f,
+                                            float* pred, const float* lam_src,
+                                            float* lam_dst, float* lam_t) {
   const int n = p.n;
-  if (a >= n) return;
   const float wa = w[a];
   for (int c = 0; c < 3; ++c) {
     float vc = v[c * n + a];
@@ -192,3 +199,477 @@ __global__ void predict_kernel(LatticeParams p, const float* __restrict__ x,
     }
 }
 
+// Predict of n particles, one thread each (the slab kernel's and the
+// per-pass loop's launch).
+__global__ void predict_kernel(LatticeParams p, const float* __restrict__ x,
+                               float* __restrict__ v,
+                               const float* __restrict__ w,
+                               const float* __restrict__ f,
+                               float* __restrict__ pred,
+                               const float* lam_src, float* lam_dst,
+                               float* __restrict__ lam_t) {
+  const int a = blockIdx.x * blockDim.x + threadIdx.x;
+  if (a >= p.n) return;
+  predict_one(p, a, x, v, w, f, pred, lam_src, lam_dst, lam_t);
+}
+
+// ---- the lattice kernel's particles, partners and passes ----------------
+
+// the tet sweep's scratch planes: 72 endpoint terms, then the tables
+#define TET_TDEG 72
+#define TET_VALID 73
+#define TET_PLANES 74
+
+// A particle of an ensemble of bodies stored one after another (body b's
+// particle l at a = b * body_n + l), and its lattice coordinates within
+// its body (c = y * res + z, the lane).
+struct Cell {
+  int a, base, x, c, y, z;
+};
+
+__device__ __forceinline__ Cell cell_of(const LatticeParams& p, int a) {
+  const int r2 = p.res * p.res;
+  Cell q;
+  q.a = a;
+  q.base = (a / p.body_n) * p.body_n;
+  const int l = a - q.base;
+  q.x = l / r2;
+  q.c = l - q.x * r2;
+  q.y = q.c / p.res;
+  q.z = q.c - q.y * p.res;
+  return q;
+}
+
+// Roll-consistent neighbour at offset step * (dx, dy, dz) in the same
+// body: x mod res, the lane y*res+z mod res^2, as the plain engine's rolls
+// wrap, so no pass reads across a body boundary.
+__device__ __forceinline__ Cell shift_cell(const LatticeParams& p,
+                                           const Cell& q, int dx, int dy,
+                                           int dz, int step) {
+  const int res = p.res, r2 = res * res;
+  const int k = dy * res + dz;
+  Cell o;
+  o.base = q.base;
+  o.x = (q.x + step * dx + res) % res;
+  o.c = (q.c + step * k + r2) % r2;
+  o.y = o.c / res;
+  o.z = o.c - o.y * res;
+  o.a = q.base + o.x * r2 + o.c;
+  return o;
+}
+
+// Along family f: step = +1 gives the partner a+d, step = -1 the anchor a-d
+// whose partner is a.
+__device__ __forceinline__ Cell step_cell(const LatticeParams& p, int f,
+                                          const Cell& q, int step) {
+  return shift_cell(p, q, p.fam[f][0], p.fam[f][1], p.fam[f][2], step);
+}
+
+__device__ __forceinline__ bool inside(const LatticeParams& p, int x, int y,
+                                       int z) {
+  return (unsigned)x < (unsigned)p.res && (unsigned)y < (unsigned)p.res &&
+         (unsigned)z < (unsigned)p.res;
+}
+
+// The cell at (x, y, z) of q's body, inside it.
+__device__ __forceinline__ int cell_index(const LatticeParams& p,
+                                          const Cell& q, int x, int y,
+                                          int z) {
+  return q.base + (x * p.res + y) * p.res + z;
+}
+
+// Partners with the rolls' wrap (integer division on every read).
+struct WrapNbr {
+  // the partner a+d of a valid anchor
+  __device__ static int fwd(const LatticeParams& p, int f, const Cell& q) {
+    return step_cell(p, f, q, 1).a;
+  }
+  // the partner a+d of any anchor (WARM_START reads its inverse mass)
+  __device__ static int fwd_any(const LatticeParams& p, int f,
+                                const Cell& q) {
+    return step_cell(p, f, q, 1).a;
+  }
+  // the anchor a-d whose constraint (a-d, a) the mask keeps, if any
+  __device__ static bool back(const LatticeParams& p, int f, int sel,
+                              const Cell& q, Cell& bw) {
+    bw = step_cell(p, f, q, -1);
+    return fam_mask(p, f, sel, bw.x, bw.y, bw.z);
+  }
+  // a tet corner at +o of a cell (every cell; an invalid one's are masked)
+  __device__ static int corner(const LatticeParams& p, const Cell& q,
+                               const int* o) {
+    return shift_cell(p, q, o[0], o[1], o[2], 1).a;
+  }
+  // the cell at -o whose path has q as that corner; false where its terms
+  // are known to be zero
+  __device__ static bool anchor(const LatticeParams& p, const Cell& q,
+                                const int* o, int& src) {
+    src = shift_cell(p, q, o[0], o[1], o[2], -1).a;
+    return true;
+  }
+};
+
+// Partners by offset from carried coordinates.  A valid anchor's partner,
+// a kept backward anchor and a valid cell's corners lie inside the body, so
+// no wrap is taken there.  Outside the body a wrapped partner is masked:
+// the backward anchor is dropped (its mask is false), an invalid cell's
+// corner is clamped into the body (its multiplier step is 0 whatever it
+// reads), and an anchor outside the body is skipped in the tet apply (its
+// wrapped cell is invalid, so its terms are +-0, and adding +-0 to a sum
+// that starts at +0 changes no bit).  Only WARM_START's inverse mass of an
+// invalid anchor's partner, which sets that anchor's carried multiplier,
+// takes the wrap's division.
+struct FastNbr {
+  __device__ static int fwd(const LatticeParams& p, int f, const Cell& q) {
+    return cell_index(p, q, q.x + p.fam[f][0], q.y + p.fam[f][1],
+                      q.z + p.fam[f][2]);
+  }
+  __device__ static int fwd_any(const LatticeParams& p, int f,
+                                const Cell& q) {
+    const int x = q.x + p.fam[f][0], y = q.y + p.fam[f][1],
+              z = q.z + p.fam[f][2];
+    return inside(p, x, y, z) ? cell_index(p, q, x, y, z)
+                              : step_cell(p, f, q, 1).a;
+  }
+  __device__ static bool back(const LatticeParams& p, int f, int sel,
+                              const Cell& q, Cell& bw) {
+    bw.x = q.x - p.fam[f][0];
+    bw.y = q.y - p.fam[f][1];
+    bw.z = q.z - p.fam[f][2];
+    if (!inside(p, bw.x, bw.y, bw.z)) return false;
+    bw.a = cell_index(p, q, bw.x, bw.y, bw.z);
+    return fam_mask(p, f, sel, bw.x, bw.y, bw.z);
+  }
+  __device__ static int corner(const LatticeParams& p, const Cell& q,
+                               const int* o) {
+    const int hi = p.res - 1;
+    return cell_index(p, q, min(max(q.x + o[0], 0), hi),
+                      min(max(q.y + o[1], 0), hi),
+                      min(max(q.z + o[2], 0), hi));
+  }
+  __device__ static bool anchor(const LatticeParams& p, const Cell& q,
+                                const int* o, int& src) {
+    const int x = q.x - o[0], y = q.y - o[1], z = q.z - o[2];
+    if (!inside(p, x, y, z)) return false;
+    src = cell_index(p, q, x, y, z);
+    return true;
+  }
+};
+
+// WARM_START's pre-apply of family f at particle q: the carried multiplier
+// (SOR fraction, clamp) moves a along its own constraint (a, a+d) and the
+// one anchored at a-d; o gets the new position, lam_out[a] the multiplier.
+// Every read is issued before the first write, so a thread waits for
+// memory once a pass.
+template <class Nbr>
+__device__ __forceinline__ void warm_one(const LatticeParams& p, int f,
+                                         const Cell& q, const float* w,
+                                         const float* pin,
+                                         const float* lam_in, float* lam_out,
+                                         float o[3]) {
+  const int n = p.n, a = q.a;
+  const float wa = w[a];
+  const float pa[3] = {pin[a], pin[n + a], pin[2 * n + a]};
+  const float lam_in_a = lam_in[a];
+  const float wf = w[Nbr::fwd_any(p, f, q)];
+  const bool own = fam_valid(p, f, q.x, q.y, q.z);
+  float pf[3] = {0.f, 0.f, 0.f};
+  if (own) {
+    const int fw = Nbr::fwd(p, f, q);
+    for (int c = 0; c < 3; ++c) pf[c] = pin[c * n + fw];
+  }
+  Cell bw;
+  const bool back = Nbr::back(p, f, -1, q, bw);
+  float pb[3] = {0.f, 0.f, 0.f}, wb = 0.f, lam_in_b = 0.f;
+  if (back) {
+    for (int c = 0; c < 3; ++c) pb[c] = pin[c * n + bw.a];
+    wb = w[bw.a];
+    lam_in_b = lam_in[bw.a];
+  }
+  for (int c = 0; c < 3; ++c) o[c] = pa[c];
+
+  const float lam_a = warm_lambda(p, f, lam_in_a, wa, wf);
+  if (own) {
+    float d[3];
+    for (int c = 0; c < 3; ++c) d[c] = pf[c] - pa[c];
+    const float len =
+        sqrtf(fmaxf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2], 1e-24f));
+    const float s = lam_a / len;
+    for (int c = 0; c < 3; ++c) o[c] = pa[c] - wa * (d[c] * s);
+  }
+  if (back) {
+    const float lam_b = warm_lambda(p, f, lam_in_b, wb, wa);
+    float d[3];
+    for (int c = 0; c < 3; ++c) d[c] = pa[c] - pb[c];
+    const float len =
+        sqrtf(fmaxf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2], 1e-24f));
+    const float s = lam_b / len;
+    for (int c = 0; c < 3; ++c) o[c] = o[c] + wa * (d[c] * s);
+  }
+  lam_out[a] = lam_a;
+}
+
+// An edge's length for a family pass: sqrt(max(|d|^2, 1e-24)), or with
+// approx_math |d|^2 * rsqrt(max(|d|^2, 1e-24)), *inv then holding that
+// rsqrt, by which the correction's scale multiplies in place of dividing
+// by the length (lattice_pallas.py:1053-1056, :1099).
+__device__ __forceinline__ float edge_length(const LatticeParams& p,
+                                             const float d[3], float* inv) {
+  const float len_sq = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+  if (p.approx_math) {
+    *inv = rsqrtf(fmaxf(len_sq, 1e-24f));
+    return len_sq * *inv;
+  }
+  *inv = 0.f;
+  return sqrtf(fmaxf(len_sq, 1e-24f));
+}
+
+// One family pass at particle q (sel -1 JACOBI, 0 / 1 a COLORED parity
+// class): gather-only.  It computes its own constraint (a, a+d) -- the
+// lambda it writes -- and recomputes, from the same pass-entry inputs, the
+// constraint anchored at a-d; o gets p_a - w_a*dp_a + w_a*dp_{a-d}, the
+// term order of _family_pass.  Every read is issued before the first
+// write, so a thread waits for memory once a pass.
+template <class Nbr>
+__device__ __forceinline__ void family_one(const LatticeParams& p, int f,
+                                           int sel, int jacobi,
+                                           const Cell& q, const float* w,
+                                           const float* pin,
+                                           const float* lam_in,
+                                           float* lam_out, float o[3]) {
+  const int n = p.n, a = q.a;
+  const float wa = w[a];
+  const float pa[3] = {pin[a], pin[n + a], pin[2 * n + a]};
+  const float lam_a = lam_in[a];
+  const bool own = fam_mask(p, f, sel, q.x, q.y, q.z);
+  float pf[3] = {0.f, 0.f, 0.f}, wf = 0.f;
+  if (own) {
+    const int fw = Nbr::fwd(p, f, q);
+    for (int c = 0; c < 3; ++c) pf[c] = pin[c * n + fw];
+    wf = w[fw];
+  }
+  Cell bw;
+  const bool back = Nbr::back(p, f, sel, q, bw);
+  float pb[3] = {0.f, 0.f, 0.f}, wb = 0.f, lam_b = 0.f;
+  if (back) {
+    for (int c = 0; c < 3; ++c) pb[c] = pin[c * n + bw.a];
+    wb = w[bw.a];
+    lam_b = lam_in[bw.a];
+  }
+  for (int c = 0; c < 3; ++c) o[c] = pa[c];
+
+  // own constraint (a, a+d)
+  float dl_a = 0.f;
+  if (own) {
+    float d[3], inv;
+    for (int c = 0; c < 3; ++c) d[c] = pf[c] - pa[c];
+    const float len = edge_length(p, d, &inv);
+    dl_a = constraint_dl(p, f, len, wa, wf, lam_a, jacobi);
+    const float s = p.approx_math ? dl_a * inv : dl_a / len;
+    for (int c = 0; c < 3; ++c) o[c] = pa[c] - wa * (d[c] * s);
+  }
+  float lam_new = lam_a + dl_a;
+  if (p.lambda_clamp > 0.f)
+    lam_new = clampf(lam_new, -p.lambda_clamp, p.lambda_clamp);
+
+  // the constraint (a-d, a), recomputed from the pass-entry inputs
+  if (back) {
+    float d[3], inv;
+    for (int c = 0; c < 3; ++c) d[c] = pa[c] - pb[c];
+    const float len = edge_length(p, d, &inv);
+    const float dl_b = constraint_dl(p, f, len, wb, wa, lam_b, jacobi);
+    const float s = p.approx_math ? dl_b * inv : dl_b / len;
+    for (int c = 0; c < 3; ++c) o[c] = o[c] + wa * (d[c] * s);
+  }
+  lam_out[a] = lam_new;
+}
+
+__device__ __forceinline__ void cross3(const float* a, const float* b,
+                                       float* o) {
+  o[0] = a[1] * b[2] - a[2] * b[1];
+  o[1] = a[2] * b[0] - a[0] * b[2];
+  o[2] = a[0] * b[1] - a[1] * b[0];
+}
+
+__device__ __forceinline__ float dot3(const float* a, const float* b) {
+  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
+}
+
+// The tet sweep's tables at particle q: terms plane TET_TDEG holds its tet
+// degree (the valid cells whose paths have it as a corner: the anchor
+// q - o_k of corner k must lie in [0, res - 2]^3), plane TET_VALID 1 where
+// the cell anchored at q is valid, else 0.
+__device__ __forceinline__ void tet_tables_one(const LatticeParams& p,
+                                               const Cell& q, float* terms) {
+  const int n = p.n;
+  const int cmax = p.res - 2;   // a valid cell's largest coordinate
+  float tdeg = 0.f;
+  for (int pi = 0; pi < 6; ++pi) {
+    for (int k = 0; k < 4; ++k) {
+      int ox = 0, oy = 0, oz = 0;
+      if (k > 0) {
+        ox = p.tet_off[pi][k - 1][0];
+        oy = p.tet_off[pi][k - 1][1];
+        oz = p.tet_off[pi][k - 1][2];
+      }
+      const int ax = q.x - ox, ay = q.y - oy, az = q.z - oz;
+      if (ax >= 0 && ax <= cmax && ay >= 0 && ay <= cmax && az >= 0 &&
+          az <= cmax)
+        tdeg += 1.f;
+    }
+  }
+  terms[(size_t)TET_TDEG * n + q.a] = tdeg;
+  terms[(size_t)TET_VALID * n + q.a] =
+      q.x <= cmax && q.y <= cmax && q.z <= cmax ? 1.f : 0.f;
+}
+
+// The tet sweep's projection at cell q, the anchor (origin corner) of the
+// 6 Kuhn paths: updates their multipliers in place and writes dl*g_k for
+// corners k = 0..3 to terms[((pi*4 + k)*3 + c)*n + a].
+template <class Nbr>
+__device__ __forceinline__ void tet_cell_one(const LatticeParams& p,
+                                             const Cell& q, const float* w,
+                                             const float* pin, float* lam_t,
+                                             float* terms) {
+  const int n = p.n, a = q.a;
+  const bool valid = terms[(size_t)TET_VALID * n + a] != 0.f;
+  const float wa = w[a];
+  const float pa[3] = {pin[a], pin[n + a], pin[2 * n + a]};
+  for (int pi = 0; pi < 6; ++pi) {
+    float e[3][3], wk[3], g[4][3];
+    for (int k = 0; k < 3; ++k) {
+      const int ck = Nbr::corner(p, q, p.tet_off[pi][k]);
+      for (int c = 0; c < 3; ++c) e[k][c] = pin[c * n + ck] - pa[c];
+      wk[k] = w[ck];
+    }
+    cross3(e[1], e[2], g[1]);
+    cross3(e[2], e[0], g[2]);
+    cross3(e[0], e[1], g[3]);
+    for (int c = 0; c < 3; ++c) g[0][c] = -((g[1][c] + g[2][c]) + g[3][c]);
+    const float cerr = dot3(e[0], g[1]) - p.tet_target;
+    const float denom = wa * dot3(g[0], g[0]) + wk[0] * dot3(g[1], g[1]) +
+                        wk[1] * dot3(g[2], g[2]) + wk[2] * dot3(g[3], g[3]) +
+                        p.tet_alpha;
+    const size_t li = (size_t)pi * n + a;
+    const float lam = lam_t[li];
+    const float num = -cerr - p.tet_alpha * lam;
+    float dl = p.approx_math ? num * approx_rcp(fmaxf(denom, 1e-30f))
+                             : num / fmaxf(denom, 1e-30f);
+    dl = (valid && denom > p.eps_denominator ? dl : 0.f) * p.tet_omega;
+    lam_t[li] = lam + dl;
+    for (int k = 0; k < 4; ++k)
+      for (int c = 0; c < 3; ++c)
+        terms[((size_t)(pi * 4 + k) * 3 + c) * n + a] = dl * g[k][c];
+  }
+}
+
+// The tet sweep's apply at particle q: its terms summed in the plain
+// engine's order, path by path (g0 at its own cell, then g1, g2, g3 from
+// the cells at -o1, -o2, -o3); o = pin + w / max(tdeg, 1) * the sum.
+template <class Nbr>
+__device__ __forceinline__ void tet_apply_one(const LatticeParams& p,
+                                              const Cell& q, const float* w,
+                                              const float* pin,
+                                              const float* terms,
+                                              float o[3]) {
+  const int n = p.n, a = q.a;
+  float delta[3] = {0.f, 0.f, 0.f};
+  for (int pi = 0; pi < 6; ++pi) {
+    for (int k = 0; k < 4; ++k) {
+      int src = a;
+      if (k > 0 && !Nbr::anchor(p, q, p.tet_off[pi][k - 1], src)) continue;
+      for (int c = 0; c < 3; ++c)
+        delta[c] = delta[c] + terms[((size_t)(pi * 4 + k) * 3 + c) * n + src];
+    }
+  }
+  const float tdeg = terms[(size_t)TET_TDEG * n + a];
+  const float coef = w[a] / fmaxf(tdeg, 1.f);
+  for (int c = 0; c < 3; ++c) o[c] = pin[c * n + a] + coef * delta[c];
+}
+
+// Contacts of one iteration (XPBD floor, boxes, spheres) on particle a's
+// iterate pc, stored to pred[a]; or, after the last iteration, finalize
+// (velocity from the position change, pinned particles held,
+// VELOCITY_REFLECT floor) into x and v, pred left alone.  tab: the
+// collider table (colliders.cuh).
+__device__ __forceinline__ void contact_finalize_one(
+    const LatticeParams& p, int do_contacts, int do_finalize, int a,
+    float* x, float* v, const float* w, float pc[3], const float* tab,
+    float* pred) {
+  const int n = p.n;
+  const float wa = w[a];
+  float xc[3] = {x[a], x[n + a], x[2 * n + a]};
+  const float gh = tab[0];
+
+  if (do_contacts) {
+    if (p.floor_mode == 1) {
+      const float pen = gh - pc[1];
+      const float denom = wa + p.floor_alpha;
+      const float dl = pen / fmaxf(denom, 1e-30f);
+      const bool hit = pen > 0.f && wa >= p.static_eps &&
+                       fabsf(denom) >= p.eps_denominator;
+      if (hit) {
+        const float p0 = pc[0] - (pc[0] - xc[0]) * p.friction;
+        const float p1 = pc[1] + wa * dl;
+        const float p2 = pc[2] - (pc[2] - xc[2]) * p.friction;
+        pc[0] = p0;
+        pc[1] = p1;
+        pc[2] = p2;
+      }
+    }
+    for (int b = 0; b < p.n_boxes; ++b)
+      box_project(box_row(tab, p.n_spheres, b), wa, p.static_eps, p.dt,
+                  p.box_dt_fr, xc, pc);
+    for (int s = 0; s < p.n_spheres; ++s) {
+      const float* r = sphere_row(tab, s);
+      float dv[3], nrm[3], vel[3];
+      for (int c = 0; c < 3; ++c) dv[c] = pc[c] - r[c];
+      const float dist = sqrtf(
+          fmaxf(dv[0] * dv[0] + dv[1] * dv[1] + dv[2] * dv[2], 1e-24f));
+      for (int c = 0; c < 3; ++c) nrm[c] = dv[c] / dist;
+      const float penet = r[3] - dist;
+      const bool act = penet > 0.f && wa >= p.static_eps;
+      if (act)
+        for (int c = 0; c < 3; ++c) pc[c] = pc[c] + nrm[c] * penet;
+      // friction relative to the collider's velocity (0 for the config's)
+      for (int c = 0; c < 3; ++c) vel[c] = (pc[c] - xc[c]) / p.dt - r[4 + c];
+      const float vdot = vel[0] * nrm[0] + vel[1] * nrm[1] + vel[2] * nrm[2];
+      if (act)
+        for (int c = 0; c < 3; ++c)
+          pc[c] = pc[c] - (vel[c] - vdot * nrm[c]) * p.sphere_dt_fr;
+    }
+  }
+
+  if (!do_finalize) {
+    for (int c = 0; c < 3; ++c) pred[c * n + a] = pc[c];
+    return;
+  }
+  const bool pinned = wa == 0.f;
+  float vc[3];
+  for (int c = 0; c < 3; ++c) {
+    vc[c] = pinned ? 0.f : (pc[c] - xc[c]) / p.dt;
+    xc[c] = pinned ? xc[c] : pc[c];
+  }
+  if (p.floor_mode == 2) {
+    const float pen = gh - xc[1];
+    const bool hit = pen > 0.f && wa > 0.f;
+    const bool falling = hit && vc[1] < 0.f;
+    const float vy = fabsf(vc[1]) * p.restitution + pen * p.penetration_kick;
+    const float v1 = falling ? vy : vc[1];
+    const float normal_force = fabsf(v1) + pen * p.normal_force_scale;
+    const float h_speed =
+        sqrtf(fmaxf(vc[0] * vc[0] + vc[2] * vc[2], 1e-24f));
+    const bool moving = h_speed > 1e-3f;
+    const float fmag =
+        fminf(h_speed, normal_force * p.floor_friction_coeff * p.dt);
+    const float scalef = (falling && moving) ? fmag / h_speed : 0.f;
+    if (hit) xc[1] = gh + p.floor_offset;
+    vc[0] = vc[0] - vc[0] * scalef;
+    vc[1] = v1;
+    vc[2] = vc[2] - vc[2] * scalef;
+  }
+  for (int c = 0; c < 3; ++c) {
+    x[c * n + a] = xc[c];
+    v[c * n + a] = vc[c];
+  }
+}

@@ -4,7 +4,7 @@ normals on the device and a headless frame export (BASELINE config 5).
 Counterpart of ``softbodysimulation_tpu/examples/config5_batch_1024.py``:
 1,024 res-4 lattices dropped from random heights advance together through
 ``solvers.lattice.make_batched_step`` (on the card the B-1 ensemble kernel:
-every body in one launch a pass), then the normals of every body are
+every body in one launch a call), then the normals of every body are
 computed on the device (``ops.normals``) and, if asked, written to an npz
 with the positions.  With several entries in the shard mesh
 (``parallel.batch.make_mesh``), the bodies split into shards that step

@@ -8,9 +8,19 @@ resident kernel's joint g + ext ``max_force`` clamp included, and their
 ``approx_math`` variant), ``make_cuda_step`` for ``make_pallas_step``, and
 ``make_hybrid_contact_step`` / ``make_hybrid_contact_runner`` for their
 namesakes (``:1720-1859``): a self-colliding config's contact-free
-substeps as kernel launch sequences between contact substeps of the plain
+substeps as kernel launches between contact substeps of the plain
 stencil engine (on the card, its blocked pass is TPU kernel B-4).
 ``route(cfg)`` says which of them a step built from ``cfg`` runs.
+
+Every route runs a call (any number of substeps) as one launch of the
+persistent kernel, its passes separated by barriers.  ``plan_schedule``
+plans it from the shape alone: each block's tile of particles, the grid,
+and the barrier -- ``__syncthreads()`` where a block holds whole bodies
+(bodies of at most ``BLOCK_BODY_MAX`` particles), else a grid-wide
+``GRID_BARRIER`` in a cooperative launch sized to what the card holds at
+once (``device_occupancy``).  The per-pass loop the persistent kernel
+replaced (one launch a pass) stays in the library as its yardstick:
+``run_substeps_cuda(..., design="per_pass")``, which no route takes.
 
 The rigid world reaches the kernel as a collider table
 (``ops/collision.RigidWorld.table``, ``csrc/colliders.cuh``): the config's
@@ -20,10 +30,11 @@ so a new pose rebuilds nothing and syncs nothing; each launch takes its
 collider counts from that world.
 
 Device dispatch, with no fallback: a state on a CUDA device launches the
-kernel (or raises); a state on the CPU runs the kernel's plain version,
-``solvers.lattice.run_substeps_plain`` — the only path a host without a card
-can take.  The library is built with ``nvcc`` on the first CUDA call
-(``kernels/_build.py``), never at import.
+kernel (or raises: a refused cooperative launch, a grid that cannot be
+co-resident, a failed build); a state on the CPU runs the kernel's plain
+version, ``solvers.lattice.run_substeps_plain`` -- the only path a host
+without a card can take.  The library is built with ``nvcc`` on the first
+CUDA call (``kernels/_build.py``), never at import.
 
 ``launches`` counts the CUDA kernels this module has launched; callers may
 reset it to 0 to count one run.
@@ -32,6 +43,7 @@ reset it to 0 to count one run.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -56,7 +68,25 @@ MAX_SPHERES = 16
 MAX_BOXES = 16
 
 launches = 0   # CUDA kernels launched by this module (plain int)
-TET_PLANES = 74   # csrc/lattice_xpbd.cu's tet scratch planes
+TET_PLANES = 74   # csrc/lattice_xpbd.cuh's tet scratch planes
+THREADS = 256     # csrc/lattice_xpbd.cu LX_THREADS: threads a block
+# the persistent kernel's barriers (csrc/lattice_xpbd.cu LX_BLOCK,
+# LX_GRID_CTR): __syncthreads() for a block of whole bodies; across
+# blocks, a counting barrier on a global counter
+BARRIERS = {"block": 0, "counter": 1}
+# the grid barrier: the counter, which timed ahead of cooperative_groups'
+# grid.sync() at every size measured (H100 80GB HBM3, 700 W: 0.0403 vs
+# 0.0431 ms a substep at res 40, 0.0299 vs 0.0367 at res 16, 0.608 vs
+# 0.853 at res 128; PERF.md), so grid.sync() was dropped
+GRID_BARRIER = "counter"
+# the largest body (particles) that a block holds whole and steps with
+# __syncthreads() alone; larger bodies spread over the grid.  Phase 41's
+# crossover (same card, ms a substep, block vs counter): 64-particle
+# bodies 0.0254 vs 0.0436 (1,024 of them), 216 0.0328 vs 0.0457 (304) and
+# 0.0236 vs 0.0299 (one); 512 0.0451 vs 0.0453 (128) but 0.0443 vs 0.0335
+# (one); 1,000 and 1,728 the grid's by 1.8-4.1x.  So a block holds a
+# body of up to one particle a thread.
+BLOCK_BODY_MAX = THREADS
 
 
 class LatticeParams(ctypes.Structure):
@@ -189,6 +219,77 @@ def make_params(spec: LatticeSpec, cfg: SolverConfig, dt: float,
     return p
 
 
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """One call of the persistent kernel: block ``j`` owns the particles
+    ``[j * chunk, min((j + 1) * chunk, n))`` (its tile) for the whole call,
+    each of its ``THREADS`` threads those at a stride of ``THREADS``;
+    ``barrier`` separates the passes (a key of ``BARRIERS``).  A tile and
+    the partners it reads come straight from L2: no shared memory."""
+
+    barrier: str
+    grid: int
+    chunk: int
+    n: int
+    body_n: int
+
+    @property
+    def kind(self) -> str:
+        """``"block"`` (whole bodies a block) or ``"grid"`` (one body
+        across blocks, a cooperative launch)."""
+        return "block" if self.barrier == "block" else "grid"
+
+    def tiles(self):
+        """Each block's particles, ``(lo, hi)`` (empty where ``lo >= n``)."""
+        return [(min(j * self.chunk, self.n),
+                 min((j + 1) * self.chunk, self.n))
+                for j in range(self.grid)]
+
+
+def choose_barrier(spec: LatticeSpec) -> str:
+    """The barrier a body of ``spec`` gets, from its size alone:
+    ``"block"`` up to ``BLOCK_BODY_MAX`` particles, else ``GRID_BARRIER``."""
+    return "block" if spec.n_particles <= BLOCK_BODY_MAX else GRID_BARRIER
+
+
+def plan_schedule(spec: LatticeSpec, n_bodies: int, n_sms: int,
+                  blocks_per_sm: int, barrier=None, grid=None) -> Schedule:
+    """The persistent kernel's tiles, barrier and grid for ``n_bodies``
+    bodies of ``spec`` on a card of ``n_sms`` SMs that holds
+    ``blocks_per_sm`` of the kernel's blocks on each at once
+    (``device_occupancy``).  ``barrier`` (default ``choose_barrier``) and
+    ``grid`` (default the planner's) are for tests and timing.
+
+    ``"block"``: a block holds whole bodies, as many as fill its threads
+    but no more than spread the bodies over every SM; no co-residency is
+    needed.  A grid barrier: one block for every ``THREADS`` particles, at
+    most ``n_sms * blocks_per_sm``, a tile of whole warps each (so the
+    grid may come out a little smaller than asked); a grid
+    larger than the card holds at once raises ``ValueError`` (its barrier
+    would never open)."""
+    body_n = spec.n_particles
+    n = body_n * n_bodies
+    if n_bodies < 1:
+        raise ValueError(f"lattice kernel: {n_bodies} bodies")
+    barrier = choose_barrier(spec) if barrier is None else barrier
+    if barrier not in BARRIERS:
+        raise ValueError(f"lattice kernel: no barrier {barrier!r}")
+    if barrier == "block":
+        per = (max(1, min(THREADS // body_n, -(-n_bodies // n_sms)))
+               if grid is None else -(-n_bodies // grid))
+        return Schedule(barrier, -(-n_bodies // per), per * body_n, n,
+                        body_n)
+    cap = n_sms * blocks_per_sm
+    g = min(-(-n // THREADS), cap) if grid is None else grid
+    if g < 1 or g > cap:
+        raise ValueError(
+            f"lattice kernel: a grid of {g} blocks cannot be co-resident on "
+            f"{n_sms} SMs x {blocks_per_sm} blocks (the {barrier} barrier "
+            f"needs every block resident)")
+    chunk = -(-(-(-n // g)) // 32) * 32   # whole warps
+    return Schedule(barrier, -(-n // chunk), chunk, n, body_n)
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """Build on first use, load, and declare every entry point's types."""
@@ -198,17 +299,56 @@ def _library() -> ctypes.CDLL:
     lib.lattice_xpbd_error_string.argtypes = [ctypes.c_int]
     lib.lattice_xpbd_error_string.restype = ctypes.c_char_p
     vp = ctypes.c_void_p
-    lib.lattice_xpbd_run.argtypes = [
-        ctypes.POINTER(LatticeParams), ctypes.c_int, vp, vp, vp, vp,
-        ctypes.c_int, vp, vp, vp, vp, vp, vp, vp, ctypes.c_int,
+    ci, cip = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    state_args = [ctypes.POINTER(LatticeParams), ci, vp, vp, vp, vp, ci,
+                  vp, vp, vp, vp, vp, vp, vp, ci]
+    lib.lattice_xpbd_run.argtypes = state_args + [
+        ci, ci, ci, vp, ctypes.POINTER(ctypes.c_longlong), vp]
+    lib.lattice_xpbd_run.restype = ci
+    lib.lattice_xpbd_run_per_pass.argtypes = state_args + [
         ctypes.POINTER(ctypes.c_longlong), vp]
-    lib.lattice_xpbd_run.restype = ctypes.c_int
+    lib.lattice_xpbd_run_per_pass.restype = ci
+    lib.lattice_xpbd_occupancy.argtypes = [ci, ci, cip, cip, cip, cip]
+    lib.lattice_xpbd_occupancy.restype = ci
     lib.lattice_xpbd_approx_probe.argtypes = [vp, vp, ctypes.c_int, vp]
     lib.lattice_xpbd_approx_probe.restype = ctypes.c_int
     if lib.lattice_xpbd_params_size() != ctypes.sizeof(LatticeParams):
         raise RuntimeError("LatticeParams layout differs between "
                            "lattice_cuda.py and lattice_xpbd.cu")
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def device_occupancy(index: int, barrier: str):
+    """(SMs, blocks of the persistent kernel one SM holds at once) for the
+    kernel of ``barrier`` on CUDA device ``index``; raises where a grid
+    barrier has no cooperative launch."""
+    lib = _library()
+    threads, per_sm, sms, coop = (ctypes.c_int() for _ in range(4))
+    rc = lib.lattice_xpbd_occupancy(index, BARRIERS[barrier],
+                                    ctypes.byref(threads),
+                                    ctypes.byref(per_sm), ctypes.byref(sms),
+                                    ctypes.byref(coop))
+    if rc != 0:
+        msg = lib.lattice_xpbd_error_string(rc).decode()
+        raise RuntimeError(f"lattice kernel occupancy failed: {msg} ({rc})")
+    if threads.value != THREADS:
+        raise RuntimeError(f"lattice kernel: {threads.value} threads a "
+                           f"block in the library, {THREADS} here")
+    if barrier != "block" and not coop.value:
+        raise RuntimeError(f"lattice kernel: device {index} has no "
+                           f"cooperative launch for the {barrier} barrier")
+    return sms.value, per_sm.value
+
+
+def schedule_for(spec: LatticeSpec, n_bodies: int, device: torch.device,
+                 barrier=None) -> Schedule:
+    """``plan_schedule`` with the occupancy of ``device``."""
+    barrier = choose_barrier(spec) if barrier is None else barrier
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    sms, per_sm = device_occupancy(index, barrier)
+    return plan_schedule(spec, n_bodies, sms, per_sm, barrier=barrier)
 
 
 def approx_probe(x: torch.Tensor):
@@ -288,12 +428,18 @@ def run_substeps_cuda(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
                       dt_sub: float, n_substeps: int,
                       with_ext: bool = False,
                       batched: bool = False,
-                      approx_math: bool = False) -> SimState:
+                      approx_math: bool = False, *,
+                      design: str = "persistent",
+                      schedule=None) -> SimState:
     """Launch the kernel for ``n_substeps`` substeps of a CUDA state; the
     semantics of ``solvers.lattice.run_substeps_plain`` (``batched``: of
-    ``run_substeps_plain_batched``, all bodies in one launch a pass;
-    ``approx_math`` as there), the state's ColliderSet (if any) replacing
-    the config's rigid world.  No host sync."""
+    ``run_substeps_plain_batched``, all bodies in one launch; ``approx_math``
+    as there), the state's ColliderSet (if any) replacing the config's
+    rigid world.  One launch of the persistent kernel (``schedule_for``).
+    ``design="per_pass"`` runs the yardstick, one launch a pass, and
+    ``schedule`` (a ``Schedule`` for this shape) another plan than the
+    shape's: for the card tests and ``chip_smoke.py``'s timing, never a
+    route.  No host sync."""
     global launches
     _lat.check_state(state, cfg)
     dev = state.device
@@ -343,10 +489,25 @@ def run_substeps_cuda(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
     params.n_spheres, params.n_boxes = rows
     lib = _library()
     count = ctypes.c_longlong(0)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.lattice_xpbd_run(ctypes.byref(params), dev.index, *args,
-                              n_substeps, ctypes.byref(count),
-                              ctypes.c_void_p(stream))
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    if design == "per_pass":
+        rc = lib.lattice_xpbd_run_per_pass(ctypes.byref(params), dev.index,
+                                           *args, n_substeps,
+                                           ctypes.byref(count), stream)
+    elif design == "persistent":
+        sched = schedule or schedule_for(spec, b, dev)
+        if (sched.n, sched.body_n) != (n, n1):
+            raise ValueError("lattice kernel: the schedule is for another "
+                             "shape")
+        # the counting barrier's word, zeroed by the library before launch
+        counter = torch.empty(1, dtype=torch.int64, device=dev)
+        rc = lib.lattice_xpbd_run(
+            ctypes.byref(params), dev.index, *args, n_substeps,
+            BARRIERS[sched.barrier], sched.grid, sched.chunk,
+            ctypes.c_void_p(counter.data_ptr()), ctypes.byref(count),
+            stream)
+    else:
+        raise ValueError(f"lattice kernel: no design {design!r}")
     launches += count.value
     if rc != 0:
         msg = lib.lattice_xpbd_error_string(rc).decode()
@@ -400,7 +561,7 @@ def make_cuda_substep_runner(spec: LatticeSpec, cfg: SolverConfig,
     a state of batched leaves -- positions, velocities and ext_force
     ``(B, N, 3)``, lambda_dist ``(B, nfam*N)``, lambda_tet ``(B, 6N)``,
     inv_mass ``(B, N)`` or a shared ``(N,)`` -- whose bodies advance in one
-    launch a pass on a CUDA state (the lane-folded plain engine on a CPU
+    launch a call on a CUDA state (the lane-folded plain engine on a CPU
     state), one shared ColliderSet acting on every body.
 
     ``approx_math``: the variant ``bench.py`` runs first
@@ -486,7 +647,7 @@ def make_hybrid_contact_step(spec: LatticeSpec, cfg: SolverConfig,
     the first substep of the first frame and zeroed after.  A frame is
     ``substeps // every`` groups of [a contact substep of the plain
     stencil engine; the ``every - 1`` contact-free substeps as one kernel
-    launch sequence]; ``kin_colliders=(S, B)``: the state's ColliderSet
+    launch]; ``kin_colliders=(S, B)``: the state's ColliderSet
     on both halves.  ``ValueError`` without self-collision or with
     ``every < 2``; ``NotImplementedError`` where ``every`` does not divide
     the frame (the stencil engine runs that, ``route``)."""
@@ -524,7 +685,7 @@ def make_hybrid_contact_runner(spec: LatticeSpec, cfg: SolverConfig,
     substeps ``i % every == 0`` of ``n_substeps`` raw substeps.  Each full
     cadence group is a contact substep of the plain stencil engine (on the
     card its blocked backend is B-4) followed by the ``every - 1``
-    contact-free substeps as one kernel launch sequence (``approx_math``
+    contact-free substeps as one kernel launch (``approx_math``
     and ``kin_colliders`` there, as in JAX); a tail of ``t < every``
     substeps is a contact substep and ``t - 1`` contact-free stencil
     substeps.  ``ext_force`` is not applied, and a contact substep zeroes

@@ -4,8 +4,8 @@ Counterpart of ``softbodysimulation_tpu/parallel/batch.py``, with its
 names.  An ensemble is a ``SimState`` whose leaves carry a leading body
 axis (``core/state.LEAF_RANK``): ``stack_states`` builds one, and the
 batched steps advance every body of one topology together -- on a CUDA
-state in one launch a pass of the B-1 (lattice) or B-3 (mesh) ensemble
-kernel, on a CPU state in their plain twins.
+state in one launch of the B-1 (lattice) ensemble kernel a call or of
+the B-3 (mesh) one a pass, on a CPU state in their plain twins.
 
 Where the JAX package splits the body axis over a device mesh with
 ``shard_map``, a mesh here is a tuple of ``torch.device`` entries, one per

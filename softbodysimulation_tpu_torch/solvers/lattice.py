@@ -715,7 +715,7 @@ def make_batched_step(spec: LatticeSpec, cfg: SolverConfig, dt: float,
     .stack_states``), ``ext_force`` consumed on the first substep of the
     first frame and zeroed after.  A CUDA state runs the B-1 ensemble
     (``kernels/lattice_cuda.make_cuda_step(..., n_bodies=B)``, every body
-    in one launch a pass), a CPU state ``run_substeps_plain_batched``.
+    in one launch a call), a CPU state ``run_substeps_plain_batched``.
     Colliders on a batched step stay refused, as in JAX
     (``:634-638``): animate them through the kernel runner's
     ``kin_colliders`` or ``parallel.batch.make_sharded_pallas_rollout``."""

@@ -732,3 +732,253 @@ def test_mesh_kernel_volume_matches_plain_on_card(cuda, name):
         with pytest.raises(ValueError, match="lambda_volume"):
             pgeneral.make_batched_step(topo, cfg, volume_cases.DT, 1)(
                 st.replace(lambda_volume=st.lambda_volume[0]))
+
+
+# ---- B-1's persistent kernel against its per-pass loop -------------------
+
+B1_LEAVES = ("positions", "velocities", "lambda_dist", "lambda_tet",
+             "ext_force")
+
+
+def _b1_designs(state, spec, cfg, dt_sub, n_sub, with_ext=False,
+                batched=False, approx_math=False, schedule=None):
+    """(persistent result, per-pass result, persistent launches) of one
+    call from the same state."""
+    run = lambda **kw: lc.run_substeps_cuda(    # noqa: E731
+        state, spec, cfg, dt_sub, n_sub, with_ext, batched, approx_math,
+        **kw)
+    before = lc.launches
+    new = run(schedule=schedule)
+    n_new = lc.launches - before
+    old = run(design="per_pass")
+    torch.cuda.synchronize()
+    return new, old, n_new
+
+
+def _bits_equal(a, b):
+    """Leaves of two results that differ in any bit (NaN-aware)."""
+    bad = []
+    for k in B1_LEAVES:
+        x, y = getattr(a, k), getattr(b, k)
+        if (x is None) != (y is None) or (x is not None and not torch.equal(
+                x.view(torch.int32), y.view(torch.int32))):
+            bad.append(k)
+    return bad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("approx", [False, True])
+def test_persistent_b1_equals_per_pass_and_plain_on_card(cuda, name, approx):
+    """Every lattice parity case at res 6: the persistent kernel (one
+    launch) equals the per-pass loop to the bit, and, exact, the plain
+    twin too; with ``approx_math`` the twin is held at the approx gates."""
+    cfg, inputs, substeps = CASES[name]
+    spec = ptop.lattice_spec(6, braced=inputs.get("braced", True))
+    state = state_from_numpy(lattice_cases.seeded_inputs(6, **inputs),
+                             device=cuda)
+    dt_sub, n_sub, with_ext = lattice_cases.run_length(cfg, substeps)
+    new, old, n_new = _b1_designs(state, spec, cfg, dt_sub, n_sub, with_ext,
+                                  approx_math=approx)
+    assert n_new == 1
+    assert not _bits_equal(new, old), (name, _bits_equal(new, old))
+    ref = plat.run_substeps_plain(state, spec, cfg, dt_sub, n_sub,
+                                  with_ext=with_ext, approx_math=approx)
+    if approx:
+        assert float((new.positions - ref.positions).abs().max()) < 1e-4
+    else:
+        assert not _bits_equal(new, ref), (name, _bits_equal(new, ref))
+
+
+@pytest.mark.gpu
+def test_persistent_b1_equals_per_pass_at_res_40_on_card(cuda):
+    """The bench configuration at res 40 (the main path's shapes), from a
+    seeded jittered start, exact and approx: bit for bit."""
+    import numpy as np
+
+    cfg, inputs, _ = CASES["bench"]
+    spec = ptop.lattice_spec(40, braced=True)
+    state = plat.make_lattice_state(spec, center=(0.0, 0.6, 0.0),
+                                    mass=0.001, device=cuda)
+    jitter = np.random.default_rng(3).normal(0.0, 0.05,
+                                             (spec.n_particles, 3))
+    state = state.replace(velocities=torch.as_tensor(
+        jitter, dtype=torch.float32, device=cuda))
+    for approx in (False, True):
+        new, old, n_new = _b1_designs(state, spec, cfg, 1 / 480, 16,
+                                      approx_math=approx)
+        assert n_new == 1 and not _bits_equal(new, old), approx
+        assert float((new.positions - state.positions).abs().max()) > 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", LATTICE_TET_CASES)
+def test_persistent_b1_tets_equal_per_pass_on_card(cuda, name):
+    cfg, inputs, _, res, frames = SPATIAL_CASES[name]
+    spec = ptop.lattice_spec(res, braced=True)
+    state = state_from_numpy(spatial_cases.case_inputs(res, **inputs),
+                             device=cuda)
+    new, old, n_new = _b1_designs(state, spec, cfg,
+                                  spatial_cases.DT / cfg.substeps,
+                                  frames * cfg.substeps, with_ext=True)
+    assert n_new == 1 and new.lambda_tet is not None
+    assert not _bits_equal(new, old), (name, _bits_equal(new, old))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", LATTICE_COLLIDER_CASES)
+def test_persistent_b1_colliders_equal_per_pass_on_card(cuda, name):
+    """Config boxes and a ColliderSet's traced table (its poses moved once
+    on the same runner): the persistent kernel equals the per-pass loop."""
+    def runner(design):
+        return lambda spec, cfg, dt, n, kin: (
+            lambda st: lc.run_substeps_cuda(st, spec, cfg, dt, n,
+                                            design=design))
+
+    new = collider_cases.lattice_runs(name, cuda, runner("persistent"),
+                                      plat.run_substeps_plain)
+    old = collider_cases.lattice_runs(name, cuda, runner("per_pass"),
+                                      plat.run_substeps_plain)
+    for (a, ref, _), (b, _, _) in zip(new, old):
+        assert not _bits_equal(a, b), name
+        assert not _bits_equal(a, ref), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name",
+                         list(ensemble_cases.lattice_ensemble_cases()))
+def test_persistent_b1_ensembles_equal_per_pass_on_card(cuda, name):
+    from softbodysimulation_tpu_torch.core.state import body_contract
+
+    spec, cfg, st, frames, kin, batched = ensemble_cases.lattice_case(
+        name, 6, cuda)
+    nb = st.positions.shape[0]
+    new, old, n_new = _b1_designs(
+        st, spec, cfg, ensemble_cases.DT / cfg.substeps,
+        frames * cfg.substeps, with_ext=True,
+        batched=body_contract(nb, batched))
+    assert n_new == 1
+    assert not _bits_equal(new, old), (name, _bits_equal(new, old))
+
+
+def _barrier_shapes(cuda):
+    """(spec, config, state, substeps, batched): one res-10 body with tets
+    and WARM_START COLORED, and an ensemble of five res-6 bodies."""
+    from softbodysimulation_tpu_torch.core import config as C
+
+    cfg = CASES["bench"][0].replace(
+        solve_mode=C.SolveMode.COLORED, iterations=2,
+        lambda_mode=C.LambdaMode.WARM_START, lambda_decay=1.0,
+        enable_tet_volume=True, tet_compliance=1e-6)
+    spec = ptop.lattice_spec(10, braced=True)
+    one = plat.make_lattice_state(spec, center=(0.0, 0.55, 0.0), mass=0.01,
+                                  tet_volume=True, device=cuda)
+    espec, ecfg, est, frames, _, _ = ensemble_cases.lattice_case(
+        "warm_jacobi_ext", 6, cuda)
+    return [(spec, cfg, one, 12, False),
+            (espec, ecfg, est, frames * ecfg.substeps, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("barrier", list(lc.BARRIERS))
+def test_each_barrier_kind_equals_per_pass_on_card(cuda, barrier):
+    """Each barrier (``__syncthreads`` with whole bodies a block, and the
+    counting grid barrier), forced on a single body and on an ensemble,
+    equals the per-pass loop to the bit in one launch; run again, the same
+    bits."""
+    for spec, cfg, st, n_sub, batched in _barrier_shapes(cuda):
+        nb = st.positions.shape[0] if batched else 1
+        sched = lc.schedule_for(spec, nb, cuda, barrier=barrier)
+        assert sched.barrier == barrier
+        new, old, n_new = _b1_designs(st, spec, cfg, 1 / 240, n_sub,
+                                      with_ext=True, batched=batched,
+                                      schedule=sched)
+        assert n_new == 1
+        assert not _bits_equal(new, old), (barrier, _bits_equal(new, old))
+        again, _, _ = _b1_designs(st, spec, cfg, 1 / 240, n_sub,
+                                  with_ext=True, batched=batched,
+                                  schedule=sched)
+        assert not _bits_equal(again, new), barrier
+
+
+@pytest.mark.gpu
+def test_persistent_b1_is_race_free_on_card(cuda):
+    """A res-24 body over 40 substeps on many blocks, the counting grid
+    barrier, run five times: equal to the bit each time and to the
+    per-pass loop."""
+    cfg = CASES["bench"][0]
+    spec = ptop.lattice_spec(24, braced=True)
+    state = plat.make_lattice_state(spec, center=(0.0, 0.52, 0.0),
+                                    mass=0.001, device=cuda)
+    ref = lc.run_substeps_cuda(state, spec, cfg, 1 / 480, 40,
+                               design="per_pass")
+    sched = lc.schedule_for(spec, 1, cuda, barrier="counter")
+    assert sched.grid > 1
+    for _ in range(5):
+        out = lc.run_substeps_cuda(state, spec, cfg, 1 / 480, 40,
+                                   schedule=sched)
+        assert not _bits_equal(out, ref)
+
+
+@pytest.mark.gpu
+def test_persistent_b1_launches_once_a_call_on_card(cuda):
+    """One launch a call on every lattice route: the runner (any number of
+    substeps), ``make_cuda_step`` over several frames, an ensemble, and
+    each contact-free chunk of the hybrid runner; none for no substep."""
+    cfg, inputs, _ = CASES["bench"]
+    spec = ptop.lattice_spec(6, braced=True)
+    state = state_from_numpy(lattice_cases.seeded_inputs(6, **inputs),
+                             device=cuda)
+
+    def count(fn):
+        before = lc.launches
+        fn()
+        return lc.launches - before
+
+    for n in (1, 7, 64):
+        assert count(lambda: lc.make_cuda_substep_runner(
+            spec, cfg, 1 / 480, n)(state)) == 1
+    assert count(lambda: lc.make_cuda_step(spec, cfg, 1 / 60,
+                                           n_steps=3)(state)) == 1
+    assert count(lambda: lc.make_cuda_substep_runner(
+        spec, cfg, 1 / 480, 0)(state)) == 0
+    # the per-pass loop: predict, 13 family passes and contacts a substep
+    assert count(lambda: lc.run_substeps_cuda(
+        state, spec, cfg, 1 / 480, 2, design="per_pass")) == 2 * 15
+    espec, ecfg, est, frames, kin, batched = ensemble_cases.lattice_case(
+        "warm_jacobi_ext", 6, cuda)
+    assert count(lambda: lc.make_cuda_step(
+        espec, ecfg, ensemble_cases.DT, frames, kin_colliders=kin,
+        n_bodies=est.positions.shape[0], batched=batched)(est)) == 1
+    hcfg = cfg.replace(substeps=6, enable_self_collision=True,
+                       particle_radius=0.09, self_collision_backend="blocked",
+                       collision_block_size=128, block_neighbors=2,
+                       self_collision_every=3)
+    hstate = plat.make_lattice_state(spec, center=(0.0, 0.55, 0.0),
+                                     mass=0.001, device=cuda)
+    # 9 substeps every 3rd: three chunks of two contact-free substeps
+    assert count(lambda: lc.make_hybrid_contact_runner(
+        spec, hcfg, 1 / 360, 9)(hstate)) == 3
+
+
+@pytest.mark.gpu
+def test_grid_that_cannot_be_resident_raises_on_card(cuda):
+    """A grid barrier's grid beyond what the card holds at once is refused
+    by the cooperative launch and raises; nothing runs on another path."""
+    import dataclasses
+
+    cfg, inputs, _ = CASES["bench"]
+    spec = ptop.lattice_spec(12, braced=True)
+    state = plat.make_lattice_state(spec, center=(0.0, 0.6, 0.0),
+                                    mass=0.001, device=cuda)
+    sms, per_sm = lc.device_occupancy(torch.cuda.current_device(),
+                                      "counter")
+    big = dataclasses.replace(lc.schedule_for(spec, 1, cuda, "counter"),
+                              grid=sms * per_sm + 1, chunk=32)
+    before = lc.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        lc.run_substeps_cuda(state, spec, cfg, 1 / 480, 4, schedule=big)
+    assert lc.launches == before
+    with pytest.raises(ValueError, match="co-resident"):
+        lc.plan_schedule(spec, 1, sms, per_sm, barrier="counter",
+                         grid=sms * per_sm + 1)
