@@ -69,8 +69,15 @@ any phase fails:
    vs the plain blocked pass on the card, on the seeded clouds of
    ``tests/test_torch_contact_cases.py`` and on the 20,243-particle states
    of phase 14 (frames 30, 60 and 90): max |dx| < 1e-5, the library's
-   curve order and candidate blocks equal to the plain ones, and the count
-   of pairs the two classify differently;
+   curve order and candidate blocks equal to the plain ones, no pair
+   classified differently; then on each state B-4's culled design
+   against the serial one it replaced (``b4_designs``): the same
+   candidates and touching bits, |dx| < 1e-6, two runs to the bit, ms a
+   pass of each in turns (serial, culled, culled, serial) with its
+   launches, the pair tests the warp cull keeps and the bound; at frame
+   90 each kernel of the pass from the profiler, and the launches of one
+   contact substep in the mesh loop with each design (at most 3 a culled
+   pass);
 13. the mesh kernel vs the plain engine for every tet case (|dx| < 2e-5,
    |dlambda_tet| < 1e-5) and contact case (|dx| < 2e-4) of
    ``tests/test_torch_contact_cases.py``, every multiplier within 1 % of
@@ -97,7 +104,7 @@ any phase fails:
 16. particle-substeps/s of the kernel path and of the plain engine for
    phases 14 and 15, from their in-contact states (frame 90 of phase 14,
    frame 120 of phase 15), as phase 6 times them, and launches per
-   substep;
+   substep; the 20k substep with each of B-4's designs, in turns;
 17. the fused mesh backward's kernels (``csrc/mesh_diff_xpbd.cu``, TPU
    kernel B-5, built into the mesh library in phase 2), registers and
    spills;
@@ -254,7 +261,8 @@ any phase fails:
    B-4 for contact, so the gap and whether it is 0 are printed), approx
    within 1e-3 of exact; a 400-substep rollout of each (finite, min y >
    -radius, its B-1 and B-4 launches); ms per substep of both and of the
-   plain cadence;
+   plain cadence; B-4's two designs on the hybrid's contact pass at its
+   rested state, as phase 12 times them, with each kernel's time;
 36. example 4 (two cubes, ``hash`` self-collision) through
    ``general.make_step`` on a CUDA state against the CPU for the 200
    frames before its first poke (< 1e-3), ms per frame; the hash and
@@ -296,7 +304,8 @@ any phase fails:
 Prints one JSON line of kernels (with each kernel's bound, the least time
 the card could take for the same work, from ``bound_ms``; B-1's row adds
 its design, barrier, the per-pass loop's ms and every shape's pair of
-designs), the card's name
+designs; B-4's row adds the serial design's call, both designs' mesh-loop
+pass alone, and the bound over every candidate pair test), the card's name
 and power limit, and as its last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits nonzero and prints no result.
 ``--profile`` adds a torch.profiler breakdown of each main path (device
@@ -536,6 +545,159 @@ def b1_designs(torch, lc, label, st, spec, cfg, dt_sub, n_sub, smi,
           f"beyond the windows' spread {spread:.5f}: "
           f"{rec['beats_by_more_than_spread']}")
     return rec
+
+
+
+def kernel_times(torch, fn, calls):
+    """Device time of each kernel over ``calls`` calls of ``fn``
+    (torch.profiler, CUPTI): {name: (launches, us)}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, t = out.get(e.name, (0, 0.0))
+            out[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    if not out:
+        raise RuntimeError("the profiler recorded no device activity")
+    return out
+
+
+# B-4's two designs at each state the smoke times them (b4_designs): the
+# culled pass (the main path) and the serial one it replaced (the
+# yardstick)
+B4_DESIGNS = []
+
+
+def b4_designs(torch, cc, sh, label, pred, inv, cfg, smi, profile=False):
+    """B-4's culled pass against the serial one on one state: the same
+    candidates and touching bits, |dx| < 1e-6, two culled runs to the bit;
+    ms a pass of each in turns (serial, culled, culled, serial), launches
+    a pass, the pair tests the warp cull keeps (its plain mirror), the
+    bound, and with ``profile`` each kernel of the pass; recorded in
+    B4_DESIGNS.  ``call_ms`` is the standalone call (set-up, the pass and
+    its apply), ``loop_pass_ms`` the mesh loop's pass alone.  The bound
+    counts the pair tests the warp cull keeps; ``bound_ms_all_candidates``
+    every candidate pair test of touching blocks, the serial design's
+    work.  Raises when the designs disagree."""
+    order = sh.morton_order(pred, cfg)
+
+    def run(design):
+        return lambda: cc.self_collision_project_blocked_cuda(
+            pred, inv, order, cfg, design=design)
+
+    outs, calls = {}, {}
+    for design in ("serial", "culled"):
+        before = cc.launches
+        outs[design] = run(design)()
+        torch.cuda.synchronize()
+        calls[design] = cc.launches - before
+    again = run("culled")()
+    same_bits = torch.equal(cc.touching_pairs_cuda(pred, inv, order, cfg),
+                            cc.touching_pairs_cuda(pred, inv, order, cfg,
+                                                   "serial"))
+    sel = [cc.candidates_cuda(pred, inv, order, cfg, d)
+           for d in ("culled", "serial")]
+    same_sel = all(torch.equal(a, b) for a, b in zip(*sel))
+    dx = float((outs["culled"] - outs["serial"]).abs().max())
+    repeat = torch.equal(again.view(torch.int32),
+                         outs["culled"].view(torch.int32))
+    # the pass as the mesh loop runs it (its kernels alone), then the
+    # standalone entry's whole call (with its set-up and the apply)
+    corr = {d: cc.corr_runner(pred, inv, order, cfg, d)
+            for d in ("serial", "culled")}
+    times, _ = timed_windows(torch, {"serial": (corr["serial"], 1),
+                                     "culled": (corr["culled"], 1)},
+                             min_s=0.3)
+    calls_t, _ = timed_windows(torch, {"serial": (run("serial"), 1),
+                                       "culled": (run("culled"), 1)},
+                               min_s=0.3, warm=False)
+    skip, kept, cand = cc.warp_cull_plain(pred, inv, order, cfg)
+    # near points a row: what a row warp tests, each of its rows
+    block = cc.layout(pred.shape[0], cfg)[0]
+    ok = sel[0][1]
+    near = ((~skip) & ok.repeat_interleave(block, 1)
+            .repeat_interleave(block, 0)).sum(dim=1)
+    touching = int(sh.blocked_touching_pairs(pred, inv, order, cfg).sum())
+    nbytes = pred.shape[0] * (12 + 4 + 4 + 12)
+    bound = bound_ms(nbytes, PAIR_OPS * kept + TOUCH_OPS * touching)
+    bound_all = bound_ms(nbytes, PAIR_OPS * cand + TOUCH_OPS * touching)
+    rec = dict(state=label, loop_pass_ms=min(times["culled"]),
+               serial_loop_pass_ms=min(times["serial"]),
+               windows=times["culled"], serial_windows=times["serial"],
+               call_ms=min(calls_t["culled"]),
+               serial_call_ms=min(calls_t["serial"]),
+               call_windows=calls_t["culled"],
+               serial_call_windows=calls_t["serial"],
+               launches_per_pass=calls["culled"],
+               serial_launches_per_pass=calls["serial"],
+               pair_tests=cand, pair_tests_after_cull=kept,
+               near_max=int(near.max()), near_mean=float(near.float().mean()),
+               touching_pairs=touching, bound_ms=bound[0],
+               bound_by=bound[1], bound_ms_all_candidates=bound_all[0],
+               bound_by_all_candidates=bound_all[1],
+               max_abs_err_vs_serial=dx)
+    print(f"# B-4 designs, {label} ({pred.shape[0]} particles, B="
+          f"{cfg.collision_block_size} M={cfg.block_neighbors}; {smi}): "
+          f"the mesh loop's pass: serial {rec['serial_loop_pass_ms']:.5f} "
+          f"ms (windows {times['serial']}), culled "
+          f"{rec['loop_pass_ms']:.5f} (windows {times['culled']}): "
+          f"{rec['serial_loop_pass_ms'] / rec['loop_pass_ms']:.2f}x; the "
+          f"standalone call with its apply: serial "
+          f"{rec['serial_call_ms']:.5f} ms ({calls['serial']} launches; "
+          f"windows {calls_t['serial']}), culled {rec['call_ms']:.5f} "
+          f"({calls['culled']} launches; windows {calls_t['culled']}); "
+          f"bound {bound[0]:.5f} ms ({bound[1]}; the kept tests), "
+          f"{bound_all[0]:.5f} ms ({bound_all[1]}) over every candidate "
+          f"test; {cand} candidate pair "
+          f"tests, {kept} after the warp cull "
+          f"({kept / max(cand, 1):.4f}; near points a row: mean "
+          f"{rec['near_mean']:.1f}, max {rec['near_max']} at slot "
+          f"{int(near.argmax())}), {touching} touching; culled vs "
+          f"serial: touching bits equal={same_bits}, candidates equal="
+          f"{same_sel}, max|dx|={dx:.3e}, two runs to the bit={repeat}")
+    if not (same_bits and same_sel and dx < 1e-6 and repeat):
+        raise RuntimeError(f"B-4's culled pass parts from the serial one "
+                           f"at {label}")
+    if profile:
+        B4_PROFILES.append(lambda: b4_profile(torch, run, label, rec))
+        if "--profile" not in sys.argv[1:]:
+            B4_PROFILES.pop()()
+    B4_DESIGNS.append(rec)
+    return rec
+
+
+# b4_designs' kernel breakdowns still to print: with --profile they wait
+# until the main paths' profiles have run (a profiler session in the
+# middle of the smoke left the later ones empty in one such run)
+B4_PROFILES = []
+
+
+def b4_profile(torch, run, label, rec):
+    """Each kernel of one standalone B-4 call in either design, from the
+    profiler (20 calls), printed and recorded in ``rec``."""
+    calls = 20
+    for design in ("serial", "culled"):
+        kt = kernel_times(torch, run(design), calls)
+        # each kernel's mean time x its launches a call (the profiler may
+        # drop some of a long run's events)
+        own = {k.split("(")[0]: (max(1, round(n / calls)), t / n)
+               for k, (n, t) in kt.items() if "cx_" in k}
+        rec[f"{design}_kernels_us"] = {k: c * us for k, (c, us) in
+                                       own.items()}
+        print(f"# B-4 profile, {design}, {label}: "
+              + "; ".join(f"{k} {c} x {us:.3f} us" for k, (c, us) in
+                          sorted(own.items(), key=lambda kv: -kv[1][1]))
+              + f"; the call's kernels "
+              f"{sum(rec[f'{design}_kernels_us'].values()):.3f} us")
 
 
 # phase 41: the bodies whose barrier is timed both ways (res, bodies):
@@ -1217,11 +1379,12 @@ def contact_phases(torch, np, built, K, cc, mc, general, scenes, is_finite,
 
     # 12. B-4 vs plain on the card: the seeded clouds here, the 20k states
     # (warm, and in contact after the drift) with phase 14
-    def b4_vs_plain(name, pred, inv, ccfg):
+    def b4_vs_plain(name, pred, inv, ccfg, profile=False):
         """One B-4 pass and its plain version; the library's order and
-        candidates against the plain ones; raises when they disagree.
-        Returns (max |dx|, the order, the candidates' ok mask, the count of
-        touching pairs)."""
+        candidates against the plain ones, no pair classified differently;
+        then the serial design against it (``b4_designs``); raises when
+        they disagree.  Returns (max |dx|, the order, the candidates' ok
+        mask, the count of touching pairs)."""
         order = sh.morton_order(pred, ccfg)
         same_order = torch.equal(cc.curve_order_cuda(pred, ccfg).long(),
                                  order)
@@ -1244,8 +1407,11 @@ def contact_phases(torch, np, built, K, cc, mc, general, scenes, is_finite,
               f"max|dx|={dx:.3e} (moved {moved:.3e}), curve order equal="
               f"{same_order}, candidates equal={same_sel}, {touching} "
               f"touching pairs, {flips} classified differently")
-        if not (dx < K.DX_PASS and same_order and same_sel):
+        if not (dx < K.DX_PASS and same_order and same_sel and flips == 0):
             raise RuntimeError(f"B-4 kernel disagrees with plain on {name}")
+        # the serial design it replaced, in turns, on the same state
+        b4_designs(torch, cc, sh, name, pred, inv, ccfg, smi,
+                   profile=profile)
         return dx, order, ok, touching
 
     b4_err = 0.0
@@ -1385,24 +1551,48 @@ def contact_phases(torch, np, built, K, cc, mc, general, scenes, is_finite,
         raise RuntimeError(f"contact main path failed its health gates at "
                            f"frame {frame}")
     dx_rest, order, ok, touching = b4_vs_plain(
-        f"20k at frame {frame}", rest.positions, rest.inv_mass, cfg)
+        f"20k at frame {frame}", rest.positions, rest.inv_mass, cfg,
+        profile=True)
     b4_err = max(b4_err, dx_rest)
-    # the pass's time there: the passes the mesh loop runs (stats, layout,
-    # AABBs, top-M, pairs) and the unsort-apply
+    # the pass's time there: the standalone call (the passes the mesh loop
+    # runs, stats; layout and AABBs; selection and pairs, and the
+    # unsort-apply), as the plain pass is timed, and the mesh loop's pass
     pred, inv = rest.positions, rest.inv_mass
+    rec90 = B4_DESIGNS[-1]
+    ms_b4 = rec90["call_ms"]
     reps = 50
-    ms_b4 = cuda_ms(torch, lambda: cc.self_collision_project_blocked_cuda(
-        pred, inv, order, cfg), reps)
     ms_b4_plain = cuda_ms(torch, lambda: sh.self_collision_project_blocked(
         pred, inv, order, cfg), reps)
     pairs = int(ok.sum()) * cfg.collision_block_size ** 2
-    b4_bound = bound_ms(pred.shape[0] * (12 + 4 + 4 + 12),
-                        PAIR_OPS * pairs + TOUCH_OPS * touching)
-    print(f"# B-4 pass at frame {frame} ({smi}): kernel {ms_b4:.4f} ms, "
-          f"plain {ms_b4_plain:.4f} ms per pass over {reps} passes; {pairs} "
-          f"candidate pair tests, {touching} touching; bound "
+    kept = rec90["pair_tests_after_cull"]
+    b4_bound = (rec90["bound_ms"], rec90["bound_by"])
+    print(f"# B-4 pass at frame {frame} ({smi}): kernel {ms_b4:.4f} ms "
+          f"(the standalone culled call with its apply, best window; the "
+          f"mesh loop's pass alone {rec90['loop_pass_ms']:.4f}), plain "
+          f"{ms_b4_plain:.4f} ms "
+          f"per pass over {reps} passes; {pairs} "
+          f"candidate pair tests, {kept} kept by the warp cull, "
+          f"{touching} touching; bound "
           f"{b4_bound[0]:.5f} ms ({b4_bound[1]}: {PAIR_OPS} operations per "
-          f"candidate pair, {TOUCH_OPS} more per touching pair)")
+          f"kept pair test, {TOUCH_OPS} more per touching pair; over every "
+          f"candidate test {rec90['bound_ms_all_candidates']:.5f} ms)")
+    # launches a B-4 pass in the mesh loop: one contact substep (its curve
+    # order, 3 launches, and its passes) in each design
+    loop = {}
+    for design in ("serial", "culled"):
+        before = cc.launches
+        mc.run_substeps_cuda(rest, topo, cfg, dt_sub,
+                             cfg.self_collision_every, contact_design=design)
+        loop[design] = cc.launches - before
+    n_pass = (loop["serial"] - loop["culled"]) // 2
+    per_pass = (loop["culled"] - 3) / n_pass
+    print(f"# B-4 in the mesh loop, one contact substep: {n_pass} passes; "
+          f"serial {loop['serial']} launches "
+          f"({(loop['serial'] - 3) / n_pass:.0f} a pass), culled "
+          f"{loop['culled']} ({per_pass:.0f} a pass)")
+    if not (n_pass > 0 and per_pass <= 3):
+        raise RuntimeError(f"the mesh loop launches {per_pass} kernels a "
+                           f"B-4 pass")
     # what the plain engine's column-order hub sums (ops/incidence
     # .gather_sum, the hub rows on the device, one scan each) cost it per
     # substep at this scene
@@ -1490,9 +1680,35 @@ def contact_phases(torch, np, built, K, cc, mc, general, scenes, is_finite,
         bnd = bound_ms(*mesh_work(tp, kc))
         print(f"# bound of one {name} substep without its contact passes: "
               f"{bnd[0]:.5f} ms ({bnd[1]})")
+        if kc.self_collision_backend == "blocked_pallas":
+            # the substep with B-4's serial design in its contact passes
+            def srun(st=st, tp=tp, kc=kc, ds=ds, n_k=n_k):
+                return mc.run_substeps_cuda(st, tp, kc, ds, n_k,
+                                            contact_design="serial")
+
+            before = cc.launches
+            srun()
+            torch.cuda.synchronize()
+            s_per_sub = (cc.launches - before) / n_k
+            dtimes, _ = timed_windows(torch, {"serial": (srun, n_k),
+                                              "culled": (lambda: krun(st),
+                                                         n_k)})
+            substep = dict(ms=min(dtimes["culled"]),
+                           serial_ms=min(dtimes["serial"]),
+                           windows=dtimes["culled"],
+                           serial_windows=dtimes["serial"],
+                           contact_launches=per_sub[1],
+                           serial_contact_launches=s_per_sub)
+            print(f"# {name} substep with B-4's designs in turns ({smi}): "
+                  f"serial {substep['serial_ms']:.5f} ms/substep "
+                  f"({s_per_sub:.2f} contact launches a substep; windows "
+                  f"{dtimes['serial']}), culled {substep['ms']:.5f} "
+                  f"({per_sub[1]:.2f}; windows {dtimes['culled']}): "
+                  f"{substep['serial_ms'] / substep['ms']:.2f}x")
         profile.append((mc.make_mesh_cuda_substep_runner(tp, kc, ds, 6), st))
     return dict(launches=main_contact, max_abs_err=b4_err, ms=ms_b4,
-                plain_ms=ms_b4_plain, bound=b4_bound, profile=profile)
+                plain_ms=ms_b4_plain, bound=b4_bound, profile=profile,
+                rec90=rec90, substep=substep, loop_launches=loop)
 
 
 # the spatial path (phases 21-25): the res-128 braced lattice in 4 slabs of
@@ -3023,7 +3239,7 @@ def cadence_phases(torch, np, smi, is_finite, main_state, main_plain):
             raise RuntimeError(f"{name} launched no B-1 or no B-4 kernel")
         if not (is_finite(end) and ymin > -radius):
             raise RuntimeError(f"{name} failed its health gates")
-        hyb_runs[name] = (run, (kl + cl) / n_roll)
+        hyb_runs[name] = (run, (kl + cl) / n_roll, end)
     plain_par = (lambda: lat.run_substeps_plain(hstate, spec, hcfg, dt_h,
                                                 n_par), n_par)
     htimes, _ = timed_windows(torch, {
@@ -3033,6 +3249,11 @@ def cadence_phases(torch, np, smi, is_finite, main_state, main_plain):
         "plain": plain_par})
     print(f"# hybrid ms/substep ({smi}), windows in turns: "
           + "; ".join(f"{k} {v}" for k, v in htimes.items()))
+    # B-4's two designs on the hybrid's contact pass, at its rested state
+    hend = hyb_runs["hybrid"][2]
+    b4_designs(torch, cc, spatial_hash, f"64k hybrid after {n_roll} "
+               f"substeps", hend.positions, hend.inv_mass, hcfg, smi,
+               profile=True)
 
     # 36. example 4 (hash self-collision, the general engine) on the card
     topo4, cfg4, st4 = ex4.scene(device="cpu")
@@ -3828,6 +4049,8 @@ def smoke(torch, witness) -> int:
                         + spatial["profile"] + ensembles["profile"]
                         + cadence["profile"] + volume["profile"]):
             profile_main_path(torch, run, st)
+        for show in B4_PROFILES:
+            show()
 
     lat_bound = bound_ms(*lattice_work(spec, cfg))
     mesh_bound = bound_ms(*mesh_work(ctopo, ccfg))
@@ -3896,11 +4119,28 @@ def smoke(torch, witness) -> int:
         "replaces": "softbodysimulation_tpu/kernels/contact_pallas.py:132",
         "launches": contact["launches"],
         "max_abs_err": contact["max_abs_err"],
+        # the standalone call at the 20k frame-90 state (set-up, the pass
+        # and its apply), as plain_ms is timed
         "ms": contact["ms"],
         "plain_ms": contact["plain_ms"],
+        # the pair tests the warp cull keeps, the touching pairs, the bytes
         "bound_ms": contact["bound"][0],
         "bound_by": contact["bound"][1],
         "library_ms": None,
+        # the culled design (the main path) against the serial one it
+        # replaced: every state timed in turns, the 20k substep with each,
+        # launches of one contact substep in the mesh loop; *_loop_pass_ms
+        # the mesh loop's pass alone (no set-up, no apply)
+        "design": "culled",
+        "serial_ms": contact["rec90"]["serial_call_ms"],
+        "loop_pass_ms": contact["rec90"]["loop_pass_ms"],
+        "serial_loop_pass_ms": contact["rec90"]["serial_loop_pass_ms"],
+        "bound_ms_all_candidates":
+            contact["rec90"]["bound_ms_all_candidates"],
+        "pair_tests_after_cull": contact["rec90"]["pair_tests_after_cull"],
+        "substep": contact["substep"],
+        "loop_launches": contact["loop_launches"],
+        "designs": B4_DESIGNS,
     }, {
         "name": "mesh_diff_xpbd",
         "route": "cuda",

@@ -18,6 +18,7 @@ struct ContactParams {
   float diam;       // 2 * particle_radius
   float diam2;      // (2 * particle_radius)^2
   float omega;      // self_collision_omega
+  int design;       // 0 culled (the pass), 1 serial (the yardstick)
 };
 
 // Device pointers (and one byte count), all 8 bytes wide.
@@ -26,10 +27,13 @@ struct ContactBuffers {
   const float* w;     // (N) inverse masses
   int* order;         // (N) curve order: slot s holds particle order[s]
   float* stats;       // (9) mean xyz, min xyz, max xyz of pred
-  float* xs;          // (3, npad) centred positions in curve order
-  float* sq;          // (npad) |xs|^2
+  float* xs;          // (3, npad) serial: centred positions, curve order
+  float* sq;          // (npad) serial: |xs|^2
   float* ws;          // (npad) inverse masses in curve order, pads 0
+  float* xq;          // (npad, 4) culled: centred xyz and |x|^2 packed
   float* box;         // (nb, 6) block AABB: min xyz, max xyz
+  float* sbox;        // (nb * ceil(B/32), 8) culled: AABB of each 32-slot
+                      // sub-block: min xyz, 0, max xyz, 0
   int* nbr;           // (nb, M) candidate blocks, nearest first
   int* ok;            // (nb, M) 1 where the candidate block touches
   float* corr;        // (3, npad) correction of each slot
@@ -46,8 +50,9 @@ extern "C" {
 // sort (CUB) of the codes with the particle ids.  *n_launched counts.
 int contact_xpbd_order(const ContactParams* p, const ContactBuffers* b,
                        long long* n_launched, void* stream);
-// The pass up to the correction: stats, the centred sorted layout, block
-// AABBs, the top-M candidate selection and the pair kernel, into b.corr.
+// The pass up to the correction, into b.corr: stats, the centred sorted
+// layout with the block AABBs, and the top-M candidate selection with the
+// pair tests (three launches; the serial design's five).
 int contact_xpbd_corr(const ContactParams* p, const ContactBuffers* b,
                       long long* n_launched, void* stream);
 }

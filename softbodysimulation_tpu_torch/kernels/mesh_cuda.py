@@ -451,12 +451,16 @@ def run_substeps_cuda(state: SimState, topo: Topology, cfg: SolverConfig,
                       with_ext: bool = False, materials=None,
                       batched: bool = False,
                       per_body_mass: bool = False,
-                      approx_math: bool = False) -> SimState:
+                      approx_math: bool = False, *,
+                      contact_design: str = "culled") -> SimState:
     """Launch the kernel for ``n_substeps`` substeps of a CUDA state; the
     semantics of ``solvers.general.run_substeps_plain`` (``batched``: of
     ``run_substeps_plain_batched``, every body in one launch a pass;
     ``approx_math`` as there), the state's ColliderSet (if any) replacing
-    the config's rigid world.  No host sync."""
+    the config's rigid world.  ``contact_design="serial"`` runs B-4's
+    yardstick design (``kernels.contact_cuda``) in the blocked contact
+    passes: for the card tests and ``chip_smoke.py``, never a route.  No
+    host sync."""
     global launches
     _general.check_state(state)
     dev = state.device
@@ -530,8 +534,8 @@ def run_substeps_cuda(state: SimState, topo: Topology, cfg: SolverConfig,
     cp = cb = None
     if params.sc_mode == 2:
         # the B-4 pass over the pred plane (element (i, c) at c * n + i)
-        cp = _contact.make_params(n, cfg, 1, n)
-        ct = _contact.scratch(lib, n, cfg, dev)
+        cp = _contact.make_params(n, cfg, 1, n, contact_design)
+        ct = _contact.scratch(lib, n, cfg, dev, contact_design)
         ct.update(pred=work["pred"], w=w)
         cb = _contact.buffers(ct)
     count, ccount = ctypes.c_longlong(0), ctypes.c_longlong(0)

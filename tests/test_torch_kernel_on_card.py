@@ -56,7 +56,14 @@ kernel against its plain twin (positions, velocities and every multiplier
 to the bit, ``lambda_volume`` included; beside dense contact at the
 contact cases' gates), ensemble rows against the
 single-body kernel to the bit in one body's launches, and a shared scalar
-``lambda_volume`` refused in a volume ensemble.
+``lambda_volume`` refused in a volume ensemble.  B-4's two designs
+(``contact_cuda.DESIGNS``): the culled pass against the plain pass on
+every cloud (|dx| < 1e-5, no pair classified differently) and against
+the serial design it replaced (the same touching bits and candidates,
+|dx| < 1e-6, two runs equal to the bit, 4 launches against 6) at block
+sizes from 8 to 1,024, M from 1 to nb, on a cloud whose blocks touch none
+but themselves and one where every candidate touches, and through the
+mesh loop (within 1e-5 of the serial design, 3 launches a pass).
 """
 
 import pytest
@@ -982,3 +989,191 @@ def test_grid_that_cannot_be_resident_raises_on_card(cuda):
     with pytest.raises(ValueError, match="co-resident"):
         lc.plan_schedule(spec, 1, sms, per_sm, barrier="counter",
                          grid=sms * per_sm + 1)
+
+
+def _b4_designs(pred, inv, cfg):
+    """The standalone B-4 pass in both designs on one state: (order, {design:
+    (positions, launches, touching bits, (nbr, ok))})."""
+    order = psh.morton_order(pred, cfg)
+    out = {}
+    for design in cc.DESIGNS:
+        before = cc.launches
+        x = cc.self_collision_project_blocked_cuda(pred, inv, order, cfg,
+                                                   design=design)
+        torch.cuda.synchronize()
+        out[design] = (x, cc.launches - before,
+                       cc.touching_pairs_cuda(pred, inv, order, cfg, design),
+                       cc.candidates_cuda(pred, inv, order, cfg, design))
+    return order, out
+
+
+def _b4_culled_equals_serial(pred, inv, cfg):
+    """The culled pass against the serial one: the same candidates and
+    touching bits, |dx| < 1e-6, and the same bits in a second run; returns
+    (order, culled positions, touching bits)."""
+    order, d = _b4_designs(pred, inv, cfg)
+    (x, n_new, bits, (nbr, ok)), (xo, n_old, bits_o, (nbr_o, ok_o)) = (
+        d["culled"], d["serial"])
+    assert (n_new, n_old) == (4, 6)
+    assert torch.equal(nbr, nbr_o) and torch.equal(ok, ok_o)
+    assert torch.equal(bits, bits_o)
+    assert float((x - xo).abs().max()) < 1e-6
+    again = cc.self_collision_project_blocked_cuda(pred, inv, order, cfg)
+    assert torch.equal(again.view(torch.int32), x.view(torch.int32))
+    return order, x, bits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(contact_cases.CLOUDS))
+def test_culled_b4_matches_plain_and_serial_on_card(cuda, name):
+    x, w = contact_cases.cloud(name)
+    cfg = contact_cases.cloud_config(name, "blocked_pallas")
+    pred = torch.as_tensor(x, device=cuda)
+    inv = torch.as_tensor(w, device=cuda)
+    order, out, bits = _b4_culled_equals_serial(pred, inv, cfg)
+    ref = psh.self_collision_project_blocked(pred, inv, order, cfg)
+    assert float((out - ref).abs().max()) < contact_cases.DX_PASS
+    touch = psh.blocked_touching_pairs(pred, inv, order, cfg)
+    assert int(touch.sum()) > 0 and torch.equal(bits, touch)
+
+
+def _b4_shape_cloud(kind, n, seed=0):
+    """(positions, inverse masses, radius): a seeded uniform cloud of n;
+    ``isolated``: n / 64 jittered 4^3 lattices (spacing 0.045, diameter
+    0.05, so neighbours overlap by about 0.005), each inside an aligned
+    cube of 4^3 cells of the curve's grid (the cell is the diameter), which
+    the Hilbert curve visits in one run, with an empty cube between two
+    lattices: with B = 64 each block is one lattice and no block's AABB
+    touches another's; ``dense``: one jittered 8^3 lattice at spacing
+    0.025, diameter 0.05, whose octants (the blocks at B = 64) all touch."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if kind in ("isolated", "dense"):
+        side = 4 if kind == "isolated" else 8
+        g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"),
+                     -1).reshape(-1, 3)
+        if kind == "isolated":
+            cubes = rng.choice(6 ** 3, n // 64, replace=False)
+            cubes[0] = 0
+            origin = 0.4 * np.stack(np.unravel_index(cubes, (6, 6, 6)), 1)
+            x = (origin[:, None, :] + 0.02 + 0.045 * g[None]).reshape(-1, 3)
+        else:
+            x = 0.025 * g
+        x = x + rng.uniform(-5e-4, 5e-4, x.shape)
+        x[0] = 0.0          # the grid's corner: cells start at 0
+        radius = 0.025
+    else:
+        x = rng.uniform(-0.5, 0.5, (n, 3))
+        radius = 0.04
+    w = np.where(np.arange(len(x)) % 7 == 0, 0.0, 1.0)
+    return (torch.as_tensor(x, dtype=torch.float32, device="cuda"),
+            torch.as_tensor(w, dtype=torch.float32, device="cuda"), radius)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m_nbr", [1, 4, 32, "nb"])
+@pytest.mark.parametrize("block", [8, 64, 128, 256, 1024])
+def test_culled_b4_shapes_on_card(cuda, block, m_nbr):
+    """Block sizes from 8 to 1,024 (n = 1,500: never whole blocks) and M
+    from 1 to nb: the culled pass equals the serial one and is within
+    1e-5 of the plain pass with the plain candidates."""
+    pred, inv, radius = _b4_shape_cloud("uniform", 1500, seed=block)
+    nb = -(-1500 // block)
+    cfg = contact_cases.cloud_config(
+        "cloud1000", "blocked_pallas", particle_radius=radius,
+        collision_block_size=block,
+        block_neighbors=nb if m_nbr == "nb" else m_nbr)
+    order, out, _ = _b4_culled_equals_serial(pred, inv, cfg)
+    ref = psh.self_collision_project_blocked(pred, inv, order, cfg)
+    assert float((out - ref).abs().max()) < contact_cases.DX_PASS
+    _, _, _, touch, d2ab, _, _, nb = psh._blocked_layout(pred, inv, order,
+                                                         cfg)
+    nbr, ok = psh.select_candidates(touch, d2ab,
+                                    min(cfg.block_neighbors, nb))
+    knbr, kok = cc.candidates_cuda(pred, inv, order, cfg)
+    assert torch.equal(knbr.long(), nbr) and torch.equal(kok, ok)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["isolated", "dense"])
+def test_culled_b4_extremes_on_card(cuda, kind):
+    """No block touches another (each row block tests itself alone, every
+    other candidate filled in index order), and every candidate touches."""
+    pred, inv, radius = _b4_shape_cloud(kind, 1024)
+    cfg = contact_cases.cloud_config(
+        "cloud1000", "blocked_pallas", particle_radius=radius,
+        collision_block_size=64, block_neighbors=8)
+    order, out, _ = _b4_culled_equals_serial(pred, inv, cfg)
+    nbr, ok = cc.candidates_cuda(pred, inv, order, cfg)
+    ref = psh.self_collision_project_blocked(pred, inv, order, cfg)
+    assert float((out - ref).abs().max()) < contact_cases.DX_PASS
+    assert float((out - pred).abs().max()) > 1e-4
+    if kind == "isolated":
+        nb = nbr.shape[0]
+        fill = torch.stack([torch.cat([torch.arange(i), torch.arange(
+            i + 1, nb)])[:7] for i in range(nb)]).to(nbr)
+        assert torch.equal(nbr[:, 0], torch.arange(nb).to(nbr))
+        assert torch.equal(nbr[:, 1:], fill)
+        assert bool(ok[:, 0].all()) and not bool(ok[:, 1:].any())
+    else:
+        assert bool(ok.all())
+
+
+@pytest.mark.gpu
+def test_mesh_loop_takes_the_culled_pass_on_card(cuda):
+    """The mesh library's blocked contact: the culled pass in 3 launches
+    (the serial 5) a pass, within 1e-5 of the serial design over a few
+    contact substeps on the contact scene."""
+    topo, fields, _ = contact_cases.contact_scene(contact_cases.modules())
+    cfg, _ = CONTACT_CASES["blocked_every3"]
+    cfg = cfg.replace(self_collision_backend="blocked_pallas",
+                      self_collision_every=1)
+    state = state_from_numpy(fields, device=cuda)
+    dt_sub = 1 / 60 / cfg.substeps
+    runs = {}
+    for design in cc.DESIGNS:
+        before = cc.launches
+        runs[design] = (mc.run_substeps_cuda(state, topo, cfg, dt_sub, 3,
+                                             contact_design=design),
+                        cc.launches - before)
+        torch.cuda.synchronize()
+    (new, n_new), (old, n_old) = runs["culled"], runs["serial"]
+    # a contact substep's curve order is 3 launches; each pass 3 (or 5)
+    passes = (n_old - n_new) // 2
+    assert passes >= 3 and n_new == 3 * 3 + 3 * passes
+    assert float((new.positions - old.positions).abs().max()) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block,m_nbr", [(256, 4), (128, 6)])
+def test_culled_b4_first_launch_in_a_fresh_process_on_card(cuda, block,
+                                                           m_nbr):
+    """The pair kernel's static and dynamic shared memory together pass
+    48 KB at these shapes though the dynamic part alone does not: the
+    first launch of a process must opt in all the same."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import sys, torch\n"
+        "sys.path[:0] = [sys.argv[1], sys.argv[2]]\n"
+        "import test_torch_contact_cases as K\n"
+        "from softbodysimulation_tpu_torch.kernels import contact_cuda as cc\n"
+        "from softbodysimulation_tpu_torch.ops import spatial_hash as sh\n"
+        "x, w = K.cloud('cloud1000')\n"
+        "cfg = K.cloud_config('cloud1000', 'blocked_pallas',\n"
+        f"    collision_block_size={block}, block_neighbors={m_nbr})\n"
+        "p = torch.as_tensor(x, device='cuda')\n"
+        "w = torch.as_tensor(w, device='cuda')\n"
+        "o = sh.morton_order(p, cfg)\n"
+        "out = cc.self_collision_project_blocked_cuda(p, w, o, cfg)\n"
+        "ref = sh.self_collision_project_blocked(p, w, o, cfg)\n"
+        "print(float((out - ref).abs().max()))\n")
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-c", code, os.path.dirname(here),
+                           here], capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert float(proc.stdout.split()[-1]) < contact_cases.DX_PASS
