@@ -299,7 +299,23 @@ any phase fails:
    bodies a block against the grid barrier for bodies of 64 to 1,728
    particles, one and many; the grid barrier at res 40 on 250, 125 and
    65 blocks; the persistent kernel against the per-pass loop from res 64
-   to res 100.
+   to res 100;
+42. B-3's persistent kernel against its per-pass loop (``b3_phase``) on
+   every mesh, tet, contact, volume, ensemble and collider case (mesh
+   cases exact and with ``approx_math``), each barrier forced on two
+   ensembles, a many-block cloth five times: to the bit, one launch a
+   call without blocked contact.
+
+B-3's two designs are also timed in turns (``b3_designs``: per-pass,
+persistent, persistent, per-pass, the two results equal to the bit, with
+launches a call and a substep of each) at cloth_xl (phase 10), the 20k
+frame-90 substep and the catalogued ball_on_cloth (phase 16), the farm
+and the contact farm (phase 32), approx cloth_xl (phase 34), the inflated
+ball and the pressurized farm (phase 39); phase 14 holds them to the bit
+at the 20k frame-30, -60 and -90 states and the hub warps' sums to the
+plain engine's bits there without contact; phase 15 the dense pass (a
+warp a row) within 1e-5 of the plain pass; phase 16 splits the 20k
+particle passes by the rows they sum (``particle_passes``).
 
 Prints one JSON line of kernels (with each kernel's bound, the least time
 the card could take for the same work, from ``bound_ms``; B-1's row adds
@@ -310,6 +326,9 @@ and power limit, and as its last line ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits nonzero and prints no result.
 ``--profile`` adds a torch.profiler breakdown of each main path (device
 time by kernel, host time per launch, device idle share).
+``--b3-profile`` runs only ``particle_passes`` at the 20k frame-90 state
+and at cloth_xl through the per-pass loop, against whichever package sits
+beside this file (so a parent tree can be profiled with it).
 """
 
 import dataclasses
@@ -412,6 +431,82 @@ def profile_main_path(torch, run, state):
     print(f"# profile: wall {wall_us:.1f} us, device span {span:.1f} us, "
           f"device busy {busy:.1f} us, idle share of the span "
           f"{1 - busy / span:.4f}, of the wall {1 - busy / wall_us:.4f}")
+
+
+def particle_passes(torch, label, run, state, smi):
+    """B-3's particle passes over one call of ``run`` from ``state``, split
+    by the rows each sums, read from the kernel launched before it (the
+    per-pass loop: edge, hinge or tet rows after their constraint pass;
+    otherwise no sum, a contact or volume apply): {class: (launches, us)},
+    printed with the other kernels of the call (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run(state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(state)
+        torch.cuda.synchronize()
+    dev = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    if not dev:
+        raise RuntimeError("the profiler recorded no device activity")
+    rows = {"edge_kernel": "edge rows", "hinge_kernel": "hinge rows",
+            "tet_kernel": "tet rows"}
+    out, prev = {}, ""
+    for e in dev:
+        name = e.name.split("(")[0].split("<")[0].split()[-1]
+        key = (f"particle_kernel, {rows.get(prev, 'no sum')}"
+               if name == "particle_kernel" else name)
+        n, t = out.get(key, (0, 0.0))
+        out[key] = (n + 1, t + e.time_range.elapsed_us())
+        prev = name
+    for key, (n, t) in sorted(out.items(), key=lambda kv: -kv[1][1]):
+        print(f"# particle passes, {label} ({smi}): {key}: {n} x "
+              f"{t / n:.3f} us = {t:.1f} us")
+    return out
+
+
+def b3_profile(torch) -> int:
+    """``--b3-profile``: B-3's particle passes (``particle_passes``) at the
+    20k ball-on-cloth's frame-90 state (6 substeps) and at cloth_xl after
+    30 frames (4 substeps), through the per-pass loop (the library's only
+    design before the persistent one).  Runs against whichever package
+    sits beside this file, so a parent tree can be profiled with it."""
+    import inspect
+
+    sys.path.insert(0, HERE)
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import test_torch_contact_cases as K
+
+    from softbodysimulation_tpu_torch import state_from_numpy
+    from softbodysimulation_tpu_torch.core import scenes
+    from softbodysimulation_tpu_torch.kernels import mesh_cuda as mc
+
+    smi = smi_line()
+    print(f"# gpu: {smi}")
+    kw = ({"design": "per_pass"} if "design" in inspect.signature(
+        mc.run_substeps_cuda).parameters else {})
+    topo, fields, cfg, _ = K.scaled_ball_on_cloth(K.modules())
+    st = state_from_numpy(fields, device="cuda")
+    step = mc.make_mesh_cuda_step(topo, cfg, 1 / 60)
+    for _ in range(90):
+        st = step(st)
+    dt_sub = 1 / 60 / cfg.substeps
+    particle_passes(torch, "20k ball-on-cloth, frame 90, 6 substeps",
+                    lambda s: mc.run_substeps_cuda(s, topo, cfg, dt_sub, 6,
+                                                   **kw), st, smi)
+    cst, cstep, cinfo = scenes.cloth_xl(device="cuda")
+    for _ in range(30):
+        cst = cstep(cst)
+    ctopo, ccfg = cinfo["topology"], cinfo["config"]
+    cdt = cinfo["dt"] / ccfg.substeps
+    particle_passes(torch, "cloth_xl, frame 30, 4 substeps",
+                    lambda s: mc.run_substeps_cuda(s, ctopo, ccfg, cdt, 4,
+                                                   **kw), cst, smi)
+    return 0
 
 
 def timed_build(build, name, sources, extra=()):
@@ -548,6 +643,85 @@ def b1_designs(torch, lc, label, st, spec, cfg, dt_sub, n_sub, smi,
 
 
 
+# B-3's two designs at each path the smoke times them (b3_designs): the
+# persistent kernel (one launch a contact-free stretch, every route) and
+# the per-pass loop it replaced (one launch a pass, the yardstick)
+B3_DESIGNS = []
+
+
+def b3_designs(torch, mc, cc, label, st, topo, cfg, dt_sub, n_sub, smi,
+               min_s=0.5, **kw):
+    """ms per substep of B-3's per-pass loop and persistent kernel on one
+    call of ``n_sub`` substeps from ``st``, in turns (per-pass,
+    persistent, persistent, per-pass), their launches a call and a
+    substep (and B-4's, with blocked contact), the persistent kernel's
+    plan; the two results equal to the bit, or it raises.  Recorded in
+    B3_DESIGNS."""
+    def run(design):
+        return lambda: mc.run_substeps_cuda(st, topo, cfg, dt_sub, n_sub,
+                                            design=design, **kw)
+
+    runs = {"per_pass": (run("per_pass"), n_sub),
+            "persistent": (run("persistent"), n_sub)}
+    calls, outs = {}, {}
+    for key, (fn, _) in runs.items():
+        before = (mc.launches, cc.launches)
+        outs[key] = fn()
+        torch.cuda.synchronize()
+        calls[key] = (mc.launches - before[0], cc.launches - before[1])
+    bad = b3_bits(torch, outs["persistent"], outs["per_pass"])
+    if bad:
+        raise RuntimeError(f"B-3 designs differ at {label}: {bad}")
+    times, _ = timed_windows(torch, runs, min_s=min_s)
+    bodies = st.positions.shape[0] if kw.get("batched") else 1
+    p = mc.make_params(topo, cfg, dt_sub)
+    if st.lambda_tet is None:
+        p.n_tets = 0
+    sched = mc.schedule_for(mc.tile_counts(p), bodies, st.device)
+    rec = dict(shape=label, substeps_per_call=n_sub,
+               ms=min(times["persistent"]), per_pass_ms=min(times["per_pass"]),
+               windows=times["persistent"], per_pass_windows=times["per_pass"],
+               launches_per_call=calls["persistent"][0],
+               per_pass_launches_per_call=calls["per_pass"][0],
+               launches_per_substep=calls["persistent"][0] / n_sub,
+               per_pass_launches_per_substep=calls["per_pass"][0] / n_sub,
+               contact_launches_per_substep=calls["persistent"][1] / n_sub,
+               barrier=sched.barrier, grid=sched.grid)
+    spread = max(max(v) - min(v) for v in times.values())
+    rec["speedup"] = rec["per_pass_ms"] / rec["ms"]
+    rec["beats_by_more_than_spread"] = (rec["per_pass_ms"] - rec["ms"]
+                                        > spread)
+    B3_DESIGNS.append(rec)
+    print(f"# B-3 designs, {label} ({smi}), {n_sub} substeps a call: "
+          f"per-pass {rec['per_pass_ms']:.5f} ms/substep "
+          f"({calls['per_pass'][0]} launches a call; windows "
+          f"{times['per_pass']}), persistent {rec['ms']:.5f} ms/substep "
+          f"({calls['persistent'][0]} launches a call, "
+          f"{rec['launches_per_substep']:.3f} a substep, B-4's "
+          f"{rec['contact_launches_per_substep']:.3f}; windows "
+          f"{times['persistent']}; {sched.barrier} barrier, {sched.grid} "
+          f"blocks): {rec['speedup']:.2f}x, beyond the windows' spread "
+          f"{spread:.5f}: {rec['beats_by_more_than_spread']}; the two "
+          f"results equal to the bit")
+    return rec
+
+
+B3_LEAVES = ("positions", "velocities", "lambda_dist", "lambda_bend",
+             "lambda_tet", "lambda_volume", "ext_force")
+
+
+def b3_bits(torch, a, b):
+    """The leaves of two mesh results that differ in any bit."""
+    bad = []
+    for k in B3_LEAVES:
+        x, y = getattr(a, k), getattr(b, k)
+        if (x is None) != (y is None) or (x is not None and not torch.equal(
+                x.reshape(-1).view(torch.int32),
+                y.reshape(-1).view(torch.int32))):
+            bad.append(k)
+    return bad
+
+
 def kernel_times(torch, fn, calls):
     """Device time of each kernel over ``calls`` calls of ``fn``
     (torch.profiler, CUPTI): {name: (launches, us)}."""
@@ -668,17 +842,17 @@ def b4_designs(torch, cc, sh, label, pred, inv, cfg, smi, profile=False):
         raise RuntimeError(f"B-4's culled pass parts from the serial one "
                            f"at {label}")
     if profile:
-        B4_PROFILES.append(lambda: b4_profile(torch, run, label, rec))
+        LATE_PROFILES.append(lambda: b4_profile(torch, run, label, rec))
         if "--profile" not in sys.argv[1:]:
-            B4_PROFILES.pop()()
+            LATE_PROFILES.pop()()
     B4_DESIGNS.append(rec)
     return rec
 
 
-# b4_designs' kernel breakdowns still to print: with --profile they wait
-# until the main paths' profiles have run (a profiler session in the
-# middle of the smoke left the later ones empty in one such run)
-B4_PROFILES = []
+# b4_designs' kernel breakdowns and B-3's particle passes still to print:
+# with --profile they wait until the main paths' profiles have run (a
+# profiler session in the middle of the smoke left the later ones empty)
+LATE_PROFILES = []
 
 
 def b4_profile(torch, run, label, rec):
@@ -707,6 +881,117 @@ CROSSOVER = [(4, 1024), (6, 304), (8, 128), (10, 64), (12, 38), (6, 1),
 # phase 41: one body from L2-resident to far beyond it (res, substeps a
 # call), the persistent kernel against the per-pass loop
 DESIGN_SIZES = [(64, 200), (80, 100), (100, 50)]
+
+
+def b3_phase(torch, mc, general, smi):
+    """Phase 42: B-3's persistent kernel against its per-pass loop on every
+    configuration the CPU tests hold against JAX -- each mesh case exact
+    and with ``approx_math``, each tet and contact case, each volume case
+    (one body and ensembles), each mesh ensemble case (shared and per-body
+    masses, per-body materials, a kinematic sphere, dense contact), each
+    collider case (its poses moved once) -- to the bit, one launch a call
+    without blocked contact; then each barrier forced on a small body and
+    an ensemble, and a many-block run repeated five times, to the bit.
+    Raises on any difference.  Returns the number of configurations."""
+    import test_torch_collider_cases as collider_cases
+    import test_torch_contact_cases as K
+    import test_torch_ensemble_cases as E
+    import test_torch_mesh_cases as M
+    import test_torch_volume_cases as V
+
+    from softbodysimulation_tpu_torch import state_from_numpy
+    from softbodysimulation_tpu_torch.core import scenes
+
+    t0 = time.perf_counter()
+    checked = 0
+
+    def both(label, st, topo, cfg, dt_sub, n_sub, one_launch=True,
+             schedule=None, **kw):
+        nonlocal checked
+        runs = {}
+        for design in mc.DESIGNS:
+            before = mc.launches
+            runs[design] = (mc.run_substeps_cuda(
+                st, topo, cfg, dt_sub, n_sub, design=design,
+                schedule=schedule if design == "persistent" else None,
+                **kw), mc.launches - before)
+        torch.cuda.synchronize()
+        bad = b3_bits(torch, runs["persistent"][0], runs["per_pass"][0])
+        if bad or (one_launch and runs["persistent"][1] != 1):
+            raise RuntimeError(f"B-3 designs differ on {label}: {bad}, "
+                               f"{runs['persistent'][1]} launches")
+        checked += 1
+        return runs["persistent"][0]
+
+    for name, (cfg, kind, kw, frames) in M.mesh_cases().items():
+        topo, fields = M.case_inputs(kind, **kw)
+        st = state_from_numpy(fields, device="cuda")
+        for approx in (False, True):
+            both(f"mesh {name} approx={approx}", st, topo, cfg,
+                 1 / 60 / cfg.substeps, frames * cfg.substeps,
+                 with_ext=True, approx_math=approx)
+    for name, (cfg, kind, kw, frames) in K.tet_cases().items():
+        topo, fields = K.tet_inputs(kind, K.modules(), **kw)
+        both(f"tets {name}", state_from_numpy(fields, device="cuda"), topo,
+             cfg, 1 / 60 / cfg.substeps, frames * cfg.substeps,
+             with_ext=True)
+    topo, fields, _ = K.contact_scene(K.modules())
+    for name, (cfg, frames) in K.contact_cases().items():
+        both(f"contact {name}", state_from_numpy(fields, device="cuda"),
+             topo, cfg, 1 / 60 / cfg.substeps, frames * cfg.substeps,
+             one_launch=cfg.self_collision_backend == "dense",
+             with_ext=True)
+    for name in V.volume_cases():
+        cfg, topo, fields, nb, frames = V.case_inputs(name)
+        both(f"volume {name}", state_from_numpy(fields, device="cuda"), topo,
+             cfg, V.DT / cfg.substeps, frames * cfg.substeps, with_ext=True,
+             batched=nb > 1)
+    for name in E.mesh_ensemble_cases():
+        topo, cfg, st, mats, frames, opts = E.mesh_case(name, "cuda")
+        both(f"ensemble {name}", st, topo, cfg, E.DT / cfg.substeps,
+             frames * cfg.substeps, with_ext=True, materials=mats,
+             batched=True, per_body_mass=bool(opts.get("per_body_mass")))
+        if name in ("colored", "dense_contact"):
+            p = mc.make_params(topo, cfg, E.DT / cfg.substeps)
+            if st.lambda_tet is None:
+                p.n_tets = 0
+            for barrier in mc.BARRIERS:
+                sched = mc.schedule_for(mc.tile_counts(p),
+                                        st.positions.shape[0], st.device,
+                                        barrier=barrier)
+                both(f"ensemble {name}, {barrier} barrier", st, topo, cfg,
+                     E.DT / cfg.substeps, frames * cfg.substeps,
+                     schedule=sched, with_ext=True, materials=mats,
+                     batched=True,
+                     per_body_mass=bool(opts.get("per_body_mass")))
+    for name in collider_cases.mesh_collider_cases():
+        def runner(design):
+            return lambda topo, cfg, dt, frames, kin: (
+                lambda st: mc.run_substeps_cuda(
+                    st, topo, cfg, dt / cfg.substeps,
+                    frames * cfg.substeps, with_ext=True, design=design))
+
+        new = collider_cases.mesh_runs(name, "cuda", runner("persistent"),
+                                       general.multi_step_fn)
+        old = collider_cases.mesh_runs(name, "cuda", runner("per_pass"),
+                                       general.multi_step_fn)
+        for (a, _, _), (b, _, _) in zip(new, old):
+            if b3_bits(torch, a, b):
+                raise RuntimeError(f"B-3 designs differ on colliders {name}")
+            checked += 1
+    st, _, info = scenes.cloth(res=48, device="cuda")
+    ref = mc.run_substeps_cuda(st, info["topology"], info["config"],
+                               1 / 240, 40, with_ext=True, design="per_pass")
+    for _ in range(5):
+        out = mc.run_substeps_cuda(st, info["topology"], info["config"],
+                                   1 / 240, 40, with_ext=True)
+        if b3_bits(torch, out, ref):
+            raise RuntimeError("B-3's persistent kernel is not repeatable")
+    print(f"# B-3 designs to the bit ({smi}): the persistent kernel equals "
+          f"the per-pass loop on {checked} configurations (one launch a "
+          f"call without blocked contact), and a 48 x 48 cloth over 40 "
+          f"substeps five times; {time.perf_counter() - t0:.1f} s")
+    return checked
 
 
 def barrier_phase(torch, lc, lat, top, cfg, smi):
@@ -1550,6 +1835,35 @@ def contact_phases(torch, np, built, K, cc, mc, general, scenes, is_finite,
             and float(p[:, 1].min()) > -1e-2 and dropped_rest == 0):
         raise RuntimeError(f"contact main path failed its health gates at "
                            f"frame {frame}")
+    # B-3's two designs at the 20k states: a frame's substeps (blocked
+    # contact, the persistent kernel split around each B-4 pass) to the
+    # bit, the persistent kernel twice to the bit; and without contact the
+    # hub warps' sums (642 edge and 1,280 tet columns) keep the plain
+    # engine's bits
+    for at, st in ((CONTACT_WARM_FRAMES, warm),
+                   (CONTACT_WARM_FRAMES + CONTACT_DRIFT_FRAMES, kern),
+                   (frame, rest)):
+        runs = [mc.run_substeps_cuda(st, topo, cfg, dt_sub, cfg.substeps,
+                                     design=d)
+                for d in ("persistent", "per_pass", "persistent")]
+        bad = (b3_bits(torch, runs[0], runs[1])
+               + b3_bits(torch, runs[0], runs[2]))
+        print(f"# B-3 designs at the 20k frame-{at} state, {cfg.substeps} "
+              f"substeps: persistent equal to per-pass and to itself to the "
+              f"bit: {not bad}")
+        if bad:
+            raise RuntimeError(f"B-3 designs differ at 20k frame {at}: {bad}")
+    hub_cfg = cfg.replace(enable_self_collision=False)
+    hub_out = mc.run_substeps_cuda(rest, topo, hub_cfg, dt_sub, 3)
+    hub_ref = general.run_substeps_plain(rest, topo, hub_cfg, dt_sub, 3)
+    hub_bad = [k for k in ("positions", "velocities", "lambda_dist",
+                           "lambda_bend", "lambda_tet")
+               if not torch.equal(getattr(hub_out, k), getattr(hub_ref, k))]
+    print(f"# B-3 hub rows at 20k (no contact, 3 substeps): the kernel's "
+          f"warp sums equal the plain engine's column-order sums to the bit: "
+          f"{not hub_bad}")
+    if hub_bad:
+        raise RuntimeError(f"B-3's hub warps part from the twin: {hub_bad}")
     dx_rest, order, ok, touching = b4_vs_plain(
         f"20k at frame {frame}", rest.positions, rest.inv_mass, cfg,
         profile=True)
@@ -1644,6 +1958,20 @@ def contact_phases(torch, np, built, K, cc, mc, general, scenes, is_finite,
             and abs(rim_on - 1.0) < 1e-4 and ball_off < 0.25
             and cat_launches > 0):
         raise RuntimeError("catalogued ball_on_cloth failed its physics")
+    # the dense pass split across warps: one substep of one iteration (one
+    # pass) from the resting state against the plain pass; a pair
+    # classified differently would move its particles by their overlap
+    one_cfg = binfo["config"].replace(iterations=1)
+    one_dt = dt / one_cfg.substeps
+    dense_dx = float((mc.run_substeps_cuda(on, binfo["topology"], one_cfg,
+                                           one_dt, 1).positions
+                      - general.run_substeps_plain(
+                          on, binfo["topology"], one_cfg, one_dt,
+                          1).positions).abs().max())
+    print(f"# B-3 dense pass (a warp a row) vs plain, one pass from the "
+          f"resting catalogued state: max|dx|={dense_dx:.3e} (gate 1e-5)")
+    if not dense_dx < 1e-5:
+        raise RuntimeError(f"B-3's dense pass parts from plain: {dense_dx}")
 
     # 16. throughput, kernel path and plain engine, in turns
     cat_topo, cat_cfg = binfo["topology"], binfo["config"]
@@ -1705,10 +2033,33 @@ def contact_phases(torch, np, built, K, cc, mc, general, scenes, is_finite,
                   f"{dtimes['serial']}), culled {substep['ms']:.5f} "
                   f"({per_sub[1]:.2f}; windows {dtimes['culled']}): "
                   f"{substep['serial_ms'] / substep['ms']:.2f}x")
+        b3_designs(torch, mc, cc, f"{name}, {nn} particles", st, tp, kc, ds,
+                   n_k, smi)
         profile.append((mc.make_mesh_cuda_substep_runner(tp, kc, ds, 6), st))
+    # the 20k particle passes by the rows they sum (the per-pass loop, where
+    # each is a launch of its own): the hub's rows against the others
+    particle_us = {}
+
+    def show_passes():
+        try:
+            passes = particle_passes(
+                torch, "20k ball-on-cloth at frame 90, 6 substeps",
+                lambda s: mc.run_substeps_cuda(s, topo, cfg, dt_sub, 6,
+                                               design="per_pass"), rest, smi)
+        except RuntimeError as err:   # a timing, not a gate
+            print(f"# particle passes at 20k not profiled: {err}")
+            passes = {}
+        particle_us.update({k.split(", ")[1]: v[1] / v[0]
+                            for k, v in passes.items()
+                            if k.startswith("particle_kernel")})
+
+    LATE_PROFILES.append(show_passes)
+    if "--profile" not in sys.argv[1:]:
+        LATE_PROFILES.pop()()
     return dict(launches=main_contact, max_abs_err=b4_err, ms=ms_b4,
                 plain_ms=ms_b4_plain, bound=b4_bound, profile=profile,
-                rec90=rec90, substep=substep, loop_launches=loop)
+                rec90=rec90, substep=substep, loop_launches=loop,
+                particle_us=particle_us)
 
 
 # the spatial path (phases 21-25): the res-128 braced lattice in 4 slabs of
@@ -2634,6 +2985,7 @@ def ensemble_phases(torch, np, smi, is_finite):
     from softbodysimulation_tpu_torch.examples import config5_batch_1024
     from softbodysimulation_tpu_torch.kernels import diff as kd
     from softbodysimulation_tpu_torch.kernels import lattice_cuda as lc
+    from softbodysimulation_tpu_torch.kernels import contact_cuda as cc
     from softbodysimulation_tpu_torch.kernels import mesh_cuda as mc
     from softbodysimulation_tpu_torch.parallel import batch as pbatch
     from softbodysimulation_tpu_torch.solvers import general
@@ -2940,9 +3292,8 @@ def ensemble_phases(torch, np, smi, is_finite):
         for name in ("ensemble", "loop"):
             counter.launches = 0
             runs[name][0]()
-            # B-1 launches once a call; B-3 once a pass
+            # B-1 and B-3 launch once a call (for every body)
             per_sub[name] = counter.launches / (
-                1 if key == "lattice" else runs[name][1]) / (
                 1 if name == "ensemble" else n_bodies_)
         times, reps = timed_windows(torch, runs, min_s=0.5)
         total = n_bodies_ * n_part
@@ -2952,8 +3303,7 @@ def ensemble_phases(torch, np, smi, is_finite):
                   f"{best[k]:.5f} ms/substep = {total / best[k] * 1e3:.4e} "
                   f"particle-substeps/s (windows in turn order: {times[k]}, "
                   f"{reps[k]} calls each)")
-        print(f"# {key} ensemble launches a "
-              f"{'call' if key == 'lattice' else 'substep'}: "
+        print(f"# {key} ensemble launches a call: "
               f"{per_sub['ensemble']:.3f} for {n_bodies_} bodies, "
               f"{per_sub['loop']:.3f} for one body; "
               f"the ensemble {best['loop'] / best['ensemble']:.1f}x the loop")
@@ -2962,6 +3312,11 @@ def ensemble_phases(torch, np, smi, is_finite):
         results[key] = (best, times, per_sub)
     b1_designs(torch, lc, f"example 5 ({nb5} x res {spec5.res})", start5,
                spec5, cfg5, 1 / 240, 40, smi, batched=True)
+    b3_designs(torch, mc, cc, f"farm ({FARM_BODIES} x {ftopo.n_particles})",
+               farm, ftopo, fcfg, fdt_sub, 400, smi, batched=True)
+    b3_designs(torch, mc, cc, f"contact farm ({CONTACT_FARM_BODIES} x "
+               f"{ctopo.n_particles}, dense)", cout, ctopo, ccfg,
+               cdt / ccfg.substeps, 60, smi, batched=True)
     print(f"# time: phase 32 took {time.perf_counter() - t0:.1f} s")
 
     lat_bound = bound_ms(*[nb5 * x for x in lattice_work(spec5, cfg5)])
@@ -3005,7 +3360,7 @@ def ensemble_phases(torch, np, smi, is_finite):
         "library_ms": None,
         "bodies": FARM_BODIES,
         "loop_ms": mb["loop"],
-        "launches_per_substep": results["mesh"][2]["ensemble"],
+        "launches_per_call": results["mesh"][2]["ensemble"],
         "contact_farm_ms": cb["ensemble"],
         "contact_farm_plain_ms": cb["plain"],
         "contact_farm_loop_ms": cb["loop"],
@@ -3181,6 +3536,8 @@ def cadence_phases(torch, np, smi, is_finite, main_state, main_plain):
         "approx": (lambda: m_approx(loaded), n_m)})
     print(f"# B-3 ms/substep at cloth_xl ({smi}), windows in turns: exact "
           f"{mtimes['exact']}, approx {mtimes['approx']}")
+    b3_designs(torch, mc, cc, "cloth_xl approx_math", loaded, ctopo, ccfg,
+               cdt_sub, n_m, smi, approx_math=True)
 
     # 35. the hybrid contact runner at the 64k contact-cadence config
     spacing = 1.0 / (settings.res - 1)
@@ -3387,6 +3744,7 @@ def volume_phases(torch, np, smi, is_finite):
     from softbodysimulation_tpu_torch.examples import (
         config1_cube_drop, config2_icosphere_pinned, config3_inflated_ball,
         config9_tet_solid)
+    from softbodysimulation_tpu_torch.kernels import contact_cuda as cc
     from softbodysimulation_tpu_torch.kernels import mesh_cuda as mc
     from softbodysimulation_tpu_torch.solvers import general
     from softbodysimulation_tpu_torch.topology import build, mesh
@@ -3519,6 +3877,8 @@ def volume_phases(torch, np, smi, is_finite):
             at120, btopo, bcfg, bdt_sub, n_p), n_p),
         "kernel": (lambda: k_ball(at120), n_k)})
     ball_bound = bound_ms(*mesh_work(btopo, bcfg))
+    b3_designs(torch, mc, cc, f"inflated ball ({btopo.n_particles})", at120,
+               btopo, bcfg, bdt_sub, n_k, smi)
     nb_ = btopo.n_particles
     print(f"# inflated ball ({smi}): kernel "
           f"{min(btimes['kernel']):.5f} ms/substep = "
@@ -3576,6 +3936,9 @@ def volume_phases(torch, np, smi, is_finite):
             fout, ftopo, vcfg, fdt_sub, 2), 2),
         "ensemble": (lambda: k_farm(fout), 40)}, min_s=0.5)
     farm_bound = bound_ms(*mesh_work(ftopo, vcfg, bodies=FARM_BODIES))
+    b3_designs(torch, mc, cc, f"pressurized farm ({FARM_BODIES} x "
+               f"{ftopo.n_particles})", fout, ftopo, vcfg, fdt_sub, 40, smi,
+               batched=True)
     print(f"# pressurized farm ({smi}): ensemble "
           f"{min(ftimes['ensemble']):.5f} ms/substep, plain twin "
           f"{min(ftimes['plain']):.5f} (windows in turn order: "
@@ -3660,6 +4023,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke runs only on a "
               "GPU", file=sys.stderr)
         return 1
+    if "--b3-profile" in sys.argv[1:]:
+        return b3_profile(torch)
     # phase 19's float64 witness runs on the CPU, in a process of its own,
     # while the card works
     witness = subprocess.Popen(
@@ -3997,6 +4362,8 @@ def smoke(torch, witness) -> int:
         print(f"# throughput range {key}: {lo:.5f}-{hi:.5f} ms/substep = "
               f"{nm / hi * 1e3:.4e}-{nm / lo * 1e3:.4e} particle-substeps/s "
               f"(windows in turn order: {mtimes[key]})")
+    cloth_designs = b3_designs(torch, mc, cc, "cloth_xl", cstate, ctopo,
+                               ccfg, cdt_sub, n_k, smi)
 
     lap("7-10")
 
@@ -4038,6 +4405,10 @@ def smoke(torch, witness) -> int:
     barriers = barrier_phase(torch, lc, lat, top, cfg, smi)
     lap("41")
 
+    # 42. B-3's persistent kernel against its per-pass loop, to the bit
+    b3_checked = b3_phase(torch, mc, general, smi)
+    lap("42")
+
     if "--profile" in sys.argv[1:]:
         profile_main_path(
             torch, lc.make_cuda_substep_runner(spec, cfg, dt_sub, 200),
@@ -4049,7 +4420,7 @@ def smoke(torch, witness) -> int:
                         + spatial["profile"] + ensembles["profile"]
                         + cadence["profile"] + volume["profile"]):
             profile_main_path(torch, run, st)
-        for show in B4_PROFILES:
+        for show in LATE_PROFILES:
             show()
 
     lat_bound = bound_ms(*lattice_work(spec, cfg))
@@ -4112,6 +4483,21 @@ def smoke(torch, witness) -> int:
         # full-width inflated ball's ms per substep, launches and bound,
         # the pressurized farm's
         **volume["mesh"],
+        # the persistent design (one launch a contact-free stretch) against
+        # the per-pass loop it replaced, at cloth_xl (phase 10) and at every
+        # other path timed in turns, with launches a call and a substep of
+        # both; the 20k ball-on-cloth's particle passes (per-pass loop,
+        # phase 16) by the rows they sum, us each; the configurations held
+        # to the bit between the designs (phase 42)
+        "design": "persistent",
+        "per_pass_ms": cloth_designs["per_pass_ms"],
+        "persistent_ms": cloth_designs["ms"],
+        "launches_per_call": cloth_designs["launches_per_call"],
+        "per_pass_launches_per_call":
+            cloth_designs["per_pass_launches_per_call"],
+        "particle_pass_us_20k": contact["particle_us"],
+        "designs": B3_DESIGNS,
+        "designs_bit_equal_configs": b3_checked,
     }, {
         "name": "contact_xpbd",
         "route": "cuda",

@@ -74,7 +74,8 @@
 //   - one body across blocks synchronises the whole grid, launched
 //     cooperatively (cudaLaunchCooperativeKernel: a grid that cannot be
 //     co-resident is refused, never run) with a counting barrier on a
-//     global counter (release add, acquire spin), which timed ahead of
+//     global counter (release add, acquire spin; grid_barrier.cuh, shared
+//     with the mesh library's persistent kernel), which timed ahead of
 //     cooperative_groups' grid.sync() at every size tried (PERF.md), so
 //     grid.sync() was dropped; kernels/lattice_cuda.py plans the tiles,
 //     the kind of barrier and the grid from the shape alone;
@@ -127,13 +128,16 @@
 // torch.reciprocal, which is IEEE: kernel and twin agree to a tolerance,
 // not to the bit.  With approx_math off every pass is the exact engine's.
 
+#include "grid_barrier.cuh"
 #include "lattice_xpbd.cuh"
 
 #define LX_THREADS 256
 
-// barrier kinds (kernels/lattice_cuda.py BARRIERS)
+// barrier kinds (kernels/lattice_cuda.py BARRIERS), grid_barrier.cuh's
 #define LX_BLOCK 0     // __syncthreads(): whole bodies in a block
 #define LX_GRID_CTR 1  // counting barrier on a global counter
+static_assert(LX_BLOCK == BARRIER_BLOCK && LX_GRID_CTR == BARRIER_GRID_CTR,
+              "the lattice kernel's barrier kinds are grid_barrier.cuh's");
 
 __device__ __forceinline__ void store3(float* buf, int n, int a,
                                        const float o[3]) {
@@ -264,45 +268,6 @@ struct Walker {
     if (q.x >= res) { q.x -= res; ++b; }
     q.base += b * body_n;
     q.c = q.y * res + q.z;
-  }
-};
-
-__device__ __forceinline__ void red_release_add(unsigned long long* ptr) {
-  asm volatile("red.release.gpu.global.add.u64 [%0], %1;"
-               :: "l"(ptr), "l"(1ull) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long ld_acquire(
-    const unsigned long long* ptr) {
-  unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
-               : "=l"(v) : "l"(ptr) : "memory");
-  return v;
-}
-
-// The barrier between passes.  LX_GRID_CTR: every block's thread 0 adds 1
-// to the counter with release semantics after the block's barrier (so its
-// block's writes go with it) and spins with acquire loads until all
-// gridDim.x blocks have arrived at this barrier, the k-th of the call:
-// the counter only grows, so it needs neither a reset nor a sense flag.
-template <int KIND>
-struct Barrier {
-  unsigned long long* counter;
-  unsigned long long target;
-
-  __device__ void sync() {
-    if constexpr (KIND == LX_BLOCK) {
-      __syncthreads();
-    } else {
-      __syncthreads();
-      target += gridDim.x;
-      if (threadIdx.x == 0) {
-        red_release_add(counter);
-        while (ld_acquire(counter) < target) {
-        }
-      }
-      __syncthreads();
-    }
   }
 };
 

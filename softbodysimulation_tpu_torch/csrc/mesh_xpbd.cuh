@@ -15,6 +15,26 @@
 #define MX_MAX_SPHERES 16
 #define MX_MAX_BOXES 16
 #define MX_THREADS 256
+#define MX_WARPS (MX_THREADS / 32)
+// a CSR row longer than this is a hub (ops/incidence.HUB_WIDTH): a warp sums
+// it, where one thread sums every other row
+#define MX_HUB_WIDTH 32
+
+// The tile kinds of the persistent kernel's plan (kernels/mesh_cuda.py
+// TILE_KINDS): particles, edges, hinges, tets, triangles, the slots of an
+// edge, hinge and tet colour, and the dense pass's rows (one warp a row).
+enum {
+  MX_TILE_PART,
+  MX_TILE_EDGE,
+  MX_TILE_HINGE,
+  MX_TILE_TET,
+  MX_TILE_TRI,
+  MX_TILE_ECOL,
+  MX_TILE_HCOL,
+  MX_TILE_TCOL,
+  MX_TILE_ROW,
+  MX_TILES
+};
 
 // Every field is 4 bytes wide, so the ctypes mirror has no padding.
 struct MeshParams {
@@ -78,6 +98,10 @@ struct MeshParams {
   int n_tris;          // triangles of the global volume constraint, 0 off
   float vol_target;    // float32(pressure) * rest volume
   float vol_alpha;     // volume_compliance / dt^2
+  int n_inc_hubs;      // hub rows (longer than MX_HUB_WIDTH) of each
+  int n_binc_hubs;     // incidence table: edges, hinges, tets, triangle
+  int n_tinc_hubs;     // corners
+  int n_vinc_hubs;
 };
 
 // Device pointers, all 8 bytes wide.  In an ensemble every per-body buffer
@@ -123,7 +147,6 @@ struct MeshBuffers {
   const int* tcol_ids;        // (n_tet_colors, tcol_width)
   const float* tcol_valid;
   float* sc_corr;             // (3, N) dense self-collision correction
-  float* sc_stats;            // (3) mean of pred (dense pass)
   const float* colliders;     // (1 + S + B, KIN_W) collider table
   float* vlam;                // (1) the volume multiplier
   float* vdl;                 // (1) the iteration's volume dlambda
@@ -134,6 +157,10 @@ struct MeshBuffers {
   const int* tris;            // (T, 3) surface triangles
   const int* vinc_ptr;        // (N + 1) CSR rows into vinc_cols
   const int* vinc_cols;       // triangle-corner incidence: rows of vcontrib
+  const int* inc_hubs;        // the hub rows of each incidence table, in
+  const int* binc_hubs;       // ascending order (n_*_hubs of MeshParams)
+  const int* tinc_hubs;
+  const int* vinc_hubs;
 };
 
 enum {
@@ -145,6 +172,8 @@ enum {
                         // later pass (self-collision needs the whole plane)
   PF_SETCUR = 32,    // cur = pred (the split step's second half)
   PF_VOLUME = 64,    // pred += inv_mass * vdl * vgrad (the volume apply)
+  PF_PREDICT = 128,  // after finalize, the next substep's predict (no ext
+                     // force) into pred, v (and cur, prev when saving)
 };
 
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
@@ -299,13 +328,17 @@ __device__ __forceinline__ void project_contacts(const MeshParams& p,
 // Where a particle pass takes a particle's constraint sum from: the
 // contribution buffer and its CSR incidence rows, the sum divided by
 // max(deg, 1) when deg is given; body b's contributions start at
-// contrib + b * stride.
+// contrib + b * stride.  With n_hubs > 0 the rows listed in hubs (those
+// longer than MX_HUB_WIDTH) are summed by a warp each (warp_row_sum) and
+// the one-thread path skips them; without, one thread sums every row.
 struct SumSource {
   const float* contrib;
   const int* cols;
   const int* ptr;
   const float* deg;
   size_t stride;
+  const int* hubs;
+  int n_hubs;
 };
 
 // Where a particle pass takes a self-collision correction from: thread t
@@ -323,15 +356,15 @@ __device__ __forceinline__ T* body_ptr(T* ptr, size_t offset) {
   return ptr ? ptr + offset : ptr;
 }
 
-// Body blockIdx.y's view of the buffers of an ensemble (mesh_pallas.py's
+// Body `body`'s view of the buffers of an ensemble (mesh_pallas.py's
 // n_bodies > 1): its planes, multipliers, contributions, self-collision
 // scratch and ext force; its inverse masses when they are per body
 // (w_stride), its rest lengths and alphas when the materials are
 // (mat_stride); its volume multiplier and scratch.  Body 0 of a one-body
 // launch is the buffers themselves.
-__device__ __forceinline__ MeshBuffers body_buffers(const MeshParams& p,
-                                                    MeshBuffers b) {
-  const size_t body = blockIdx.y;
+__device__ __forceinline__ MeshBuffers body_buffers_of(const MeshParams& p,
+                                                       MeshBuffers b,
+                                                       size_t body) {
   const size_t n3 = 3 * (size_t)p.n;
   b.x = body_ptr(b.x, body * n3);
   b.v = body_ptr(b.v, body * n3);
@@ -340,7 +373,6 @@ __device__ __forceinline__ MeshBuffers body_buffers(const MeshParams& p,
   b.cur = body_ptr(b.cur, body * n3);
   b.prev = body_ptr(b.prev, body * n3);
   b.sc_corr = body_ptr(b.sc_corr, body * n3);
-  b.sc_stats = body_ptr(b.sc_stats, body * 3);
   b.w = body_ptr(b.w, body * p.w_stride);
   b.rest = body_ptr(b.rest, body * p.mat_stride);
   b.alpha = body_ptr(b.alpha, body * p.mat_stride);
@@ -359,6 +391,12 @@ __device__ __forceinline__ MeshBuffers body_buffers(const MeshParams& p,
   return b;
 }
 
+// The per-pass loop's view: body blockIdx.y.
+__device__ __forceinline__ MeshBuffers body_buffers(const MeshParams& p,
+                                                    const MeshBuffers& b) {
+  return body_buffers_of(p, b, blockIdx.y);
+}
+
 // The forward passes the fused backward (mesh_diff_xpbd.cu) replays, so
 // that its linearization point is the forward trajectory to the bit.
 // Each takes the whole ensemble's buffers and works on body blockIdx.y.
@@ -371,4 +409,10 @@ __global__ void particle_kernel(MeshParams p, MeshBuffers bb, SumSource src,
 // count threads on x, one row of blocks per body on y
 static inline dim3 grid_for(int count, int bodies = 1) {
   return dim3((count + MX_THREADS - 1) / MX_THREADS, bodies);
+}
+
+// A particle pass's threads: one a particle, then, from the next whole
+// warp, one warp a hub row of `hubs` (SumSource)
+static inline int particle_threads(int n, int hubs) {
+  return (n + 31) / 32 * 32 + 32 * hubs;
 }

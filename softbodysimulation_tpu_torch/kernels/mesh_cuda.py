@@ -39,10 +39,27 @@ in JAX's kernel.  The TPU kernel's switch to bf16-truncated one-hot
 products under ``approx_math`` (``mesh_pallas.py:874-876``) is an artifact
 of its matrix unit and is not carried.
 
+Every route runs a call as one launch of the persistent kernel, its
+passes separated by barriers, or, with blocked contact, one launch a
+stretch between two B-4 passes (the curve order and each correction run
+between launches).  ``plan_schedule`` plans it from the shape alone
+(``tile_counts``): each block's tiles of particles, edges, hinges, tets,
+triangles, colour slots and dense rows, the grid, and the barrier --
+``__syncthreads()`` where a block holds whole bodies (no kind of item
+above ``BLOCK_BODY_MAX`` a body), else the counting grid barrier in a
+cooperative launch sized to what the card holds at once
+(``device_occupancy``).  A particle's incidence row longer than
+``ops/incidence.HUB_WIDTH`` is summed by a warp (``hub_rows`` lists them,
+once per device), in column order, so the sums keep their bits.  The
+per-pass loop the persistent kernel replaced (one launch a pass) stays as
+its yardstick: ``run_substeps_cuda(..., design="per_pass")``, which no
+route takes.
+
 Device dispatch, with no fallback: a state on a CUDA device launches the
-kernel (or raises); a state on the CPU runs the kernel's plain version,
-``solvers.general.run_substeps_plain``; any other device raises.  The
-library is built with ``nvcc`` on the first CUDA call
+kernel (or raises: a refused cooperative launch, a grid that cannot be
+co-resident, a failed build); a state on the CPU runs the kernel's plain
+version, ``solvers.general.run_substeps_plain``; any other device raises.
+The library is built with ``nvcc`` on the first CUDA call
 (``kernels/_build.py``), never at import; the topology's tables and the
 per-constraint constants go to the card once per runner configuration and
 device, on the first call there.
@@ -81,6 +98,7 @@ from ..core.colliders import check_kin
 from ..core.config import FloorMode, LambdaMode, SolveMode, SolverConfig
 from ..core.state import SimState, Topology, body_contract, check_bodies
 from ..ops import collision as _collision
+from ..ops import incidence as _incidence
 from ..ops import integrate as _integrate
 from ..ops import volume as _volume
 from ..solvers import general as _general
@@ -139,6 +157,8 @@ class MeshParams(ctypes.Structure):
         ("w_stride", ctypes.c_int), ("mat_stride", ctypes.c_int),
         ("approx_math", ctypes.c_int), ("n_tris", ctypes.c_int),
         ("vol_target", ctypes.c_float), ("vol_alpha", ctypes.c_float),
+        ("n_inc_hubs", ctypes.c_int), ("n_binc_hubs", ctypes.c_int),
+        ("n_tinc_hubs", ctypes.c_int), ("n_vinc_hubs", ctypes.c_int),
     ]
 
 
@@ -149,8 +169,9 @@ _BUFFERS = ("x", "v", "w", "f", "pred", "cur", "prev", "lam", "blam",
             "bcol_ids",
             "bcol_valid", "tlam", "tcontrib", "tets", "trest", "talpha",
             "tdeg", "tinc_ptr", "tinc_cols", "tcol_ids", "tcol_valid",
-            "sc_corr", "sc_stats", "colliders", "vlam", "vdl", "vterm",
-            "vcontrib", "vgrad", "vwg", "tris", "vinc_ptr", "vinc_cols")
+            "sc_corr", "colliders", "vlam", "vdl", "vterm",
+            "vcontrib", "vgrad", "vwg", "tris", "vinc_ptr", "vinc_cols",
+            "inc_hubs", "binc_hubs", "tinc_hubs", "vinc_hubs")
 
 
 class MeshBuffers(ctypes.Structure):
@@ -336,11 +357,20 @@ def material_constants(materials, cfg: SolverConfig, dt: float, n_edges: int,
     return rest, alpha.contiguous()
 
 
+def hub_rows(ptr: np.ndarray) -> np.ndarray:
+    """The rows of a CSR table (its row pointers ``ptr``) longer than
+    ``ops/incidence.HUB_WIDTH``, ascending: the rows the kernel sums with a
+    warp each (``csrc/mesh_xpbd.cu`` ``warp_row_sum``)."""
+    return np.flatnonzero(np.diff(ptr) > _incidence.HUB_WIDTH).astype(
+        np.int32)
+
+
 @dataclasses.dataclass(frozen=True)
 class _DeviceTables:
     tensors: dict                # MeshBuffers field -> tensor on the device
     params: MeshParams
-    om: ctypes.Array             # Chebyshev weight per iteration
+    om: ctypes.Array             # Chebyshev weight per iteration (host)
+    om_dev: torch.Tensor         # the same on the device (at least one)
 
 
 @functools.lru_cache(maxsize=16)
@@ -371,12 +401,135 @@ def _device_tables(topo: Topology, cfg: SolverConfig, dt: float,
                        tdeg=dev(topo.tet_degree),
                        tcol_ids=dev(topo.tcol_tet_ids),
                        tcol_valid=dev(topo.tcol_valid))
+    params = make_params(topo, cfg, dt)
     for name, inc, pad in tables:
         ptr, cols = incidence_csr(inc, pad)
         tensors.update({f"{name}_ptr": dev(ptr), f"{name}_cols": dev(cols)})
+        hubs = hub_rows(ptr)
+        if hubs.size:
+            tensors[f"{name}_hubs"] = dev(hubs)
+            setattr(params, f"n_{name}_hubs", hubs.size)
     oms = _general.chebyshev_omegas(cfg)
-    return _DeviceTables(tensors=tensors, params=make_params(topo, cfg, dt),
-                         om=(ctypes.c_float * len(oms))(*oms))
+    return _DeviceTables(
+        tensors=tensors, params=params,
+        om=(ctypes.c_float * len(oms))(*oms),
+        om_dev=dev(np.asarray(list(oms) or [0.0], np.float32)))
+
+
+# the persistent kernel's plan (csrc/mesh_xpbd.cuh MX_TILE_*): the items a
+# block owns of each kind, counted over every body
+TILE_KINDS = ("particles", "edges", "hinges", "tets", "triangles",
+              "edge_colour_slots", "hinge_colour_slots", "tet_colour_slots",
+              "dense_rows")
+THREADS = 256    # csrc/mesh_xpbd.cuh MX_THREADS: threads a block
+WARPS = THREADS // 32
+# the persistent kernel's barriers (csrc/grid_barrier.cuh BARRIER_BLOCK,
+# BARRIER_GRID_CTR), as B-1's: __syncthreads() for a block of whole
+# bodies; across blocks, the counting barrier in a cooperative launch
+BARRIERS = {"block": 0, "counter": 1}
+GRID_BARRIER = "counter"
+# the largest body (items of any kind) a block holds whole and steps with
+# __syncthreads() alone: one item a thread, B-1's rule
+BLOCK_BODY_MAX = THREADS
+# B-3's designs: the persistent kernel (every route) and the per-pass loop
+# it replaced (one launch a pass), kept as its yardstick
+DESIGNS = ("persistent", "per_pass")
+
+
+def tile_counts(p: MeshParams):
+    """Items of each of ``TILE_KINDS`` a body has under the launch's
+    parameters ``p``: every particle, edge, hinge and tet (the multipliers'
+    lifecycle walks them, active or not), the volume's triangles, the
+    colour slots of a COLORED sweep's active families, and one dense row a
+    particle with dense self-collision."""
+    col = bool(p.colored)
+    return (p.n, p.n_edges, p.n_hinges, p.n_tets, p.n_tris,
+            p.col_width if col else 0,
+            p.bcol_width if col and p.bending and p.n_hinges else 0,
+            p.tcol_width if col and p.tets_on and p.n_tets else 0,
+            p.n if p.sc_mode == 1 else 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """One call of the persistent kernel: block ``j`` owns the items ``[j *
+    chunks[k], min((j + 1) * chunks[k], n_bodies * counts[k]))`` of each
+    tile kind ``k`` (``TILE_KINDS``) for the whole call, its threads those
+    at a stride of ``THREADS`` (dense rows: its warps, one a row);
+    ``barrier`` separates the passes (a key of ``BARRIERS``)."""
+
+    barrier: str
+    grid: int
+    chunks: tuple
+    counts: tuple
+    n_bodies: int
+
+    @property
+    def kind(self) -> str:
+        """``"block"`` (whole bodies a block) or ``"grid"`` (bodies across
+        blocks, a cooperative launch)."""
+        return "block" if self.barrier == "block" else "grid"
+
+    def tiles(self, kind: int):
+        """Each block's items of tile kind ``kind``, ``(lo, hi)``."""
+        total = self.counts[kind] * self.n_bodies
+        return [(min(j * self.chunks[kind], total),
+                 min((j + 1) * self.chunks[kind], total))
+                for j in range(self.grid)]
+
+
+def choose_barrier(counts) -> str:
+    """The barrier a body of ``counts`` (``tile_counts``) gets, from its
+    size alone: ``"block"`` when no kind has more than ``BLOCK_BODY_MAX``
+    items, else ``GRID_BARRIER``."""
+    return "block" if max(counts) <= BLOCK_BODY_MAX else GRID_BARRIER
+
+
+def plan_schedule(counts, n_bodies: int, n_sms: int, blocks_per_sm: int,
+                  barrier=None, grid=None) -> Schedule:
+    """The persistent kernel's tiles, barrier and grid for ``n_bodies``
+    bodies of ``counts`` items a kind (``tile_counts``) on a card of
+    ``n_sms`` SMs holding ``blocks_per_sm`` of the kernel's blocks each at
+    once (``device_occupancy``).  ``barrier`` (default ``choose_barrier``)
+    and ``grid`` (default the planner's) are for tests and timing.
+
+    ``"block"``: a block holds whole bodies, as many as fill its threads
+    but no more than spread the bodies over every SM; no co-residency is
+    needed.  A grid barrier: one block for every ``THREADS`` items of the
+    largest kind (and every ``WARPS`` dense rows), at most ``n_sms *
+    blocks_per_sm``; each kind split into tiles of whole warps (dense rows
+    in runs of rows), so the grid may come out smaller than asked, and the
+    blocks past the particles' last tile take the hub rows first; a grid
+    larger than the card holds at once raises ``ValueError`` (its barrier
+    would never open)."""
+    counts = tuple(int(c) for c in counts)
+    if len(counts) != len(TILE_KINDS) or min(counts) < 0 or counts[0] < 1:
+        raise ValueError(f"mesh kernel: tile counts {counts}")
+    if n_bodies < 1:
+        raise ValueError(f"mesh kernel: {n_bodies} bodies")
+    barrier = choose_barrier(counts) if barrier is None else barrier
+    if barrier not in BARRIERS:
+        raise ValueError(f"mesh kernel: no barrier {barrier!r}")
+    row = TILE_KINDS.index("dense_rows")
+    if barrier == "block":
+        per = (max(1, min(THREADS // max(counts), -(-n_bodies // n_sms)))
+               if grid is None else -(-n_bodies // grid))
+        return Schedule(barrier, -(-n_bodies // per),
+                        tuple(per * c for c in counts), counts, n_bodies)
+    cap = n_sms * blocks_per_sm
+    totals = [c * n_bodies for c in counts]
+    need = max(-(-t // (WARPS if k == row else THREADS))
+               for k, t in enumerate(totals))
+    g = min(need, cap) if grid is None else grid
+    if g < 1 or g > cap:
+        raise ValueError(
+            f"mesh kernel: a grid of {g} blocks cannot be co-resident on "
+            f"{n_sms} SMs x {blocks_per_sm} blocks (the {barrier} barrier "
+            f"needs every block resident)")
+    chunks = tuple(-(-t // g) if k == row else -(-(-(-t // g)) // 32) * 32
+                   for k, t in enumerate(totals))
+    used = max(-(-t // c) for t, c in zip(totals, chunks) if t)
+    return Schedule(barrier, used, chunks, counts, n_bodies)
 
 
 def reduction_threads() -> int:
@@ -387,6 +540,14 @@ def reduction_threads() -> int:
     return int(re.search(r"#define MX_THREADS (\d+)", src).group(1))
 
 
+def hub_width() -> int:
+    """``MX_HUB_WIDTH`` of ``csrc/mesh_xpbd.cuh``: rows longer than it are
+    summed by a warp, which the wrapper's hub tables (``hub_rows``) must
+    list."""
+    src = (_build.CSRC_DIR / "mesh_xpbd.cuh").read_text()
+    return int(re.search(r"#define MX_HUB_WIDTH (\d+)", src).group(1))
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """Build on first use, load, and declare every entry point's types."""
@@ -395,6 +556,9 @@ def _library() -> ctypes.CDLL:
             f"MX_THREADS ({reduction_threads()}) is not ops/volume.BLOCK "
             f"({_volume.BLOCK}): the plain volume sums would not be the "
             "kernel's")
+    if hub_width() != _incidence.HUB_WIDTH:
+        raise RuntimeError("MX_HUB_WIDTH differs between mesh_xpbd.cuh and "
+                           "ops/incidence.HUB_WIDTH")
     lib = _build.load_library(LIB_NAME, SOURCES, NVCC_EXTRA)
     _contact.declare(lib)
     lib.mesh_xpbd_params_size.argtypes = []
@@ -403,14 +567,21 @@ def _library() -> ctypes.CDLL:
     lib.mesh_xpbd_buffers_size.restype = ctypes.c_int
     lib.mesh_xpbd_error_string.argtypes = [ctypes.c_int]
     lib.mesh_xpbd_error_string.restype = ctypes.c_char_p
-    lib.mesh_xpbd_run.argtypes = [
-        ctypes.POINTER(MeshParams), ctypes.POINTER(MeshBuffers),
-        ctypes.POINTER(_contact.ContactParams),
-        ctypes.POINTER(_contact.ContactBuffers),
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_longlong),
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
-    lib.mesh_xpbd_run.restype = ctypes.c_int
+    ci, vp = ctypes.c_int, ctypes.c_void_p
+    head = [ctypes.POINTER(MeshParams), ctypes.POINTER(MeshBuffers),
+            ctypes.POINTER(_contact.ContactParams),
+            ctypes.POINTER(_contact.ContactBuffers), ci, ci, ci]
+    counts = [ctypes.POINTER(ctypes.c_longlong),
+              ctypes.POINTER(ctypes.c_longlong), vp]
+    lib.mesh_xpbd_run.argtypes = head + [
+        vp, ci, ci, ctypes.POINTER(ci), vp] + counts
+    lib.mesh_xpbd_run.restype = ci
+    lib.mesh_xpbd_run_per_pass.argtypes = head + [
+        ctypes.POINTER(ctypes.c_float)] + counts
+    lib.mesh_xpbd_run_per_pass.restype = ci
+    cip = ctypes.POINTER(ci)
+    lib.mesh_xpbd_occupancy.argtypes = [ci, ci, cip, cip, cip, cip]
+    lib.mesh_xpbd_occupancy.restype = ci
     lib.mesh_diff_xpbd_buffers_size.argtypes = []
     lib.mesh_diff_xpbd_buffers_size.restype = ctypes.c_int
     lib.mesh_diff_xpbd_run.argtypes = [
@@ -426,6 +597,38 @@ def _library() -> ctypes.CDLL:
         raise RuntimeError("MeshParams / MeshBuffers / DiffBuffers layout "
                            "differs between the wrappers and the sources")
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def device_occupancy(index: int, barrier: str):
+    """(SMs, blocks of the persistent kernel one SM holds at once) for the
+    kernel of ``barrier`` on CUDA device ``index``; raises where a grid
+    barrier has no cooperative launch."""
+    lib = _library()
+    threads, per_sm, sms, coop = (ctypes.c_int() for _ in range(4))
+    rc = lib.mesh_xpbd_occupancy(index, BARRIERS[barrier],
+                                 ctypes.byref(threads), ctypes.byref(per_sm),
+                                 ctypes.byref(sms), ctypes.byref(coop))
+    if rc != 0:
+        msg = lib.mesh_xpbd_error_string(rc).decode()
+        raise RuntimeError(f"mesh kernel occupancy failed: {msg} ({rc})")
+    if threads.value != THREADS:
+        raise RuntimeError(f"mesh kernel: {threads.value} threads a block in "
+                           f"the library, {THREADS} here")
+    if barrier != "block" and not coop.value:
+        raise RuntimeError(f"mesh kernel: device {index} has no cooperative "
+                           f"launch for the {barrier} barrier")
+    return sms.value, per_sm.value
+
+
+def schedule_for(counts, n_bodies: int, device: torch.device,
+                 barrier=None) -> Schedule:
+    """``plan_schedule`` with the occupancy of ``device``."""
+    barrier = choose_barrier(counts) if barrier is None else barrier
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    sms, per_sm = device_occupancy(index, barrier)
+    return plan_schedule(counts, n_bodies, sms, per_sm, barrier=barrier)
 
 
 def launch_params(tables: _DeviceTables, world) -> MeshParams:
@@ -452,15 +655,20 @@ def run_substeps_cuda(state: SimState, topo: Topology, cfg: SolverConfig,
                       batched: bool = False,
                       per_body_mass: bool = False,
                       approx_math: bool = False, *,
-                      contact_design: str = "culled") -> SimState:
+                      contact_design: str = "culled",
+                      design: str = "persistent",
+                      schedule=None) -> SimState:
     """Launch the kernel for ``n_substeps`` substeps of a CUDA state; the
     semantics of ``solvers.general.run_substeps_plain`` (``batched``: of
-    ``run_substeps_plain_batched``, every body in one launch a pass;
+    ``run_substeps_plain_batched``, every body in the same launches;
     ``approx_math`` as there), the state's ColliderSet (if any) replacing
-    the config's rigid world.  ``contact_design="serial"`` runs B-4's
-    yardstick design (``kernels.contact_cuda``) in the blocked contact
-    passes: for the card tests and ``chip_smoke.py``, never a route.  No
-    host sync."""
+    the config's rigid world.  One launch of the persistent kernel a call,
+    or, with blocked contact, one a stretch between two B-4 passes
+    (``schedule_for``).  ``design="per_pass"`` runs B-3's yardstick, one
+    launch a pass; ``schedule`` (a ``Schedule`` for this shape) another
+    plan than the shape's; ``contact_design="serial"`` B-4's yardstick
+    (``kernels.contact_cuda``) in the blocked contact passes: each for the
+    card tests and ``chip_smoke.py``, never a route.  No host sync."""
     global launches
     _general.check_state(state)
     dev = state.device
@@ -527,7 +735,7 @@ def run_substeps_cuda(state: SimState, topo: Topology, cfg: SolverConfig,
                     vdl=f32(b), vterm=f32(b, t), vcontrib=f32(b, 3 * t, 3),
                     vgrad=f32(b, 3, n), vwg=f32(b, n))
     if params.sc_mode == 1:
-        work.update(sc_corr=f32(b, 3, n), sc_stats=f32(b, 3))
+        work.update(sc_corr=f32(b, 3, n))
     bufs = MeshBuffers(**{k: ctypes.c_void_p(work[k].data_ptr())
                           for k in _BUFFERS if k in work})
     lib = _library()
@@ -539,13 +747,32 @@ def run_substeps_cuda(state: SimState, topo: Topology, cfg: SolverConfig,
         ct.update(pred=work["pred"], w=w)
         cb = _contact.buffers(ct)
     count, ccount = ctypes.c_longlong(0), ctypes.c_longlong(0)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.mesh_xpbd_run(
-        ctypes.byref(params), ctypes.byref(bufs),
-        None if cp is None else ctypes.byref(cp),
-        None if cb is None else ctypes.byref(cb), dev.index, n_substeps,
-        int(with_ext), tables.om, ctypes.byref(count), ctypes.byref(ccount),
-        ctypes.c_void_p(stream))
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    head = (ctypes.byref(params), ctypes.byref(bufs),
+            None if cp is None else ctypes.byref(cp),
+            None if cb is None else ctypes.byref(cb), dev.index, n_substeps,
+            int(with_ext))
+    if design == "per_pass":
+        rc = lib.mesh_xpbd_run_per_pass(*head, tables.om,
+                                        ctypes.byref(count),
+                                        ctypes.byref(ccount), stream)
+    elif design == "persistent":
+        counts = tile_counts(params)
+        sched = schedule or schedule_for(counts, b, dev)
+        if (sched.counts, sched.n_bodies) != (counts, b):
+            raise ValueError("mesh kernel: the schedule is for another "
+                             "shape")
+        # the counting barrier's word, zeroed by the library before each
+        # launch
+        counter = torch.empty(1, dtype=torch.int64, device=dev)
+        chunks = (ctypes.c_int * len(TILE_KINDS))(*sched.chunks)
+        rc = lib.mesh_xpbd_run(
+            *head, ctypes.c_void_p(tables.om_dev.data_ptr()),
+            BARRIERS[sched.barrier], sched.grid, chunks,
+            ctypes.c_void_p(counter.data_ptr()), ctypes.byref(count),
+            ctypes.byref(ccount), stream)
+    else:
+        raise ValueError(f"mesh kernel: no design {design!r}")
     launches += count.value
     _contact.launches += ccount.value
     if rc != 0:

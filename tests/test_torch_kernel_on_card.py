@@ -63,7 +63,15 @@ the serial design it replaced (the same touching bits and candidates,
 |dx| < 1e-6, two runs equal to the bit, 4 launches against 6) at block
 sizes from 8 to 1,024, M from 1 to nb, on a cloud whose blocks touch none
 but themselves and one where every candidate touches, and through the
-mesh loop (within 1e-5 of the serial design, 3 launches a pass).
+mesh loop (within 1e-5 of the serial design, 3 launches a pass).  B-3's
+two designs (``mesh_cuda.DESIGNS``): the persistent kernel against the
+per-pass loop to the bit on every mesh case (exact and ``approx_math``),
+tet, contact, volume, ensemble and collider case, at the 20k
+ball-on-cloth's frame-30/60/90 states (19 launches a 6-substep call with
+blocked contact), each barrier forced, five repeats, one launch a
+contact-free call, a grid beyond the card refused; the hub warps against
+the plain engine to the bit; the dense pass a warp a row within 1e-5 of
+the plain pass.
 """
 
 import pytest
@@ -1177,3 +1185,287 @@ def test_culled_b4_first_launch_in_a_fresh_process_on_card(cuda, block,
                           timeout=600)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert float(proc.stdout.split()[-1]) < contact_cases.DX_PASS
+
+
+# ---- B-3's persistent kernel against its per-pass loop -------------------
+
+B3_LEAVES = ("positions", "velocities", "lambda_dist", "lambda_bend",
+             "lambda_tet", "lambda_volume", "ext_force")
+
+
+def _b3_bits(a, b):
+    """Leaves of two mesh results that differ in any bit (NaN-aware)."""
+    bad = []
+    for k in B3_LEAVES:
+        x, y = getattr(a, k), getattr(b, k)
+        if (x is None) != (y is None) or (x is not None and not torch.equal(
+                x.reshape(-1).view(torch.int32),
+                y.reshape(-1).view(torch.int32))):
+            bad.append(k)
+    return bad
+
+
+def _b3_designs(state, topo, cfg, dt_sub, n_sub, **kw):
+    """{design: (result, launches)} of one call from the same state."""
+    out = {}
+    for design in mc.DESIGNS:
+        before = mc.launches
+        out[design] = (mc.run_substeps_cuda(state, topo, cfg, dt_sub, n_sub,
+                                            design=design, **kw),
+                       mc.launches - before)
+    torch.cuda.synchronize()
+    return out
+
+
+def _b3_equal(state, topo, cfg, dt_sub, n_sub, launches=1, **kw):
+    """The persistent design equals the per-pass loop to the bit, in
+    ``launches`` launches (None: not checked); returns its result."""
+    runs = _b3_designs(state, topo, cfg, dt_sub, n_sub, **kw)
+    (new, n_new), (old, _) = runs["persistent"], runs["per_pass"]
+    assert not _b3_bits(new, old), _b3_bits(new, old)
+    assert launches is None or n_new == launches, n_new
+    return new
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(MESH_CASES))
+@pytest.mark.parametrize("approx", [False, True])
+def test_persistent_b3_equals_per_pass_on_card(cuda, name, approx):
+    """Every mesh case (JACOBI and COLORED, every lambda mode, Chebyshev,
+    bending, pins), exact and ``approx_math``: one launch, every leaf equal
+    to the per-pass loop to the bit."""
+    cfg, kind, kw, frames = MESH_CASES[name]
+    topo, fields = mesh_cases.case_inputs(kind, **kw)
+    state = state_from_numpy(fields, device=cuda)
+    new = _b3_equal(state, topo, cfg, 1 / 60 / cfg.substeps,
+                    frames * cfg.substeps, with_ext=True,
+                    approx_math=approx)
+    assert float((new.positions - state.positions).abs().max()) > 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(TET_CASES))
+def test_persistent_b3_tets_equal_per_pass_on_card(cuda, name):
+    cfg, kind, kw, frames = TET_CASES[name]
+    topo, fields = contact_cases.tet_inputs(kind, contact_cases.modules(),
+                                            **kw)
+    state = state_from_numpy(fields, device=cuda)
+    _b3_equal(state, topo, cfg, 1 / 60 / cfg.substeps,
+              frames * cfg.substeps, with_ext=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(CONTACT_CASES))
+def test_persistent_b3_contact_equals_per_pass_on_card(cuda, name):
+    """Dense and blocked self-collision: dense runs inside the persistent
+    kernel (one launch), blocked splits it around each B-4 pass; both to
+    the bit."""
+    cfg, frames = CONTACT_CASES[name]
+    topo, fields, _ = contact_cases.contact_scene(contact_cases.modules())
+    state = state_from_numpy(fields, device=cuda)
+    dense = cfg.self_collision_backend == "dense"
+    _b3_equal(state, topo, cfg, 1 / 60 / cfg.substeps,
+              frames * cfg.substeps, launches=1 if dense else None,
+              with_ext=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(VOLUME_CASES))
+def test_persistent_b3_volume_equals_per_pass_on_card(cuda, name):
+    """The global volume, one body and ensembles (the reduction a phase
+    between two barriers, one block a body): to the bit."""
+    cfg, topo, fields, nb, frames = volume_cases.case_inputs(name)
+    st = state_from_numpy(fields, device=cuda)
+    launches = 1 if cfg.self_collision_backend == "dense" or not \
+        cfg.enable_self_collision else None
+    new = _b3_equal(st, topo, cfg, volume_cases.DT / cfg.substeps,
+                    frames * cfg.substeps, launches=launches, with_ext=True,
+                    batched=nb > 1)
+    assert float(new.lambda_volume.abs().min()) > 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(ensemble_cases.mesh_ensemble_cases()))
+def test_persistent_b3_ensembles_equal_per_pass_on_card(cuda, name):
+    """Shared and per-body masses, per-body materials, a shared kinematic
+    sphere, dense contact: every body in one launch, to the bit."""
+    topo, cfg, st, mats, frames, opts = ensemble_cases.mesh_case(name, cuda)
+    _b3_equal(st, topo, cfg, ensemble_cases.DT / cfg.substeps,
+              frames * cfg.substeps, with_ext=True, materials=mats,
+              batched=True, per_body_mass=bool(opts.get("per_body_mass")))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", MESH_COLLIDER_CASES)
+def test_persistent_b3_colliders_equal_per_pass_on_card(cuda, name):
+    """Config boxes and a ColliderSet's traced table (its poses moved once
+    on the same runner): the persistent kernel equals the per-pass loop
+    and the plain engine."""
+    def runner(design):
+        return lambda topo, cfg, dt, frames, kin: (
+            lambda st: mc.run_substeps_cuda(
+                st, topo, cfg, dt / cfg.substeps, frames * cfg.substeps,
+                with_ext=True, design=design))
+
+    new = collider_cases.mesh_runs(name, cuda, runner("persistent"),
+                                   pgeneral.multi_step_fn)
+    old = collider_cases.mesh_runs(name, cuda, runner("per_pass"),
+                                   pgeneral.multi_step_fn)
+    for (a, ref, _), (b, _, _) in zip(new, old):
+        assert not _b3_bits(a, b), name
+        assert torch.equal(a.positions, ref.positions), name
+
+
+def _ball_on_cloth_20k(cuda):
+    """(topology, config, {frame: state}) of the 20k ball-on-cloth at
+    frames 30, 60 and 90 of its step."""
+    topo, fields, cfg, _ = contact_cases.scaled_ball_on_cloth(
+        contact_cases.modules())
+    st = state_from_numpy(fields, device=cuda)
+    step = mc.make_mesh_cuda_step(topo, cfg, 1 / 60)
+    states = {}
+    for frame in range(1, 91):
+        st = step(st)
+        if frame % 30 == 0:
+            states[frame] = st
+    return topo, cfg, states
+
+
+@pytest.mark.gpu
+def test_persistent_b3_blocked_contact_at_20k_on_card(cuda):
+    """The 20k ball-on-cloth at frames 30, 60 and 90 (blocked contact every
+    3rd substep, Chebyshev, tets, bending, the hub rows): a frame's 6
+    substeps equal the per-pass loop to the bit in 19 persistent launches
+    (one a stretch up to each B-4 pass -- the curve order and two passes
+    an iteration at each of the two contact substeps -- and the last
+    stretch), run twice to the bit."""
+    topo, cfg, states = _ball_on_cloth_20k(cuda)
+    dt_sub = 1 / 60 / cfg.substeps
+    for frame, st in states.items():
+        new = _b3_equal(st, topo, cfg, dt_sub, 6, launches=19)
+        again = mc.run_substeps_cuda(st, topo, cfg, dt_sub, 6)
+        assert not _b3_bits(new, again), frame
+        assert float((new.positions - st.positions).abs().max()) > 1e-5
+
+
+@pytest.mark.gpu
+def test_hub_warps_keep_the_twins_bits_on_card(cuda):
+    """A tet fan whose centroid's rows are hubs (642 edges, 1,280 tets: the
+    20k ball), without contact: both designs equal the plain engine, whose
+    hub rows are ``incidence.gather_sum``'s column-order sums, to the
+    bit."""
+    topo, fields, cfg, nc = contact_cases.scaled_ball_on_cloth(
+        contact_cases.modules())
+    cfg = cfg.replace(enable_self_collision=False, enable_bending=False)
+    assert mc.hub_rows(mc.incidence_csr(topo.tet_incidence,
+                                        4 * topo.n_tets)[0]).size == 1
+    st = state_from_numpy(fields, device=cuda)
+    dt_sub = 1 / 60 / cfg.substeps
+    new = _b3_equal(st, topo, cfg, dt_sub, 3)
+    ref = pgeneral.run_substeps_plain(st, topo, cfg, dt_sub, 3)
+    for k in ("positions", "velocities", "lambda_dist", "lambda_tet"):
+        assert torch.equal(getattr(new, k), getattr(ref, k)), k
+
+
+@pytest.mark.gpu
+def test_dense_pass_split_across_warps_holds_its_gates_on_card(cuda):
+    """The catalogued ball_on_cloth in contact: one substep of one
+    iteration (one dense pass) within 1e-5 of the plain engine, where one
+    pair classified differently would move its particles by their overlap
+    (about 1e-3 here), and 3 frames within 2e-4."""
+    from softbodysimulation_tpu_torch.core import scenes
+
+    st, step, info = scenes.ball_on_cloth(device=cuda)
+    topo, cfg = info["topology"], info["config"]
+    for _ in range(60):
+        st = step(st)
+    one = cfg.replace(iterations=1)
+    dt_sub = 1 / 60 / cfg.substeps
+    new = _b3_equal(st, topo, one, dt_sub, 1)
+    ref = pgeneral.run_substeps_plain(st, topo, one, dt_sub, 1)
+    assert float((new.positions - ref.positions).abs().max()) < 1e-5
+    new = mc.make_mesh_cuda_step(topo, cfg, 1 / 60, n_steps=3)(st)
+    ref = pgeneral.multi_step_fn(st, topo, cfg, 1 / 60, 3)
+    assert float((new.positions - ref.positions).abs().max()) < 2e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("barrier", list(mc.BARRIERS))
+def test_each_b3_barrier_kind_equals_per_pass_on_card(cuda, barrier):
+    """Each barrier forced on a small COLORED body and a dense-contact
+    ensemble equals the per-pass loop to the bit in one launch."""
+    for name in ("colored", "dense_contact"):
+        topo, cfg, st, mats, frames, opts = ensemble_cases.mesh_case(name,
+                                                                     cuda)
+        nb = st.positions.shape[0]
+        p = mc.make_params(topo, cfg, 1 / 240)
+        if st.lambda_tet is None:
+            p.n_tets = 0
+        sched = mc.schedule_for(mc.tile_counts(p), nb, cuda, barrier=barrier)
+        assert sched.barrier == barrier
+        _b3_equal(st, topo, cfg, ensemble_cases.DT / cfg.substeps,
+                  frames * cfg.substeps, with_ext=True, materials=mats,
+                  batched=True, per_body_mass=bool(opts.get("per_body_mass")),
+                  schedule=sched)
+
+
+@pytest.mark.gpu
+def test_persistent_b3_is_race_free_on_card(cuda):
+    """cloth_xl-like cloth on many blocks, 40 substeps, run five times:
+    equal to the bit each time and to the per-pass loop."""
+    from softbodysimulation_tpu_torch.core import scenes
+
+    st, _, info = scenes.cloth(res=48, device=cuda)
+    topo, cfg = info["topology"], info["config"]
+    ref = mc.run_substeps_cuda(st, topo, cfg, 1 / 240, 40, with_ext=True,
+                               design="per_pass")
+    for _ in range(5):
+        out = mc.run_substeps_cuda(st, topo, cfg, 1 / 240, 40, with_ext=True)
+        assert not _b3_bits(out, ref)
+
+
+@pytest.mark.gpu
+def test_persistent_b3_launches_once_a_contact_free_call_on_card(cuda):
+    """One launch a call on every contact-free mesh route (any number of
+    substeps, several frames, an ensemble); none for no substep; the
+    per-pass loop's count for comparison."""
+    cfg, kind, kw, _ = MESH_CASES["jacobi_reset_rho0"]
+    topo, fields = mesh_cases.case_inputs(kind, **kw)
+    state = state_from_numpy(fields, device=cuda)
+
+    def count(fn):
+        before = mc.launches
+        fn()
+        return mc.launches - before
+
+    for n in (1, 7, 64):
+        assert count(lambda: mc.make_mesh_cuda_substep_runner(
+            topo, cfg, 1 / 240, n)(state)) == 1
+    assert count(lambda: mc.make_mesh_cuda_step(topo, cfg, 1 / 60,
+                                                n_steps=3)(state)) == 1
+    assert count(lambda: mc.make_mesh_cuda_substep_runner(
+        topo, cfg, 1 / 240, 0)(state)) == 0
+    assert count(lambda: mc.run_substeps_cuda(
+        state, topo, cfg, 1 / 240, 2, design="per_pass")) > 2
+
+
+@pytest.mark.gpu
+def test_b3_grid_that_cannot_be_resident_raises_on_card(cuda):
+    import dataclasses
+
+    st, _, info = scenes_cloth(cuda)
+    topo, cfg = info["topology"], info["config"]
+    counts = mc.tile_counts(mc.make_params(topo, cfg, 1 / 240))
+    sms, per_sm = mc.device_occupancy(torch.cuda.current_device(), "counter")
+    big = dataclasses.replace(mc.schedule_for(counts, 1, cuda, "counter"),
+                              grid=sms * per_sm + 1)
+    before = mc.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        mc.run_substeps_cuda(st, topo, cfg, 1 / 240, 4, schedule=big)
+    assert mc.launches == before
+
+
+def scenes_cloth(cuda):
+    from softbodysimulation_tpu_torch.core import scenes
+
+    return scenes.cloth(res=24, device=cuda)
