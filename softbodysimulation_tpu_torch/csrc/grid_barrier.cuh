@@ -12,6 +12,11 @@
 // neither a reset nor a sense flag; the caller zeroes it before the
 // launch.  It timed ahead of cooperative_groups' grid.sync() at every
 // lattice size tried (PERF.md, PR 10), which is why it is hand-written.
+//
+// COUNT (the lattice's counted kernel only): each thread also adds the
+// clock64() cycles from its arrival at sync() to its release to
+// wait_cycles, and 1 to crossed; lane 0's are the warp's.  Without it the
+// two members are never read and the barrier compiles as before.
 
 #pragma once
 
@@ -33,12 +38,16 @@ __device__ __forceinline__ unsigned long long ld_acquire(
   return v;
 }
 
-template <int KIND>
+template <int KIND, bool COUNT = false>
 struct Barrier {
   unsigned long long* counter;
   unsigned long long target;
+  unsigned long long wait_cycles = 0;
+  unsigned long long crossed = 0;
 
   __device__ void sync() {
+    long long arrived = 0;
+    if constexpr (COUNT) arrived = clock64();
     if constexpr (KIND == BARRIER_BLOCK) {
       __syncthreads();
     } else {
@@ -50,6 +59,10 @@ struct Barrier {
         }
       }
       __syncthreads();
+    }
+    if constexpr (COUNT) {
+      wait_cycles += (unsigned long long)(clock64() - arrived);
+      ++crossed;
     }
   }
 };

@@ -98,6 +98,10 @@
 // and the barrier; res 128's 2.1M particles no longer fit in L2.
 // The per-pass loop (one launch a pass, lattice_xpbd_run_per_pass) stays
 // as the yardstick the persistent kernel is timed and checked against.
+// lattice_counted_kernel is the persistent kernel with clock64() tallies
+// of its barriers (the same body, persistent_body<KIND, true>), launched
+// only inside the host's counting scope; the kernel the benchmark times
+// never carries them.
 //
 // The per-cell tet sweep (solvers/lattice.py::_tet_sweep; the TPU kernel's
 // in-kernel sweep, lattice_pallas.py:591-659 and :1189) projects the 6 Kuhn
@@ -294,10 +298,14 @@ __device__ __forceinline__ void tail_one(const LatticeParams& p,
 // f's multipliers are in lam (buffer 0) or lam_scratch (1), the buffer
 // index advancing with each of f's passes (every family runs as many
 // passes as the others, so one index `fb` at substep boundaries).
-template <int KIND>
-__global__ void __launch_bounds__(LX_THREADS)
-    lattice_persistent_kernel(LatticeParams p, RunArgs r) {
-  Barrier<KIND> bar{r.counter, 0ull};
+// COUNT: the counted kernel's tallies (lattice_counted_kernel); without it
+// `totals` is unused.
+template <int KIND, bool COUNT>
+__device__ __forceinline__ void persistent_body(
+    const LatticeParams& p, const RunArgs& r, unsigned long long* totals) {
+  long long entered = 0;
+  if constexpr (COUNT) entered = clock64();
+  Barrier<KIND, COUNT> bar{r.counter, 0ull};
   const int n = p.n;
   const int lo = blockIdx.x * r.chunk;
   const int hi = min(lo + r.chunk, n);
@@ -400,14 +408,43 @@ __global__ void __launch_bounds__(LX_THREADS)
     }
   }
 #undef LAM
+  if constexpr (COUNT) {
+    if ((threadIdx.x & 31) == 0) {
+      atomicAdd(totals, bar.wait_cycles);
+      atomicAdd(totals + 1, (unsigned long long)(clock64() - entered));
+      atomicAdd(totals + 2, bar.crossed);
+    }
+  }
 }
 
 #undef LX_EACH
 
-static const void* persistent_fn(int kind) {
-  if (kind == LX_BLOCK) return (const void*)lattice_persistent_kernel<LX_BLOCK>;
+// A call, the kernel the benchmark times and profiles.
+template <int KIND>
+__global__ void __launch_bounds__(LX_THREADS)
+    lattice_persistent_kernel(LatticeParams p, RunArgs r) {
+  persistent_body<KIND, false>(p, r, nullptr);
+}
+
+// The same call, counted: each warp adds, at its exit, lane 0's cycles
+// inside Barrier::sync() (arrival to release), its cycles resident (entry
+// to exit) and the barriers it crossed to totals[0], [1] and [2].  The
+// simulated state is the off kernel's to the bit; only
+// softbodysimulation_tpu_torch.diag.profiling.counting() launches it.
+template <int KIND>
+__global__ void __launch_bounds__(LX_THREADS)
+    lattice_counted_kernel(LatticeParams p, RunArgs r,
+                           unsigned long long* totals) {
+  persistent_body<KIND, true>(p, r, totals);
+}
+
+static const void* persistent_fn(int kind, bool counted) {
+  if (kind == LX_BLOCK)
+    return counted ? (const void*)lattice_counted_kernel<LX_BLOCK>
+                   : (const void*)lattice_persistent_kernel<LX_BLOCK>;
   if (kind == LX_GRID_CTR)
-    return (const void*)lattice_persistent_kernel<LX_GRID_CTR>;
+    return counted ? (const void*)lattice_counted_kernel<LX_GRID_CTR>
+                   : (const void*)lattice_persistent_kernel<LX_GRID_CTR>;
   return nullptr;
 }
 
@@ -447,10 +484,11 @@ const char* lattice_xpbd_error_string(int code) {
 
 // The persistent kernel of barrier `kind` on `device`: its threads a block
 // (LX_THREADS), the blocks of it one SM holds at once, the SMs, and
-// whether the device launches cooperatively.  Returns a cudaError_t.
+// whether the device launches cooperatively.  Returns a cudaError_t.  (The
+// counted twin takes the same plan: it uses no more registers a thread.)
 int lattice_xpbd_occupancy(int device, int kind, int* threads,
                            int* blocks_per_sm, int* n_sms, int* coop) {
-  const void* fn = persistent_fn(kind);
+  const void* fn = persistent_fn(kind, false);
   if (!fn) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess)
@@ -475,9 +513,11 @@ int lattice_xpbd_occupancy(int device, int kind, int* threads,
 // `chunk` particles, a whole number of bodies each) or LX_GRID_CTR (a
 // cooperative launch of `grid` blocks, planned by kernels/lattice_cuda.py
 // to fit the device at once; counter: one 64-bit word of scratch, zeroed
-// here).  *n_launched counts the kernels launched (1, or 0 for no
-// substep).  Returns a cudaError_t: the cooperative launch itself refuses
-// a grid that cannot be co-resident (cudaErrorCooperativeLaunchTooLarge);
+// here).  totals: null launches lattice_persistent_kernel; else three
+// 64-bit totals that lattice_counted_kernel adds to (never zeroed here).
+// *n_launched counts the kernels launched (1, or 0 for no substep).
+// Returns a cudaError_t: the cooperative launch itself refuses a grid
+// that cannot be co-resident (cudaErrorCooperativeLaunchTooLarge);
 // nothing is synchronised.
 int lattice_xpbd_run(const LatticeParams* hp, int device, float* x, float* v,
                      const float* w, const float* f, int ext_first,
@@ -485,13 +525,14 @@ int lattice_xpbd_run(const LatticeParams* hp, int device, float* x, float* v,
                      float* pred_b, float* lam_t, float* tet_terms,
                      const float* colliders, int n_substeps, int kind,
                      int grid, int chunk, unsigned long long* counter,
-                     long long* n_launched, void* stream_handle) {
+                     unsigned long long* totals, long long* n_launched,
+                     void* stream_handle) {
   const LatticeParams p = *hp;
   cudaStream_t stream = (cudaStream_t)stream_handle;
   *n_launched = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const void* fn = persistent_fn(kind);
+  const void* fn = persistent_fn(kind, totals != nullptr);
   if (!fn || bad_params(p, colliders, lam_t, tet_terms) || grid <= 0 ||
       chunk <= 0 || (long long)grid * chunk < p.n ||
       (kind == LX_BLOCK && chunk % p.body_n != 0) ||
@@ -501,14 +542,15 @@ int lattice_xpbd_run(const LatticeParams* hp, int device, float* x, float* v,
 
   RunArgs r{x, v, w, f, lam, lam_scratch, pred_a, pred_b, lam_t, tet_terms,
             colliders, counter, n_substeps, ext_first, chunk};
+  void* args[] = {(void*)&p, (void*)&r, (void*)&totals};
   if (kind == LX_BLOCK) {
-    lattice_persistent_kernel<LX_BLOCK><<<grid, LX_THREADS, 0, stream>>>(p,
-                                                                         r);
-    err = cudaGetLastError();
+    // the launch's own status: cudaGetLastError() after <<<>>> would also
+    // report an error an earlier call left on this thread (a refused
+    // cooperative launch), and fail this launch for it
+    err = cudaLaunchKernel(fn, dim3(grid), dim3(LX_THREADS), args, 0, stream);
   } else {
     err = cudaMemsetAsync(counter, 0, sizeof(unsigned long long), stream);
     if (err != cudaSuccess) return (int)err;
-    void* args[] = {(void*)&p, (void*)&r};
     err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(LX_THREADS), args,
                                       0, stream);
   }

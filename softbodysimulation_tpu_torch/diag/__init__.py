@@ -1,1 +1,1 @@
-from . import diagnostics
+from . import diagnostics, profiling

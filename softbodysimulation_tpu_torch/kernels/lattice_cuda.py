@@ -37,7 +37,9 @@ without a card can take.  The library is built with ``nvcc`` on the first
 CUDA call (``kernels/_build.py``), never at import.
 
 ``launches`` counts the CUDA kernels this module has launched; callers may
-reset it to 0 to count one run.
+reset it to 0 to count one run.  ``diag.profiling`` names the runner's
+spans and, inside ``profiling.counting()``, has it launch the kernel's
+counted twin, which tallies its barriers' wait on the card.
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from ..core.colliders import check_kin
 from ..core.config import (DampingMode, FloorMode, LambdaMode, SolveMode,
                            SolverConfig)
 from ..core.state import SimState, body_contract, check_bodies
+from ..diag import profiling
 from ..ops import collision as _collision
 from ..solvers import lattice as _lat
 from ..topology.lattice import LatticeSpec
@@ -303,7 +306,7 @@ def _library() -> ctypes.CDLL:
     state_args = [ctypes.POINTER(LatticeParams), ci, vp, vp, vp, vp, ci,
                   vp, vp, vp, vp, vp, vp, vp, ci]
     lib.lattice_xpbd_run.argtypes = state_args + [
-        ci, ci, ci, vp, ctypes.POINTER(ctypes.c_longlong), vp]
+        ci, ci, ci, vp, vp, ctypes.POINTER(ctypes.c_longlong), vp]
     lib.lattice_xpbd_run.restype = ci
     lib.lattice_xpbd_run_per_pass.argtypes = state_args + [
         ctypes.POINTER(ctypes.c_longlong), vp]
@@ -435,79 +438,101 @@ def run_substeps_cuda(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
     semantics of ``solvers.lattice.run_substeps_plain`` (``batched``: of
     ``run_substeps_plain_batched``, all bodies in one launch; ``approx_math``
     as there), the state's ColliderSet (if any) replacing the config's
-    rigid world.  One launch of the persistent kernel (``schedule_for``).
+    rigid world.  One launch of the persistent kernel (``schedule_for``);
+    inside ``diag.profiling.counting()``, of its counted twin.
     ``design="per_pass"`` runs the yardstick, one launch a pass, and
     ``schedule`` (a ``Schedule`` for this shape) another plan than the
     shape's: for the card tests and ``chip_smoke.py``'s timing, never a
-    route.  No host sync."""
+    route.  No host sync.  Under a profiler the call is the span
+    ``sbs.lattice.call``, its phases ``sbs.lattice.layout`` (leaves to
+    planes, scratch, the rigid world), ``sbs.lattice.launch`` (the
+    constants, the schedule, the launch) and ``sbs.lattice.unlayout``
+    (planes to leaves)."""
+    with profiling.span("lattice.call"):
+        return _run_substeps_cuda(state, spec, cfg, dt_sub, n_substeps,
+                                  with_ext, batched, approx_math, design,
+                                  schedule)
+
+
+def _run_substeps_cuda(state, spec, cfg, dt_sub, n_substeps, with_ext,
+                       batched, approx_math, design, schedule):
     global launches
     _lat.check_state(state, cfg)
     dev = state.device
-    world = _collision.RigidWorld.of(cfg, state.colliders, dev)
-    rows = (world.n_spheres, world.n_boxes)
-    _check_supported(cfg, spec, kin_colliders=rows)
-    if dev.type != "cuda":
-        raise ValueError(f"lattice kernel: state on {dev}, not CUDA")
-    b = state.positions.shape[0] if batched else 1
-    _check_leaves(state, spec, b, batched)
-    n1, nfam = spec.n_particles, spec.n_families
-    n = b * n1
-    # body leaves -> (3, B*N) planes and (k, B*N) multiplier planes, once
-    # per call (as _to_grid); the kernel updates them in place
-    x = _planes(state.positions, b)
-    v = _planes(state.velocities, b)
-    w = state.inv_mass.expand(b, n1).reshape(n).contiguous()
-    f = _planes(state.ext_force, b)
-    lam = _rows(state.lambda_dist, nfam, b)
-    lam_scratch = torch.empty_like(lam)
-    pred_a = torch.empty((3, n), dtype=torch.float32, device=dev)
-    pred_b = torch.empty_like(pred_a)
-    lam_t = None
-    lam_t_ptr = terms_ptr = ctypes.c_void_p(None)
-    if state.lambda_tet is not None:
-        lam_t = _rows(state.lambda_tet, 6, b)
-        lam_t_ptr = _ptr("lambda_tet", lam_t, (6, n), dev)
-    if cfg.enable_tet_volume:
-        # the tet sweep's per-path endpoint terms (72 planes) and its tet
-        # degree and valid-cell planes (csrc/lattice_xpbd.cu TET_PLANES)
-        tet_terms = torch.empty((TET_PLANES, n), dtype=torch.float32,
-                                device=dev)
-        terms_ptr = ctypes.c_void_p(tet_terms.data_ptr())
-    args = [_ptr("positions", x, (3, n), dev),
-            _ptr("velocities", v, (3, n), dev),
-            _ptr("inv_mass", w, (n,), dev),
-            _ptr("ext_force", f, (3, n), dev),
-            ctypes.c_int(int(with_ext)),
-            _ptr("lambda_dist", lam, (nfam, n), dev),
-            _ptr("lambda scratch", lam_scratch, (nfam, n), dev),
-            _ptr("pred", pred_a, (3, n), dev),
-            _ptr("pred", pred_b, (3, n), dev), lam_t_ptr, terms_ptr,
-            _ptr("colliders", world.table, (1 + sum(rows),
-                                             _collision.KIN_W), dev)]
-    params = make_params(spec, cfg, dt_sub, approx_math)
-    params.n = n
-    params.n_spheres, params.n_boxes = rows
-    lib = _library()
-    count = ctypes.c_longlong(0)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    if design == "per_pass":
-        rc = lib.lattice_xpbd_run_per_pass(ctypes.byref(params), dev.index,
-                                           *args, n_substeps,
-                                           ctypes.byref(count), stream)
-    elif design == "persistent":
-        sched = schedule or schedule_for(spec, b, dev)
-        if (sched.n, sched.body_n) != (n, n1):
-            raise ValueError("lattice kernel: the schedule is for another "
-                             "shape")
-        # the counting barrier's word, zeroed by the library before launch
-        counter = torch.empty(1, dtype=torch.int64, device=dev)
-        rc = lib.lattice_xpbd_run(
-            ctypes.byref(params), dev.index, *args, n_substeps,
-            BARRIERS[sched.barrier], sched.grid, sched.chunk,
-            ctypes.c_void_p(counter.data_ptr()), ctypes.byref(count),
-            stream)
-    else:
-        raise ValueError(f"lattice kernel: no design {design!r}")
+    with profiling.span("lattice.layout"):
+        world = _collision.RigidWorld.of(cfg, state.colliders, dev)
+        rows = (world.n_spheres, world.n_boxes)
+        _check_supported(cfg, spec, kin_colliders=rows)
+        if dev.type != "cuda":
+            raise ValueError(f"lattice kernel: state on {dev}, not CUDA")
+        b = state.positions.shape[0] if batched else 1
+        _check_leaves(state, spec, b, batched)
+        n1, nfam = spec.n_particles, spec.n_families
+        n = b * n1
+        # body leaves -> (3, B*N) planes and (k, B*N) multiplier planes,
+        # once per call (as _to_grid); the kernel updates them in place
+        x = _planes(state.positions, b)
+        v = _planes(state.velocities, b)
+        w = state.inv_mass.expand(b, n1).reshape(n).contiguous()
+        f = _planes(state.ext_force, b)
+        lam = _rows(state.lambda_dist, nfam, b)
+        lam_scratch = torch.empty_like(lam)
+        pred_a = torch.empty((3, n), dtype=torch.float32, device=dev)
+        pred_b = torch.empty_like(pred_a)
+        lam_t = None
+        lam_t_ptr = terms_ptr = ctypes.c_void_p(None)
+        if state.lambda_tet is not None:
+            lam_t = _rows(state.lambda_tet, 6, b)
+            lam_t_ptr = _ptr("lambda_tet", lam_t, (6, n), dev)
+        if cfg.enable_tet_volume:
+            # the tet sweep's per-path endpoint terms (72 planes) and its
+            # tet degree and valid-cell planes (csrc/lattice_xpbd.cu
+            # TET_PLANES)
+            tet_terms = torch.empty((TET_PLANES, n), dtype=torch.float32,
+                                    device=dev)
+            terms_ptr = ctypes.c_void_p(tet_terms.data_ptr())
+        args = [_ptr("positions", x, (3, n), dev),
+                _ptr("velocities", v, (3, n), dev),
+                _ptr("inv_mass", w, (n,), dev),
+                _ptr("ext_force", f, (3, n), dev),
+                ctypes.c_int(int(with_ext)),
+                _ptr("lambda_dist", lam, (nfam, n), dev),
+                _ptr("lambda scratch", lam_scratch, (nfam, n), dev),
+                _ptr("pred", pred_a, (3, n), dev),
+                _ptr("pred", pred_b, (3, n), dev), lam_t_ptr, terms_ptr,
+                _ptr("colliders", world.table, (1 + sum(rows),
+                                                 _collision.KIN_W), dev)]
+    with profiling.span("lattice.launch"):
+        params = make_params(spec, cfg, dt_sub, approx_math)
+        params.n = n
+        params.n_spheres, params.n_boxes = rows
+        lib = _library()
+        count = ctypes.c_longlong(0)
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        if design == "per_pass":
+            rc = lib.lattice_xpbd_run_per_pass(ctypes.byref(params),
+                                               dev.index, *args, n_substeps,
+                                               ctypes.byref(count), stream)
+        elif design == "persistent":
+            sched = schedule or schedule_for(spec, b, dev)
+            if (sched.n, sched.body_n) != (n, n1):
+                raise ValueError("lattice kernel: the schedule is for "
+                                 "another shape")
+            # the counting barrier's word, zeroed by the library before
+            # launch
+            counter = torch.empty(1, dtype=torch.int64, device=dev)
+            totals = (profiling.totals(dev, sched.grid * THREADS // 32)
+                      if profiling.counting_open() and n_substeps > 0
+                      else None)
+            rc = lib.lattice_xpbd_run(
+                ctypes.byref(params), dev.index, *args, n_substeps,
+                BARRIERS[sched.barrier], sched.grid, sched.chunk,
+                ctypes.c_void_p(counter.data_ptr()),
+                ctypes.c_void_p(None if totals is None
+                                else totals.data_ptr()),
+                ctypes.byref(count), stream)
+        else:
+            raise ValueError(f"lattice kernel: no design {design!r}")
     launches += count.value
     if rc != 0:
         msg = lib.lattice_xpbd_error_string(rc).decode()
@@ -516,12 +541,15 @@ def run_substeps_cuda(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
     def body(t):
         return t if batched else t[0]
 
-    out = state.replace(
-        positions=body(_unplanes(x, b)), velocities=body(_unplanes(v, b)),
-        lambda_dist=body(_unrows(lam, nfam, b)),
-        lambda_tet=None if lam_t is None else body(_unrows(lam_t, 6, b)))
-    if with_ext:
-        out = out.replace(ext_force=torch.zeros_like(state.ext_force))
+    with profiling.span("lattice.unlayout"):
+        out = state.replace(
+            positions=body(_unplanes(x, b)),
+            velocities=body(_unplanes(v, b)),
+            lambda_dist=body(_unrows(lam, nfam, b)),
+            lambda_tet=None if lam_t is None else body(_unrows(lam_t, 6,
+                                                                b)))
+        if with_ext:
+            out = out.replace(ext_force=torch.zeros_like(state.ext_force))
     return out
 
 

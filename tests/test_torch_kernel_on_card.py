@@ -71,7 +71,13 @@ ball-on-cloth's frame-30/60/90 states (19 launches a 6-substep call with
 blocked contact), each barrier forced, five repeats, one launch a
 contact-free call, a grid beyond the card refused; the hub warps against
 the plain engine to the bit; the dense pass a warp a row within 1e-5 of
-the plain pass.
+the plain pass.  B-1's counted twin (``diag/profiling.counting()``): at
+the two benchmark cells' shapes and a COLORED tet loop, the same state to
+the bit as the kernel it twins, its barriers a warp equal to the count
+along the kernel's loop (``test_torch_profiling.loop_barriers``; 26,000
+and 12,480 a call), a wait shorter than the residence, and under the
+profiler only ``lattice_persistent_kernel`` outside the counting scope,
+with the runner's spans on the host's timeline alone.
 """
 
 import pytest
@@ -979,7 +985,8 @@ def test_persistent_b1_launches_once_a_call_on_card(cuda):
 @pytest.mark.gpu
 def test_grid_that_cannot_be_resident_raises_on_card(cuda):
     """A grid barrier's grid beyond what the card holds at once is refused
-    by the cooperative launch and raises; nothing runs on another path."""
+    by the cooperative launch and raises; nothing runs on another path,
+    and the next launch is not failed for the refusal."""
     import dataclasses
 
     cfg, inputs, _ = CASES["bench"]
@@ -994,6 +1001,14 @@ def test_grid_that_cannot_be_resident_raises_on_card(cuda):
     with pytest.raises(RuntimeError, match="launch failed"):
         lc.run_substeps_cuda(state, spec, cfg, 1 / 480, 4, schedule=big)
     assert lc.launches == before
+    # the refusal is that call's alone: the next launch, whole bodies a
+    # block, runs
+    small = ptop.lattice_spec(4, braced=True)
+    st4 = plat.make_lattice_state(small, center=(0.0, 0.6, 0.0),
+                                  mass=0.001, device=cuda)
+    assert lc.schedule_for(small, 1, cuda).barrier == "block"
+    lc.run_substeps_cuda(st4, small, cfg, 1 / 480, 4)
+    assert lc.launches == before + 1
     with pytest.raises(ValueError, match="co-resident"):
         lc.plan_schedule(spec, 1, sms, per_sm, barrier="counter",
                          grid=sms * per_sm + 1)
@@ -1469,3 +1484,125 @@ def scenes_cloth(cuda):
     from softbodysimulation_tpu_torch.core import scenes
 
     return scenes.cloth(res=24, device=cuda)
+
+
+# ---- the counted twin of the persistent lattice kernel (diag/profiling) --
+
+
+def _cell_call(cuda, cell):
+    """(spec, cfg, state, call, substeps a call) of a benchmark cell's
+    shape: ``lattice64k`` (``bench.py`` ``build()``, one res-40 body
+    across the grid, 2,000 substeps a call) or ``ensemble1024`` (example
+    5's 1,024 res-4 bodies, whole bodies a block, 120 frames a call), or
+    ``colored_tets`` (a res-8 body across the grid, COLORED x 2 with the
+    tet sweep and DECAY, 5 substeps: another loop for the count)."""
+    if cell == "lattice64k":
+        from softbodysimulation_tpu_torch import bench as pbench
+
+        spec, cfg, state = pbench.build(pbench.Settings(), device=cuda)
+        return (spec, cfg, state, lc.make_cuda_substep_runner(
+            spec, cfg, pbench.DT / cfg.substeps, 2000), 2000)
+    if cell == "ensemble1024":
+        from softbodysimulation_tpu_torch.examples import config5_batch_1024
+
+        spec, cfg, state = config5_batch_1024.make_ensemble(device=cuda)
+        return (spec, cfg, state, lc.make_cuda_step(
+            spec, cfg, 1 / 60, n_steps=120, n_bodies=1024), 480)
+    from softbodysimulation_tpu_torch.core.config import (LambdaMode,
+                                                          SolveMode,
+                                                          SolverConfig)
+
+    spec = ptop.lattice_spec(8, braced=True)
+    cfg = SolverConfig(substeps=5, iterations=2, solve_mode=SolveMode.COLORED,
+                       lambda_mode=LambdaMode.DECAY, enable_tet_volume=True,
+                       ground_height=0.0, friction=0.3)
+    state = plat.make_lattice_state(spec, center=(0.0, 0.3, 0.0),
+                                    device=cuda, tet_volume=True)
+    return spec, cfg, state, lc.make_cuda_substep_runner(spec, cfg, 1 / 300,
+                                                         5), 5
+
+
+COUNTED_CELLS = ["lattice64k", "ensemble1024", "colored_tets"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", COUNTED_CELLS)
+def test_counted_lattice_kernel_equals_the_off_kernel_on_card(cuda, cell):
+    from softbodysimulation_tpu_torch.diag import profiling
+
+    _, _, state, call, _ = _cell_call(cuda, cell)
+    state = call(state)          # from a state in motion, on its floor
+    off = call(state)
+    with profiling.counting():
+        on = call(state)
+    assert profiling.counts() is not None
+    for k in ("positions", "velocities", "lambda_dist", "ext_force",
+              "lambda_tet"):
+        a, b = getattr(off, k), getattr(on, k)
+        assert (a is None) == (b is None), k
+        if a is not None:
+            assert torch.equal(a, b), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", COUNTED_CELLS)
+def test_counted_barriers_follow_the_kernels_loop_on_card(cuda, cell):
+    import test_torch_profiling as tp
+    from softbodysimulation_tpu_torch.diag import profiling
+
+    spec, cfg, state, call, subs = _cell_call(cuda, cell)
+    want = tp.loop_barriers(cfg, spec, subs)
+    if cell in tp.CELL_BARRIERS:
+        assert want == tp.CELL_BARRIERS[cell][3]
+    profiling.counts()           # nothing left from another test
+    with profiling.counting():
+        state = call(state)
+        state = call(state)
+    got = profiling.counts()
+    b = state.positions.shape[0] if state.positions.dim() == 3 else 1
+    sched = lc.schedule_for(spec, b, state.device)
+    assert got["warps"] == 2 * sched.grid * lc.THREADS // 32
+    assert got["barriers"] == want * got["warps"]
+    assert 0 < got["wait_cycles"] < got["resident_cycles"]
+    assert profiling.counts()["warps"] == 0    # read once, reset
+
+
+@pytest.mark.gpu
+def test_profiled_calls_name_only_the_off_kernel_on_card(cuda):
+    """Under the profiler a call launches ``lattice_persistent_kernel``
+    (``lattice_counted_kernel`` only inside ``counting()``), the runner's
+    spans lie on the host's timeline, nested in the call, and none is on
+    the device's.  One profiler session for every call: a later session
+    in the same process may record no device operation."""
+    from torch.autograd import DeviceType
+
+    from softbodysimulation_tpu_torch.diag import profiling
+
+    calls = [_cell_call(cuda, cell)[2:4]
+             for cell in ("lattice64k", "ensemble1024")]
+    for state, call in calls:
+        call(state)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for state, call in calls:
+            call(state)
+            with profiling.counting():
+                call(state)
+        torch.cuda.synchronize()
+    profiling.counts()
+    events = sorted(prof.events(), key=lambda e: e.time_range.start)
+    dev = [e.name for e in events if e.device_type == DeviceType.CUDA]
+    lattice = [n for n in dev if "lattice_" in n and "kernel" in n]
+    assert [n.split("(")[0].split()[-1] for n in lattice] == [
+        "lattice_persistent_kernel<1>", "lattice_counted_kernel<1>",
+        "lattice_persistent_kernel<0>", "lattice_counted_kernel<0>"], lattice
+    assert not any(n.startswith(profiling.SPAN_PREFIX) for n in dev)
+    host = [e for e in events if e.device_type == DeviceType.CPU
+            and e.name.startswith(profiling.SPAN_PREFIX)]
+    whole = [e for e in host if e.name == "sbs.lattice.call"]
+    assert len(whole) == 4
+    for part in ("layout", "launch", "unlayout"):
+        parts = [e for e in host if e.name == f"sbs.lattice.{part}"]
+        assert [e.cpu_parent for e in parts] == whole
