@@ -14,7 +14,9 @@ call) it warms up, then:
    span open over it: the runner's ``sbs.lattice.*`` spans, this script's
    ``dispatch`` (the rest of a call) and ``sync``, ``between_calls``
    elsewhere; ``runner_idle_pct`` is the idle inside ``sbs.lattice.call``
-   over the window;
+   over the window, and the launches of those calls, all and those whose
+   tiles stayed in shared memory (``lattice_cuda.resident_launches``: the
+   block kind);
 2. counts ``--count-calls`` calls inside ``profiling.counting()``:
    ``barrier_wait_pct`` = 100 x wait cycles / resident cycles, and the
    barriers a warp crosses a call;
@@ -130,6 +132,7 @@ def main(argv=None) -> int:
     out_dir = Path(a.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     path = out_dir / f"{a.cell}.trace.json"
+    before = (lattice_cuda.launches, lattice_cuda.resident_launches)
     with profiling.trace(path) as prof:
         for _ in range(a.calls):
             with own_span("dispatch"):
@@ -137,6 +140,8 @@ def main(argv=None) -> int:
             with own_span("sync"):
                 torch.cuda.synchronize()
     traced = idle_by_span(prof, a.calls)
+    traced["launches"] = lattice_cuda.launches - before[0]
+    traced["resident_launches"] = lattice_cuda.resident_launches - before[1]
 
     profiling.counts()
     with profiling.counting():

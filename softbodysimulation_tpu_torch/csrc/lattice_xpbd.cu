@@ -89,13 +89,25 @@
 //     the same thread, into the buffer the pass wrote; the multipliers are
 //     reset or decayed in place.  Predict is not folded into the first
 //     pass (that would predict each tile's halo twice).
-// A tile and its halo are read straight from L2 each pass: the state
-// fits in L2, and a shared-memory copy of a tile would still have to be
-// written back for its neighbours before the next barrier (the shared-
-// memory form was not built).  What bounds it now: a pass's latency, one
-// trip to L2 and a few hundred dependent instructions a particle, with one
-// particle a thread (fuller threads are slower: chip_smoke.py phase 41),
-// and the barrier; res 128's 2.1M particles no longer fit in L2.
+// Where the state lives.  The grid kind reads a tile and its halo straight
+// from L2 each pass: the state fits in L2, and a shared-memory copy of a
+// tile would have to be written back for its neighbours before each grid
+// barrier.  The block kind's tiles read nothing outside their block, so
+// it keeps w, the iterate's two buffers and the multipliers' two in
+// dynamic shared memory for the whole call (block_tile; 33,792 bytes for
+// a 256-particle tile of 13 families), gathered at 32-bit addresses; x,
+// v, the ext force, the collider table, the tet multipliers and the tet
+// scratch stay in global memory, touched once a substep or only on the
+// tet route.  What bounds it now: a pass's own instructions, a few hundred
+// dependent ones a particle with one particle a thread (fuller threads
+// are slower: chip_smoke.py phase 41).  At example 5's shape (H100 80GB
+// HBM3, 700 W; PERF.md) the tile in shared memory alone took a call from
+// 18.7 to 17.1 ms (8 %), the tile's plane pointers held without spills
+// (80 registers, three blocks an SM, as before) to 16.5 ms, a pass 1.33
+// us; approx_math's rsqrt and reciprocal in place of the IEEE sqrtf and
+// divisions take 5 % more: neither memory nor the IEEE arithmetic is most
+// of a pass.  The grid kind waits 9 % of its time in the grid barrier;
+// res 128's 2.1M particles no longer fit in L2.
 // The per-pass loop (one launch a pass, lattice_xpbd_run_per_pass) stays
 // as the yardstick the persistent kernel is timed and checked against.
 // lattice_counted_kernel is the persistent kernel with clock64() tallies
@@ -159,7 +171,8 @@ __global__ void warm_pass_kernel(LatticeParams p, int f,
   const int a = blockIdx.x * blockDim.x + threadIdx.x;
   if (a >= p.n) return;
   float o[3];
-  warm_one<WrapNbr>(p, f, cell_of(p, a), w, pin, lam_in, lam_out, o);
+  warm_one<WrapNbr>(p, GlobalPlanes{p}, f, cell_of(p, a), w, pin, lam_in,
+                    lam_out, o);
   store3(pout, p.n, a, o);
 }
 
@@ -172,15 +185,15 @@ __global__ void family_pass_kernel(LatticeParams p, int f, int sel,
   const int a = blockIdx.x * blockDim.x + threadIdx.x;
   if (a >= p.n) return;
   float o[3];
-  family_one<WrapNbr>(p, f, sel, jacobi, cell_of(p, a), w, pin, lam_in,
-                      lam_out, o);
+  family_one<WrapNbr>(p, GlobalPlanes{p}, f, sel, jacobi, cell_of(p, a), w,
+                      pin, lam_in, lam_out, o);
   store3(pout, p.n, a, o);
 }
 
 __global__ void tet_tables_kernel(LatticeParams p, float* __restrict__ terms) {
   const int a = blockIdx.x * blockDim.x + threadIdx.x;
   if (a >= p.n) return;
-  tet_tables_one(p, cell_of(p, a), terms);
+  tet_tables_one(p, GlobalPlanes{p}, cell_of(p, a), terms);
 }
 
 __global__ void tet_cell_kernel(LatticeParams p, const float* __restrict__ w,
@@ -189,7 +202,8 @@ __global__ void tet_cell_kernel(LatticeParams p, const float* __restrict__ w,
                                 float* __restrict__ terms) {
   const int a = blockIdx.x * blockDim.x + threadIdx.x;
   if (a >= p.n) return;
-  tet_cell_one<WrapNbr>(p, cell_of(p, a), w, pin, lam_t, terms);
+  tet_cell_one<WrapNbr>(p, GlobalPlanes{p}, cell_of(p, a), w, pin, lam_t,
+                        terms);
 }
 
 __global__ void tet_apply_kernel(LatticeParams p, const float* __restrict__ w,
@@ -199,7 +213,8 @@ __global__ void tet_apply_kernel(LatticeParams p, const float* __restrict__ w,
   const int a = blockIdx.x * blockDim.x + threadIdx.x;
   if (a >= p.n) return;
   float o[3];
-  tet_apply_one<WrapNbr>(p, cell_of(p, a), w, pin, terms, o);
+  tet_apply_one<WrapNbr>(p, GlobalPlanes{p}, cell_of(p, a), w, pin, terms,
+                         o);
   store3(pout, p.n, a, o);
 }
 
@@ -215,14 +230,16 @@ __global__ void contact_finalize_kernel(LatticeParams p, int do_contacts,
   const int n = p.n;
   if (a >= n) return;
   float pc[3] = {pred[a], pred[n + a], pred[2 * n + a]};
-  contact_finalize_one(p, do_contacts, do_finalize, a, x, v, w, pc, tab,
-                       pred);
+  contact_finalize_one(p, GlobalPlanes{p}, do_contacts, do_finalize, a, x, v,
+                       w, pc, tab, pred);
 }
 
 // ---- the persistent kernel: one launch a call ----------------------------
 
 // A call's buffers (lattice_xpbd_run's arguments).  No pointer is
 // __restrict__: the kernel writes, between barriers, what it reads later.
+// The block kind keeps its iterate and multipliers in shared memory and
+// leaves lam_scratch, pred_a and pred_b alone.
 struct RunArgs {
   float* x;
   float* v;
@@ -278,26 +295,205 @@ struct Walker {
 // The contacts and finalize of particle a on its iterate pc, the tail of
 // the iteration's last pass (pc to pred[a] unless the iteration is the
 // last), and, when `next`, the next substep's predict into pred.
-__device__ __forceinline__ void tail_one(const LatticeParams& p,
+template <class Pl>
+__device__ __forceinline__ void tail_one(const LatticeParams& p, const Pl& pl,
                                          const RunArgs& r, int a,
                                          int has_contacts, bool last,
                                          bool next, float pc[3], float* pred,
                                          float* lam_next) {
-  contact_finalize_one(p, has_contacts, last, a, r.x, r.v, r.w, pc, r.tab,
-                       pred);
+  contact_finalize_one(p, pl, has_contacts, last, a, r.x, r.v, pl.w(), pc,
+                       r.tab, pred);
   if (next)
-    predict_one(p, a, r.x, r.v, r.w, nullptr, pred, lam_next, lam_next,
-                r.lam_t);
+    predict_one(p, pl, a, r.x, r.v, pl.w(), nullptr, pred, lam_next,
+                lam_next, r.lam_t);
 }
 
-#define LX_EACH(q) for (Cell q = first; q.a < hi; walk.next(q))
+// Where run_tile finds a call's gathered planes, besides their layout
+// (lattice_xpbd.cuh).  The grid kind's in global memory, named by the
+// kernel's arguments and read from them where they are used;
+struct GridPlanes : GlobalPlanes {
+  const RunArgs& r;
+  __device__ __forceinline__ const float* w() const { return r.w; }
+  __device__ __forceinline__ float* pred(int i) const {
+    return i ? r.pred_b : r.pred_a;
+  }
+  __device__ __forceinline__ float* lam(int i) const {
+    return i ? r.lam_scratch : r.lam;
+  }
+};
 
-// Every substep of a call, one block's tile, the passes of the per-pass
+// the block kind's in dynamic shared memory, one after another: w, the
+// iterate's two buffers (3 planes each) and the multipliers' two (nfam
+// planes each), planes of the block's chunk (tile_floats).
+extern __shared__ float lx_tile[];
+
+struct SharedPlanes : TilePlanes {
+  float *w_, *pred0, *pred1, *lam0, *lam1;
+  __device__ __forceinline__ float* w() const { return w_; }
+  __device__ __forceinline__ float* pred(int i) const {
+    return i ? pred1 : pred0;
+  }
+  __device__ __forceinline__ float* lam(int i) const {
+    return i ? lam1 : lam0;
+  }
+};
+
+#define LX_EACH(q) for (Cell q = first; q.a < end; walk.next(q))
+
+// Every substep of a call on one block's tile, the passes of the per-pass
 // loop in its order with a barrier between two that read each other's
-// output.  Buffers: the iterate ping-pongs between pred_a and pred_b; family
-// f's multipliers are in lam (buffer 0) or lam_scratch (1), the buffer
+// output.  pl (GridPlanes or SharedPlanes) gives w, the iterate's two
+// buffers and the multipliers' two (nfam planes each), and their layout;
+// first: the thread's first particle, end: the tile's end, both in pl's
+// indices, walk: the thread's stride.  The iterate ping-pongs between the
+// pred buffers; family f's multipliers are in lam(0) or lam(1), the buffer
 // index advancing with each of f's passes (every family runs as many
-// passes as the others, so one index `fb` at substep boundaries).
+// passes as the others, so one index `fb` at substep boundaries).  Returns
+// the buffer that holds every family's multipliers at the end.
+template <class Pl, class Bar>
+__device__ __forceinline__ int run_tile(const LatticeParams& p,
+                                        const RunArgs& r, const Pl& pl,
+                                        Bar& bar, const Walker& walk,
+                                        const Cell first, int end) {
+  const int plane = pl.stride();
+  const int has_contacts =
+      p.floor_mode == 1 || p.n_spheres > 0 || p.n_boxes > 0;
+  const int nwarm = p.lambda_mode == 2 ? 1 : 0;
+  const int npass = p.colored ? 2 : 1;
+  const int per_sub = nwarm + p.iterations * npass;  // passes a family
+#define LAM(i) pl.lam(i)
+
+  if (p.tets) LX_EACH(q) tet_tables_one(p, pl, q, r.terms);
+  float* cur = pl.pred(0);  // the substep's predicted positions
+  float* oth = pl.pred(1);
+  int fb = 0;
+  bool predicted = false;
+  for (int i = 0; i < r.n_substeps; ++i) {
+    const int fb_next = fb ^ (per_sub & 1);
+    if (!predicted)
+      LX_EACH(q) predict_one(p, pl, q.a, r.x, r.v, pl.w(),
+                             (r.ext_first && i == 0) ? r.f : nullptr, cur,
+                             LAM(fb), LAM(fb), r.lam_t);
+    bar.sync();
+    float* pin = cur;
+    float* pout = oth;
+    for (int fi = 0; fi < nwarm * p.nfam; ++fi) {
+      const float* lin = LAM(fb) + plane_off<Pl>(fi, plane);
+      float* lout = LAM(fb ^ 1) + plane_off<Pl>(fi, plane);
+      LX_EACH(q) {
+        float o[3];
+        warm_one<FastNbr>(p, pl, fi, q, pl.w(), pin, lin, lout, o);
+        store3(pout, plane, q.a, o);
+      }
+      bar.sync();
+      float* t = pin; pin = pout; pout = t;
+    }
+    for (int it = 0; it < p.iterations; ++it) {
+      const bool last = it == p.iterations - 1;
+      const bool tail = has_contacts || last;
+      const bool next = last && i + 1 < r.n_substeps;
+      for (int fi = 0; fi < p.nfam; ++fi) {
+        for (int ps = 0; ps < npass; ++ps) {
+          const int li = fb ^ ((nwarm + it * npass + ps) & 1);
+          const float* lin = LAM(li) + plane_off<Pl>(fi, plane);
+          float* lout = LAM(li ^ 1) + plane_off<Pl>(fi, plane);
+          const bool fused =
+              tail && !p.tets && fi == p.nfam - 1 && ps == npass - 1;
+          LX_EACH(q) {
+            float o[3];
+            family_one<FastNbr>(p, pl, fi, p.colored ? ps : -1,
+                                p.colored ? 0 : 1, q, pl.w(), pin, lin, lout,
+                                o);
+            if (fused)
+              tail_one(p, pl, r, q.a, has_contacts, last, next, o, pout,
+                       LAM(fb_next));
+            else
+              store3(pout, plane, q.a, o);
+          }
+          float* t = pin; pin = pout; pout = t;
+          if (!(fused && last)) bar.sync();
+        }
+      }
+      if (p.tets) {
+        LX_EACH(q) tet_cell_one<FastNbr>(p, pl, q, pl.w(), pin, r.lam_t,
+                                         r.terms);
+        bar.sync();
+        LX_EACH(q) {
+          float o[3];
+          tet_apply_one<FastNbr>(p, pl, q, pl.w(), pin, r.terms, o);
+          if (tail)
+            tail_one(p, pl, r, q.a, has_contacts, last, next, o, pout,
+                     LAM(fb_next));
+          else
+            store3(pout, plane, q.a, o);
+        }
+        float* t = pin; pin = pout; pout = t;
+        if (!(tail && last)) bar.sync();
+      } else if (p.nfam == 0 && tail) {
+        // an iteration without passes: its contacts on pred in place
+        LX_EACH(q) {
+          float o[3] = {pin[q.a], pin[plane + q.a], pin[2 * plane + q.a]};
+          tail_one(p, pl, r, q.a, has_contacts, last, next, o, pin,
+                   LAM(fb_next));
+        }
+        if (!last) bar.sync();
+      }
+    }
+    predicted = p.iterations > 0 && i + 1 < r.n_substeps;
+    cur = pin;
+    oth = pout;
+    fb = fb_next;
+  }
+#undef LAM
+  return fb;
+}
+
+#undef LX_EACH
+
+// Floats of a block-kind tile in shared memory (SharedPlanes):
+// kernels/lattice_cuda.py tile_bytes.
+__host__ __device__ __forceinline__ int tile_floats(int chunk, int nfam) {
+  return chunk * (6 + 1 + 2 * nfam);
+}
+
+// A block-kind call of one block, its tile's w, iterate and multipliers in
+// shared memory for the whole call, planes of the block's chunk.  Each
+// thread copies in, and at the end writes back, the particles it walks, so
+// no barrier is added: the first read of another thread's slot comes after
+// predict's barrier.
+template <class Bar>
+__device__ __forceinline__ void block_tile(const LatticeParams& p,
+                                           const RunArgs& r, Bar& bar,
+                                           const Walker& walk,
+                                           const Cell first, int lo,
+                                           int hi) {
+  const int n = p.n, nfam = p.nfam;
+  const int cs = r.chunk;
+  const SharedPlanes pl{{cs, lo}, lx_tile, lx_tile + cs, lx_tile + 4 * cs,
+                        lx_tile + 7 * cs, lx_tile + (7 + nfam) * cs};
+  for (int s = threadIdx.x; s < hi - lo; s += blockDim.x) {
+    pl.w()[s] = r.w[lo + s];
+    for (int fi = 0; fi < nfam; ++fi)
+      pl.lam(0)[fi * cs + s] = r.lam[(size_t)fi * n + lo + s];
+  }
+  Cell mine = first;  // slots: indices less lo
+  mine.a -= lo;
+  mine.base -= lo;
+  const int fb = run_tile(p, r, pl, bar, walk, mine, hi - lo);
+  // the grid kind's last barrier, kept so both kinds cross the loop's
+  // count (a thread writes back only what it wrote itself)
+  if (fb) bar.sync();
+  for (int s = threadIdx.x; s < hi - lo; s += blockDim.x)
+    for (int fi = 0; fi < nfam; ++fi)
+      r.lam[(size_t)fi * n + lo + s] = pl.lam(fb)[fi * cs + s];
+}
+
+// A call of one block.  The block kind (whole bodies a block) keeps its
+// tile in shared memory (block_tile): no pass reads outside its block, so
+// every gather is a shared-memory read with a 32-bit address.  The grid
+// kind keeps every plane in global memory (its tiles read halos other
+// blocks wrote) and copies the multipliers back from lam_scratch when they
+// end there.
 // COUNT: the counted kernel's tallies (lattice_counted_kernel); without it
 // `totals` is unused.
 template <int KIND, bool COUNT>
@@ -311,103 +507,18 @@ __device__ __forceinline__ void persistent_body(
   const int hi = min(lo + r.chunk, n);
   const Walker walk(p, blockDim.x);
   const Cell first = cell_of(p, lo + (int)threadIdx.x);
-  const int has_contacts =
-      p.floor_mode == 1 || p.n_spheres > 0 || p.n_boxes > 0;
-  const int nwarm = p.lambda_mode == 2 ? 1 : 0;
-  const int npass = p.colored ? 2 : 1;
-  const int per_sub = nwarm + p.iterations * npass;  // passes a family
-#define LAM(i) ((i) ? r.lam_scratch : r.lam)
-
-  if (p.tets) LX_EACH(q) tet_tables_one(p, q, r.terms);
-  float* cur = r.pred_a;  // the substep's predicted positions
-  float* oth = r.pred_b;
-  int fb = 0;
-  bool predicted = false;
-  for (int i = 0; i < r.n_substeps; ++i) {
-    const int fb_next = fb ^ (per_sub & 1);
-    if (!predicted)
-      LX_EACH(q) predict_one(p, q.a, r.x, r.v, r.w,
-                             (r.ext_first && i == 0) ? r.f : nullptr, cur,
-                             LAM(fb), LAM(fb), r.lam_t);
-    bar.sync();
-    float* pin = cur;
-    float* pout = oth;
-    for (int fi = 0; fi < nwarm * p.nfam; ++fi) {
-      const float* lin = LAM(fb) + (size_t)fi * n;
-      float* lout = LAM(fb ^ 1) + (size_t)fi * n;
-      LX_EACH(q) {
-        float o[3];
-        warm_one<FastNbr>(p, fi, q, r.w, pin, lin, lout, o);
-        store3(pout, n, q.a, o);
-      }
-      bar.sync();
-      float* t = pin; pin = pout; pout = t;
-    }
-    for (int it = 0; it < p.iterations; ++it) {
-      const bool last = it == p.iterations - 1;
-      const bool tail = has_contacts || last;
-      const bool next = last && i + 1 < r.n_substeps;
-      for (int fi = 0; fi < p.nfam; ++fi) {
-        for (int ps = 0; ps < npass; ++ps) {
-          const int li = fb ^ ((nwarm + it * npass + ps) & 1);
-          const float* lin = LAM(li) + (size_t)fi * n;
-          float* lout = LAM(li ^ 1) + (size_t)fi * n;
-          const bool fused =
-              tail && !p.tets && fi == p.nfam - 1 && ps == npass - 1;
-          LX_EACH(q) {
-            float o[3];
-            family_one<FastNbr>(p, fi, p.colored ? ps : -1,
-                                p.colored ? 0 : 1, q, r.w, pin, lin, lout,
-                                o);
-            if (fused)
-              tail_one(p, r, q.a, has_contacts, last, next, o, pout,
-                       LAM(fb_next));
-            else
-              store3(pout, n, q.a, o);
-          }
-          float* t = pin; pin = pout; pout = t;
-          if (!(fused && last)) bar.sync();
-        }
-      }
-      if (p.tets) {
-        LX_EACH(q) tet_cell_one<FastNbr>(p, q, r.w, pin, r.lam_t, r.terms);
-        bar.sync();
-        LX_EACH(q) {
-          float o[3];
-          tet_apply_one<FastNbr>(p, q, r.w, pin, r.terms, o);
-          if (tail)
-            tail_one(p, r, q.a, has_contacts, last, next, o, pout,
-                     LAM(fb_next));
-          else
-            store3(pout, n, q.a, o);
-        }
-        float* t = pin; pin = pout; pout = t;
-        if (!(tail && last)) bar.sync();
-      } else if (p.nfam == 0 && tail) {
-        // an iteration without passes: its contacts on pred in place
-        LX_EACH(q) {
-          float o[3] = {pin[q.a], pin[n + q.a], pin[2 * n + q.a]};
-          tail_one(p, r, q.a, has_contacts, last, next, o, pin,
-                   LAM(fb_next));
-        }
-        if (!last) bar.sync();
-      }
-    }
-    predicted = p.iterations > 0 && i + 1 < r.n_substeps;
-    cur = pin;
-    oth = pout;
-    fb = fb_next;
-  }
-  if (fb) {
+  if constexpr (KIND == LX_BLOCK) {
+    block_tile(p, r, bar, walk, first, lo, hi);
+  } else if (run_tile(p, r, GridPlanes{{p}, r}, bar, walk, first, hi)) {
     // every family's multipliers end in lam_scratch: back to lam, once the
     // last pass's readers are done
     bar.sync();
-    LX_EACH(q) for (int fi = 0; fi < p.nfam; ++fi) {
-      const size_t k = (size_t)fi * n + q.a;
-      r.lam[k] = r.lam_scratch[k];
-    }
+    for (Cell q = first; q.a < hi; walk.next(q))
+      for (int fi = 0; fi < p.nfam; ++fi) {
+        const size_t k = (size_t)fi * n + q.a;
+        r.lam[k] = r.lam_scratch[k];
+      }
   }
-#undef LAM
   if constexpr (COUNT) {
     if ((threadIdx.x & 31) == 0) {
       atomicAdd(totals, bar.wait_cycles);
@@ -416,8 +527,6 @@ __device__ __forceinline__ void persistent_body(
     }
   }
 }
-
-#undef LX_EACH
 
 // A call, the kernel the benchmark times and profiles.
 template <int KIND>
@@ -503,6 +612,16 @@ int lattice_xpbd_occupancy(int device, int kind, int* threads,
   return (int)err;
 }
 
+// tile_floats for kernels/lattice_cuda.py to check its tile_bytes against.
+int lattice_xpbd_tile_floats(int chunk, int nfam) {
+  return tile_floats(chunk, nfam);
+}
+
+// Returns, and clears, the calling thread's last CUDA error: the per-pass
+// loop checks each launch with cudaGetLastError(), which would also report
+// what an earlier call left (a refused launch).
+int lattice_xpbd_last_error(void) { return (int)cudaGetLastError(); }
+
 // Advance n_substeps substeps on `stream` in one launch of the persistent
 // kernel.  x, v: (3, N) in/out; w: (N); f: (3, N) ext force consumed on
 // the first substep when ext_first, else unused; lam: (nfam, N) in/out;
@@ -510,7 +629,10 @@ int lattice_xpbd_occupancy(int device, int kind, int* threads,
 // tet multipliers in/out, or null when the state has none; tet_terms:
 // (TET_PLANES, N) scratch when p.tets; colliders: the collider table
 // (1 + n_spheres + n_boxes, KIN_W).  kind: LX_BLOCK (grid blocks of
-// `chunk` particles, a whole number of bodies each) or LX_GRID_CTR (a
+// `chunk` particles, a whole number of bodies each, each block's tile in
+// tile_floats(chunk, nfam) floats of dynamic shared memory, above 48 KB
+// after raising the kernel's limit, whose refusal is returned before any
+// launch) or LX_GRID_CTR (a
 // cooperative launch of `grid` blocks, planned by kernels/lattice_cuda.py
 // to fit the device at once; counter: one 64-bit word of scratch, zeroed
 // here).  totals: null launches lattice_persistent_kernel; else three
@@ -544,10 +666,17 @@ int lattice_xpbd_run(const LatticeParams* hp, int device, float* x, float* v,
             colliders, counter, n_substeps, ext_first, chunk};
   void* args[] = {(void*)&p, (void*)&r, (void*)&totals};
   if (kind == LX_BLOCK) {
+    const size_t smem = sizeof(float) * (size_t)tile_floats(chunk, p.nfam);
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
     // the launch's own status: cudaGetLastError() after <<<>>> would also
     // report an error an earlier call left on this thread (a refused
     // cooperative launch), and fail this launch for it
-    err = cudaLaunchKernel(fn, dim3(grid), dim3(LX_THREADS), args, 0, stream);
+    err = cudaLaunchKernel(fn, dim3(grid), dim3(LX_THREADS), args, smem,
+                           stream);
   } else {
     err = cudaMemsetAsync(counter, 0, sizeof(unsigned long long), stream);
     if (err != cudaSuccess) return (int)err;

@@ -16,7 +16,11 @@
 // integer division (the per-pass kernels), FastNbr by adding the offset to
 // coordinates carried from particle to particle (the persistent kernel).
 // Where a partner is read, the two give the same index, so both designs
-// run the same arithmetic on the same values.
+// run the same arithmetic on the same values.  A layout policy says where
+// the gathered planes (the iterate, w, the multipliers) live: GlobalPlanes
+// in global memory (the per-pass kernels, the persistent kernel's grid
+// kind), TilePlanes in a block's shared memory (its block kind); the
+// arithmetic is the same in both.
 
 #pragma once
 
@@ -154,21 +158,56 @@ __device__ __forceinline__ float warm_lambda(const LatticeParams& p, int f,
   return lam;
 }
 
+// Where a pass finds the planes it gathers from -- the iterate (pred), the
+// inverse masses w and the distance multipliers -- and how a particle's
+// index there relates to its index in the planes that stay in global memory
+// (x, v, the ext force, the tet multipliers and terms, each n long).
+//   GlobalPlanes: every plane in global memory, n long, indexed by the
+//     particle (the per-pass loop, the grid kind of the persistent kernel);
+//     n is read where a function starts, as a kernel parameter.
+//   TilePlanes: the block kind's tile in shared memory, planes of the
+//     block's chunk, ps, indexed by the particle less the tile's first, lo
+//     (a slot): 32-bit addresses, and a Cell's a and base are slots too.
+// stride(): a plane's length; glob(a): the global index of a; Off: the
+// type of a plane's offset, k * stride (plane_off).
+struct GlobalPlanes {
+  using Off = size_t;
+  const LatticeParams& p;
+  __device__ __forceinline__ int stride() const { return p.n; }
+  __device__ __forceinline__ int glob(int a) const { return a; }
+};
+
+struct TilePlanes {
+  using Off = int;
+  int ps, lo;
+  __device__ __forceinline__ int stride() const { return ps; }
+  __device__ __forceinline__ int glob(int a) const { return a + lo; }
+};
+
+// The offset of plane k of planes `stride` long.
+template <class Pl>
+__device__ __forceinline__ typename Pl::Off plane_off(int k, int stride) {
+  return (typename Pl::Off)k * stride;
+}
+
 // Predict (gravity, the ext force when f is given, damping, clamps) of
 // particle a, with the lambda reset / decay folded in: lam_src may alias
 // lam_dst, since only particle a's entries are touched.  lam_t (the tet
-// multipliers, 6 planes) is null when the state has none.
-__device__ __forceinline__ void predict_one(const LatticeParams& p, int a,
+// multipliers, 6 planes) is null when the state has none.  w, pred and the
+// multipliers in the layout of pl, the rest in global memory.
+template <class Pl>
+__device__ __forceinline__ void predict_one(const LatticeParams& p,
+                                            const Pl& pl, int a,
                                             const float* x, float* v,
                                             const float* w, const float* f,
                                             float* pred, const float* lam_src,
                                             float* lam_dst, float* lam_t) {
-  const int n = p.n;
+  const int n = p.n, ps = pl.stride(), ga = pl.glob(a);
   const float wa = w[a];
   for (int c = 0; c < 3; ++c) {
-    float vc = v[c * n + a];
+    float vc = v[c * n + ga];
     const float g = p.gravity[c];
-    float e = f ? f[c * n + a] : 0.f;
+    float e = f ? f[c * n + ga] : 0.f;
     if (p.gravity_acc) {
       if (p.max_force > 0.f) e = clampf(e, -p.max_force, p.max_force);
       vc = vc + p.dt * ((wa > 0.f ? g : 0.f) + wa * e);
@@ -181,20 +220,20 @@ __device__ __forceinline__ void predict_one(const LatticeParams& p, int a,
     vc = vc * p.damp_factor;
     if (p.max_velocity > 0.f)
       vc = clampf(vc, -p.max_velocity, p.max_velocity);
-    float pc = x[c * n + a] + p.dt * vc;
+    float pc = x[c * n + ga] + p.dt * vc;
     if (p.world_bounds > 0.f)
       pc = clampf(pc, -p.world_bounds, p.world_bounds);
-    v[c * n + a] = vc;
-    pred[c * n + a] = pc;
+    v[c * n + ga] = vc;
+    pred[c * ps + a] = pc;
   }
   for (int fi = 0; fi < p.nfam; ++fi) {
-    const size_t i = (size_t)fi * n + a;
+    const auto i = plane_off<Pl>(fi, ps) + a;
     lam_dst[i] = p.lambda_mode == 0 ? 0.f : lam_src[i] * p.lambda_decay;
   }
   // tet multipliers are fresh every substep except in DECAY
   if (lam_t)
     for (int pi = 0; pi < 6; ++pi) {
-      const size_t i = (size_t)pi * n + a;
+      const size_t i = (size_t)pi * n + ga;
       lam_t[i] = p.lambda_mode == 1 ? lam_t[i] * p.lambda_decay : 0.f;
     }
 }
@@ -210,7 +249,8 @@ __global__ void predict_kernel(LatticeParams p, const float* __restrict__ x,
                                float* __restrict__ lam_t) {
   const int a = blockIdx.x * blockDim.x + threadIdx.x;
   if (a >= p.n) return;
-  predict_one(p, a, x, v, w, f, pred, lam_src, lam_dst, lam_t);
+  predict_one(p, GlobalPlanes{p}, a, x, v, w, f, pred, lam_src, lam_dst,
+              lam_t);
 }
 
 // ---- the lattice kernel's particles, partners and passes ----------------
@@ -361,13 +401,13 @@ struct FastNbr {
 // one anchored at a-d; o gets the new position, lam_out[a] the multiplier.
 // Every read is issued before the first write, so a thread waits for
 // memory once a pass.
-template <class Nbr>
-__device__ __forceinline__ void warm_one(const LatticeParams& p, int f,
-                                         const Cell& q, const float* w,
+template <class Nbr, class Pl>
+__device__ __forceinline__ void warm_one(const LatticeParams& p, const Pl& pl,
+                                         int f, const Cell& q, const float* w,
                                          const float* pin,
                                          const float* lam_in, float* lam_out,
                                          float o[3]) {
-  const int n = p.n, a = q.a;
+  const int n = pl.stride(), a = q.a;
   const float wa = w[a];
   const float pa[3] = {pin[a], pin[n + a], pin[2 * n + a]};
   const float lam_in_a = lam_in[a];
@@ -430,14 +470,14 @@ __device__ __forceinline__ float edge_length(const LatticeParams& p,
 // constraint anchored at a-d; o gets p_a - w_a*dp_a + w_a*dp_{a-d}, the
 // term order of _family_pass.  Every read is issued before the first
 // write, so a thread waits for memory once a pass.
-template <class Nbr>
-__device__ __forceinline__ void family_one(const LatticeParams& p, int f,
-                                           int sel, int jacobi,
-                                           const Cell& q, const float* w,
-                                           const float* pin,
+template <class Nbr, class Pl>
+__device__ __forceinline__ void family_one(const LatticeParams& p,
+                                           const Pl& pl, int f, int sel,
+                                           int jacobi, const Cell& q,
+                                           const float* w, const float* pin,
                                            const float* lam_in,
                                            float* lam_out, float o[3]) {
-  const int n = p.n, a = q.a;
+  const int n = pl.stride(), a = q.a;
   const float wa = w[a];
   const float pa[3] = {pin[a], pin[n + a], pin[2 * n + a]};
   const float lam_a = lam_in[a];
@@ -499,9 +539,11 @@ __device__ __forceinline__ float dot3(const float* a, const float* b) {
 // degree (the valid cells whose paths have it as a corner: the anchor
 // q - o_k of corner k must lie in [0, res - 2]^3), plane TET_VALID 1 where
 // the cell anchored at q is valid, else 0.
+template <class Pl>
 __device__ __forceinline__ void tet_tables_one(const LatticeParams& p,
-                                               const Cell& q, float* terms) {
-  const int n = p.n;
+                                               const Pl& pl, const Cell& q,
+                                               float* terms) {
+  const int n = p.n, ga = pl.glob(q.a);
   const int cmax = p.res - 2;   // a valid cell's largest coordinate
   float tdeg = 0.f;
   for (int pi = 0; pi < 6; ++pi) {
@@ -518,28 +560,29 @@ __device__ __forceinline__ void tet_tables_one(const LatticeParams& p,
         tdeg += 1.f;
     }
   }
-  terms[(size_t)TET_TDEG * n + q.a] = tdeg;
-  terms[(size_t)TET_VALID * n + q.a] =
+  terms[(size_t)TET_TDEG * n + ga] = tdeg;
+  terms[(size_t)TET_VALID * n + ga] =
       q.x <= cmax && q.y <= cmax && q.z <= cmax ? 1.f : 0.f;
 }
 
 // The tet sweep's projection at cell q, the anchor (origin corner) of the
 // 6 Kuhn paths: updates their multipliers in place and writes dl*g_k for
 // corners k = 0..3 to terms[((pi*4 + k)*3 + c)*n + a].
-template <class Nbr>
+template <class Nbr, class Pl>
 __device__ __forceinline__ void tet_cell_one(const LatticeParams& p,
-                                             const Cell& q, const float* w,
+                                             const Pl& pl, const Cell& q,
+                                             const float* w,
                                              const float* pin, float* lam_t,
                                              float* terms) {
-  const int n = p.n, a = q.a;
-  const bool valid = terms[(size_t)TET_VALID * n + a] != 0.f;
+  const int n = p.n, ps = pl.stride(), a = q.a, ga = pl.glob(a);
+  const bool valid = terms[(size_t)TET_VALID * n + ga] != 0.f;
   const float wa = w[a];
-  const float pa[3] = {pin[a], pin[n + a], pin[2 * n + a]};
+  const float pa[3] = {pin[a], pin[ps + a], pin[2 * ps + a]};
   for (int pi = 0; pi < 6; ++pi) {
     float e[3][3], wk[3], g[4][3];
     for (int k = 0; k < 3; ++k) {
       const int ck = Nbr::corner(p, q, p.tet_off[pi][k]);
-      for (int c = 0; c < 3; ++c) e[k][c] = pin[c * n + ck] - pa[c];
+      for (int c = 0; c < 3; ++c) e[k][c] = pin[c * ps + ck] - pa[c];
       wk[k] = w[ck];
     }
     cross3(e[1], e[2], g[1]);
@@ -550,7 +593,7 @@ __device__ __forceinline__ void tet_cell_one(const LatticeParams& p,
     const float denom = wa * dot3(g[0], g[0]) + wk[0] * dot3(g[1], g[1]) +
                         wk[1] * dot3(g[2], g[2]) + wk[2] * dot3(g[3], g[3]) +
                         p.tet_alpha;
-    const size_t li = (size_t)pi * n + a;
+    const size_t li = (size_t)pi * n + ga;
     const float lam = lam_t[li];
     const float num = -cerr - p.tet_alpha * lam;
     float dl = p.approx_math ? num * approx_rcp(fmaxf(denom, 1e-30f))
@@ -559,32 +602,34 @@ __device__ __forceinline__ void tet_cell_one(const LatticeParams& p,
     lam_t[li] = lam + dl;
     for (int k = 0; k < 4; ++k)
       for (int c = 0; c < 3; ++c)
-        terms[((size_t)(pi * 4 + k) * 3 + c) * n + a] = dl * g[k][c];
+        terms[((size_t)(pi * 4 + k) * 3 + c) * n + ga] = dl * g[k][c];
   }
 }
 
 // The tet sweep's apply at particle q: its terms summed in the plain
 // engine's order, path by path (g0 at its own cell, then g1, g2, g3 from
 // the cells at -o1, -o2, -o3); o = pin + w / max(tdeg, 1) * the sum.
-template <class Nbr>
+template <class Nbr, class Pl>
 __device__ __forceinline__ void tet_apply_one(const LatticeParams& p,
-                                              const Cell& q, const float* w,
+                                              const Pl& pl, const Cell& q,
+                                              const float* w,
                                               const float* pin,
                                               const float* terms,
                                               float o[3]) {
-  const int n = p.n, a = q.a;
+  const int n = p.n, ps = pl.stride(), a = q.a;
   float delta[3] = {0.f, 0.f, 0.f};
   for (int pi = 0; pi < 6; ++pi) {
     for (int k = 0; k < 4; ++k) {
       int src = a;
       if (k > 0 && !Nbr::anchor(p, q, p.tet_off[pi][k - 1], src)) continue;
       for (int c = 0; c < 3; ++c)
-        delta[c] = delta[c] + terms[((size_t)(pi * 4 + k) * 3 + c) * n + src];
+        delta[c] = delta[c] +
+                   terms[((size_t)(pi * 4 + k) * 3 + c) * n + pl.glob(src)];
     }
   }
-  const float tdeg = terms[(size_t)TET_TDEG * n + a];
+  const float tdeg = terms[(size_t)TET_TDEG * n + pl.glob(a)];
   const float coef = w[a] / fmaxf(tdeg, 1.f);
-  for (int c = 0; c < 3; ++c) o[c] = pin[c * n + a] + coef * delta[c];
+  for (int c = 0; c < 3; ++c) o[c] = pin[c * ps + a] + coef * delta[c];
 }
 
 // Contacts of one iteration (XPBD floor, boxes, spheres) on particle a's
@@ -592,13 +637,14 @@ __device__ __forceinline__ void tet_apply_one(const LatticeParams& p,
 // (velocity from the position change, pinned particles held,
 // VELOCITY_REFLECT floor) into x and v, pred left alone.  tab: the
 // collider table (colliders.cuh).
+template <class Pl>
 __device__ __forceinline__ void contact_finalize_one(
-    const LatticeParams& p, int do_contacts, int do_finalize, int a,
-    float* x, float* v, const float* w, float pc[3], const float* tab,
+    const LatticeParams& p, const Pl& pl, int do_contacts, int do_finalize,
+    int a, float* x, float* v, const float* w, float pc[3], const float* tab,
     float* pred) {
-  const int n = p.n;
+  const int n = p.n, ps = pl.stride(), ga = pl.glob(a);
   const float wa = w[a];
-  float xc[3] = {x[a], x[n + a], x[2 * n + a]};
+  float xc[3] = {x[ga], x[n + ga], x[2 * n + ga]};
   const float gh = tab[0];
 
   if (do_contacts) {
@@ -641,7 +687,7 @@ __device__ __forceinline__ void contact_finalize_one(
   }
 
   if (!do_finalize) {
-    for (int c = 0; c < 3; ++c) pred[c * n + a] = pc[c];
+    for (int c = 0; c < 3; ++c) pred[c * ps + a] = pc[c];
     return;
   }
   const bool pinned = wa == 0.f;
@@ -669,7 +715,7 @@ __device__ __forceinline__ void contact_finalize_one(
     vc[2] = vc[2] - vc[2] * scalef;
   }
   for (int c = 0; c < 3; ++c) {
-    x[c * n + a] = xc[c];
-    v[c * n + a] = vc[c];
+    x[c * n + ga] = xc[c];
+    v[c * n + ga] = vc[c];
   }
 }

@@ -16,10 +16,12 @@ Every route runs a call (any number of substeps) as one launch of the
 persistent kernel, its passes separated by barriers.  ``plan_schedule``
 plans it from the shape alone: each block's tile of particles, the grid,
 and the barrier -- ``__syncthreads()`` where a block holds whole bodies
-(bodies of at most ``BLOCK_BODY_MAX`` particles), else a grid-wide
+(bodies of at most ``BLOCK_BODY_MAX`` particles), its tile held in
+shared memory for the whole call (``tile_bytes``), else a grid-wide
 ``GRID_BARRIER`` in a cooperative launch sized to what the card holds at
-once (``device_occupancy``).  The per-pass loop the persistent kernel
-replaced (one launch a pass) stays in the library as its yardstick:
+once (``device_occupancy``), every plane in global memory.  The per-pass
+loop the persistent kernel replaced (one launch a pass) stays in the
+library as its yardstick:
 ``run_substeps_cuda(..., design="per_pass")``, which no route takes.
 
 The rigid world reaches the kernel as a collider table
@@ -36,10 +38,12 @@ version, ``solvers.lattice.run_substeps_plain`` -- the only path a host
 without a card can take.  The library is built with ``nvcc`` on the first
 CUDA call (``kernels/_build.py``), never at import.
 
-``launches`` counts the CUDA kernels this module has launched; callers may
-reset it to 0 to count one run.  ``diag.profiling`` names the runner's
-spans and, inside ``profiling.counting()``, has it launch the kernel's
-counted twin, which tallies its barriers' wait on the card.
+``launches`` counts the CUDA kernels this module has launched, and
+``resident_launches`` those of them that held their tiles in shared
+memory (the block kind; ``scripts/trace_lattice.py`` reports both);
+callers may reset either to 0 to count one run.  ``diag.profiling`` names
+the runner's spans and, inside ``profiling.counting()``, has it launch the
+kernel's counted twin, which tallies its barriers' wait on the card.
 """
 
 from __future__ import annotations
@@ -71,8 +75,10 @@ MAX_SPHERES = 16
 MAX_BOXES = 16
 
 launches = 0   # CUDA kernels launched by this module (plain int)
+resident_launches = 0   # of them, block-kind launches (tiles in shared memory)
 TET_PLANES = 74   # csrc/lattice_xpbd.cuh's tet scratch planes
 THREADS = 256     # csrc/lattice_xpbd.cu LX_THREADS: threads a block
+SMEM_DEFAULT = 48 * 1024   # shared memory a block gets without opting in
 # the persistent kernel's barriers (csrc/lattice_xpbd.cu LX_BLOCK,
 # LX_GRID_CTR): __syncthreads() for a block of whole bodies; across
 # blocks, a counting barrier on a global counter
@@ -227,8 +233,9 @@ class Schedule:
     """One call of the persistent kernel: block ``j`` owns the particles
     ``[j * chunk, min((j + 1) * chunk, n))`` (its tile) for the whole call,
     each of its ``THREADS`` threads those at a stride of ``THREADS``;
-    ``barrier`` separates the passes (a key of ``BARRIERS``).  A tile and
-    the partners it reads come straight from L2: no shared memory."""
+    ``barrier`` separates the passes (a key of ``BARRIERS``).  The block
+    kind holds its tile in shared memory (``tile_bytes``); the grid kind
+    reads a tile and its halo from global memory."""
 
     barrier: str
     grid: int
@@ -247,6 +254,17 @@ class Schedule:
         return [(min(j * self.chunk, self.n),
                  min((j + 1) * self.chunk, self.n))
                 for j in range(self.grid)]
+
+
+def tile_bytes(sched: Schedule, nfam: int) -> int:
+    """Shared memory a block of ``sched`` holds its tile in for the whole
+    call (``csrc/lattice_xpbd.cu`` ``tile_floats``): for the block kind the
+    iterate's two buffers (3 planes each), the inverse masses and the
+    distance multipliers' two buffers (``nfam`` planes each), ``chunk``
+    floats a plane; none for the grid kind."""
+    if sched.kind != "block":
+        return 0
+    return 4 * sched.chunk * (6 + 1 + 2 * nfam)
 
 
 def choose_barrier(spec: LatticeSpec) -> str:
@@ -313,10 +331,18 @@ def _library() -> ctypes.CDLL:
     lib.lattice_xpbd_run_per_pass.restype = ci
     lib.lattice_xpbd_occupancy.argtypes = [ci, ci, cip, cip, cip, cip]
     lib.lattice_xpbd_occupancy.restype = ci
+    lib.lattice_xpbd_tile_floats.argtypes = [ci, ci]
+    lib.lattice_xpbd_tile_floats.restype = ci
+    lib.lattice_xpbd_last_error.argtypes = []
+    lib.lattice_xpbd_last_error.restype = ci
     lib.lattice_xpbd_approx_probe.argtypes = [vp, vp, ctypes.c_int, vp]
     lib.lattice_xpbd_approx_probe.restype = ctypes.c_int
     if lib.lattice_xpbd_params_size() != ctypes.sizeof(LatticeParams):
         raise RuntimeError("LatticeParams layout differs between "
+                           "lattice_cuda.py and lattice_xpbd.cu")
+    if 4 * lib.lattice_xpbd_tile_floats(THREADS, 13) != tile_bytes(
+            Schedule("block", 1, THREADS, THREADS, 64), 13):
+        raise RuntimeError("a block tile's size differs between "
                            "lattice_cuda.py and lattice_xpbd.cu")
     return lib
 
@@ -439,7 +465,9 @@ def run_substeps_cuda(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
     ``run_substeps_plain_batched``, all bodies in one launch; ``approx_math``
     as there), the state's ColliderSet (if any) replacing the config's
     rigid world.  One launch of the persistent kernel (``schedule_for``);
-    inside ``diag.profiling.counting()``, of its counted twin.
+    inside ``diag.profiling.counting()``, of its counted twin.  A
+    block-kind tile beyond the shared memory a block of the card holds
+    (``tile_bytes``) raises ``ValueError`` before any launch.
     ``design="per_pass"`` runs the yardstick, one launch a pass, and
     ``schedule`` (a ``Schedule`` for this shape) another plan than the
     shape's: for the card tests and ``chip_smoke.py``'s timing, never a
@@ -456,7 +484,7 @@ def run_substeps_cuda(state: SimState, spec: LatticeSpec, cfg: SolverConfig,
 
 def _run_substeps_cuda(state, spec, cfg, dt_sub, n_substeps, with_ext,
                        batched, approx_math, design, schedule):
-    global launches
+    global launches, resident_launches
     _lat.check_state(state, cfg)
     dev = state.device
     with profiling.span("lattice.layout"):
@@ -534,8 +562,18 @@ def _run_substeps_cuda(state, spec, cfg, dt_sub, n_substeps, with_ext,
         else:
             raise ValueError(f"lattice kernel: no design {design!r}")
     launches += count.value
+    if design == "persistent" and sched.kind == "block":
+        resident_launches += count.value
     if rc != 0:
         msg = lib.lattice_xpbd_error_string(rc).decode()
+        need = tile_bytes(sched, nfam) if design == "persistent" else 0
+        if need > SMEM_DEFAULT and count.value == 0:
+            # the library's raise of the kernel's shared-memory limit was
+            # refused: the tile does not fit a block of this card
+            raise ValueError(
+                f"lattice kernel: a block tile of {sched.chunk} particles "
+                f"needs {need} bytes of shared memory, more than a block "
+                f"of {dev} holds: {msg} ({rc})")
         raise RuntimeError(f"lattice kernel launch failed: {msg} ({rc})")
 
     def body(t):

@@ -77,7 +77,15 @@ the bit as the kernel it twins, its barriers a warp equal to the count
 along the kernel's loop (``test_torch_profiling.loop_barriers``; 26,000
 and 12,480 a call), a wait shorter than the residence, and under the
 profiler only ``lattice_persistent_kernel`` outside the counting scope,
-with the runner's spans on the host's timeline alone.
+with the runner's spans on the host's timeline alone.  B-1's block kind,
+its tiles in shared memory for the whole call: ensembles of res-2 to
+res-6 bodies, a last block with fewer bodies, WARM_START with the ext
+force, COLORED with tets, a ColliderSet, ``fast_math`` and
+``approx_math``, and a res-12 body forced into one block, each equal to
+the per-pass loop and (exact) to the plain engine to the bit, twice, one
+shared-memory launch a call (``lattice_cuda.resident_launches``); a tile
+beyond the block's shared memory refused with ``ValueError`` before any
+launch.
 """
 
 import pytest
@@ -980,6 +988,129 @@ def test_persistent_b1_launches_once_a_call_on_card(cuda):
     # 9 substeps every 3rd: three chunks of two contact-free substeps
     assert count(lambda: lc.make_hybrid_contact_runner(
         spec, hcfg, 1 / 360, 9)(hstate)) == 3
+
+
+# The block kind's tests run before the refused cooperative launch below:
+# the per-pass loop they hold it against checks each launch with
+# cudaGetLastError(), which also reports an earlier call's refusal.  Their
+# fixture clears that error first, so they pass in any order.
+@pytest.fixture
+def clear_cuda_error(cuda):
+    """The thread's last CUDA error, read and cleared."""
+    torch.cuda.synchronize()
+    lc._library().lattice_xpbd_last_error()
+
+
+def _resident_cases():
+    """``{name: (res, bodies, config, input kwargs, approx_math, forced)}``
+    of the block kind, whose tiles live in shared memory: ensembles of
+    res-2 to res-6 bodies (res 2's 300 put three bodies in a block), 133
+    res-4 bodies (two a block, the last block one: the ext force on it),
+    COLORED with tets, a ColliderSet's sphere and box, ``approx_math``,
+    ``fast_math``, and a res-12 body forced whole into one block (1,728
+    particles, 228,096 bytes of tile: the largest that fits)."""
+    from softbodysimulation_tpu_torch.core import config as C
+
+    ens = {k: v[0] for k, v in ensemble_cases.lattice_ensemble_cases().items()}
+    kin = collider_cases.lattice_collider_cases()["kin_spheres_boxes"][0]
+    bench = CASES["bench"][0]
+    warm_colored = bench.replace(solve_mode=C.SolveMode.COLORED, iterations=2,
+                                 lambda_mode=C.LambdaMode.WARM_START,
+                                 lambda_decay=1.0)
+    tets = ens["solid_tets"].replace(solve_mode=C.SolveMode.COLORED)
+    return {
+        "res2_reset": (2, 300, ens["reset"], {}, False, False),
+        "res3_colored_decay": (3, 20, ens["colored_decay"], {}, False,
+                               False),
+        "res4_warm_ext_last_block": (4, 133, ens["warm_jacobi_ext"],
+                                     dict(ext_body=132), False, False),
+        "res5_fast_math": (5, 9, bench, {}, False, False),
+        "res6_warm_ext": (6, 5, ens["warm_jacobi_ext"], dict(ext_body=2),
+                          False, False),
+        "res4_colored_tets": (4, 6, tets, dict(tets=True), False, False),
+        "res6_collider_set": (6, 3, kin, "kin", False, False),
+        "res4_approx": (4, 133, ens["warm_jacobi_ext"], dict(ext_body=0),
+                        True, False),
+        "res12_forced_one_body": (12, 1, warm_colored, {}, False, True),
+    }
+
+
+RESIDENT_CASES = list(_resident_cases())
+RESIDENT_FRAMES = 2
+
+
+@pytest.mark.gpu
+@pytest.mark.usefixtures("clear_cuda_error")
+@pytest.mark.parametrize("name", RESIDENT_CASES)
+def test_resident_block_kind_equals_per_pass_and_plain_on_card(cuda, name):
+    """The block kind, its tiles in shared memory for the whole call,
+    equals the per-pass loop to the bit on every body and, exact, the
+    plain engine on the first, a middle and the last body; run twice, the
+    same bits, each call one launch that took the shared-memory kind."""
+    from softbodysimulation_tpu_torch import make_colliders
+    from softbodysimulation_tpu_torch.core.state import body_of
+
+    res, nb, cfg, kw, approx, forced = _resident_cases()[name]
+    spec = ptop.lattice_spec(res, braced=True)
+    st = state_from_numpy(ensemble_cases.lattice_inputs(
+        res, nb, **({} if kw == "kin" else kw)), device=cuda)
+    if kw == "kin":
+        st = st.replace(colliders=make_colliders(
+            device=cuda, **collider_cases.LATTICE_KIN))
+    sched = (lc.schedule_for(spec, nb, cuda, barrier="block") if forced
+             else lc.schedule_for(spec, nb, cuda))
+    assert sched.kind == "block"
+    dt_sub = ensemble_cases.DT / cfg.substeps
+    n_sub = RESIDENT_FRAMES * cfg.substeps
+    runs = []
+    for _ in range(2):
+        resident = lc.resident_launches
+        new, old, n_new = _b1_designs(st, spec, cfg, dt_sub, n_sub,
+                                      with_ext=True, batched=True,
+                                      approx_math=approx, schedule=sched)
+        # one launch, the shared-memory kind (the per-pass loop's are not)
+        assert (n_new, lc.resident_launches - resident) == (1, 1), name
+        runs.append(new)
+        assert not _bits_equal(new, old), (name, _bits_equal(new, old))
+    assert not _bits_equal(runs[1], runs[0]), name
+    assert float((new.positions - st.positions).abs().max()) > 1e-4
+    if approx:
+        return
+    for b in sorted({0, nb // 2, nb - 1}):
+        ref = plat.run_substeps_plain(body_of(st, b), spec, cfg, dt_sub,
+                                      n_sub, with_ext=True)
+        for k in ("positions", "velocities", "lambda_dist", "lambda_tet"):
+            x, y = getattr(new, k), getattr(ref, k)
+            assert (x is None) == (y is None), (name, k)
+            if x is not None:
+                assert torch.equal(x[b].view(torch.int32),
+                                   y.view(torch.int32)), (name, b, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.usefixtures("clear_cuda_error")
+def test_block_tile_beyond_shared_memory_raises_on_card(cuda):
+    """A forced block plan whose tile does not fit the shared memory a
+    block may hold (one res-16 body: 540,672 bytes) raises ValueError
+    before any launch; a block-kind call right after it runs."""
+    cfg = CASES["bench"][0]
+    spec = ptop.lattice_spec(16, braced=True)
+    state = plat.make_lattice_state(spec, center=(0.0, 0.6, 0.0),
+                                    mass=0.001, device=cuda)
+    sched = lc.schedule_for(spec, 1, cuda, barrier="block")
+    assert lc.tile_bytes(sched, spec.n_families) == 540672
+    before = (lc.launches, lc.resident_launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        lc.run_substeps_cuda(state, spec, cfg, 1 / 480, 4, schedule=sched)
+    assert (lc.launches, lc.resident_launches) == before
+    small = ptop.lattice_spec(4, braced=True)
+    st4 = plat.make_lattice_state(small, center=(0.0, 0.6, 0.0),
+                                  mass=0.001, device=cuda)
+    out = lc.run_substeps_cuda(st4, small, cfg, 1 / 480, 4)
+    torch.cuda.synchronize()
+    assert (lc.launches, lc.resident_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    assert bool(torch.isfinite(out.positions).all())
 
 
 @pytest.mark.gpu

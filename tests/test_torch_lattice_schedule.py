@@ -149,6 +149,33 @@ def test_no_read_leaves_its_body(res, bodies, braced):
                         assert ((got >= lo) & (got < hi)).all(), (a, s)
 
 
+def test_example5_tile_fills_33792_bytes_of_shared_memory():
+    """Example 5's tiles (four res-4 bodies, 256 particles, 13 families)
+    hold w, two iterate and two multiplier buffers in shared memory:
+    4 x 256 x (6 + 1 + 2 x 13) bytes."""
+    spec = ptop.lattice_spec(4, braced=True)
+    ex5 = lc.plan_schedule(spec, 1024, 132, 2)
+    assert (ex5.kind, ex5.chunk, spec.n_families) == ("block", 256, 13)
+    assert lc.tile_bytes(ex5, spec.n_families) == 33792
+
+
+@pytest.mark.parametrize("res,bodies,braced", SHAPES)
+def test_default_block_tiles_fit_without_raising_the_limit(res, bodies,
+                                                           braced):
+    """Every block plan the planner chooses holds its tile within the 48 KB
+    a block gets without raising its shared-memory limit (a body of at
+    most BLOCK_BODY_MAX particles, at most a block's threads of them); the
+    grid kind holds none."""
+    spec = ptop.lattice_spec(res, braced=braced)
+    for sms, per_sm in CARDS:
+        s = lc.plan_schedule(spec, bodies, sms, per_sm)
+        need = lc.tile_bytes(s, spec.n_families)
+        if s.kind == "block":
+            assert 0 < need <= 48 * 1024, (res, bodies, s)
+        else:
+            assert need == 0
+
+
 def test_grid_beyond_coresidency_raises():
     spec = ptop.lattice_spec(40, braced=True)
     ok = lc.plan_schedule(spec, 1, 132, 2, barrier="counter", grid=264)
