@@ -7,9 +7,10 @@ is a file found by its name in ``BENCHMARK.json``:
 that drives it), ``traffic/<traffic>.json`` (the calls),
 ``limits/<cell>.json`` (the numbers compared and their limits),
 ``metrics/<metric>.py`` (the reader of one metric), and
-``systems/<system>.py`` (the system's inputs from the seed, its health
-gate, how the program is built and driven, and how the reference follows
-it).
+``systems/<system>.py`` (the system's leaves, its inputs from the seed,
+its health gate, its cut to a CPU test's size, how the program is built
+and driven, and how the reference follows it: ``systems/lattice.py``
+lists what a system file gives).
 
 A call of a cell is the step (the timed path's entry), the system's
 health gate queued behind it on the device, and a synchronise.  The

@@ -1,11 +1,17 @@
 """The port's lattice path as the benchmark drives it, and the plain
 reference that follows it.
 
-A system file holds what the harness needs of one kind of configuration:
-``call_shape``, ``particles``, ``initial_positions`` (the inputs, from the
-seed), ``unhealthy`` (the health gate that counts a call as failed),
-``Program`` and ``Reference``.  Here: braced res^3 lattices, one body or
-an ensemble.
+A system file holds what the harness, the control and the tests need of
+one kind of configuration: ``LEAVES`` (the state's leaves that
+``Program.leaves`` gives and ``Reference.call`` takes, each with a body
+axis first), ``call_shape``, ``particles``, ``initial_positions`` (the
+inputs, from the seed), ``unhealthy`` (the health gate that counts a call
+as failed), ``cpu_cut`` (the configuration and traffic at a CPU test's
+size), ``Program`` (with ``with_leaves``, through which a planted fault
+changes a leaf) and ``Reference``; optionally ``approx_program``, the
+program's own path of approximate arithmetic, a witness of rounding for
+``python -m portbench.control --program approx_math``.  Here: braced
+res^3 lattices, one body or an ensemble.
 
 ``Program`` builds, from a configuration and the initial positions, what
 a user of ``softbodysimulation_tpu_torch`` builds: the lattice spec, the
@@ -98,6 +104,21 @@ def unhealthy(leaves: Dict[str, torch.Tensor]) -> torch.Tensor:
     return (~ok).to(torch.int32)
 
 
+def cpu_cut(conf: Dict, traffic: Dict):
+    """(configuration, traffic) cut to a CPU test's size: res 4 bodies
+    (res 3 in an ensemble), at most four of them, 16 substeps a call or at
+    most 3 frames a call."""
+    conf = dict(conf, body=dict(conf["body"],
+                                res=4 if conf["bodies"] == 1 else 3),
+                bodies=min(conf["bodies"], 4))
+    traffic = dict(traffic)
+    if "substeps_per_call" in traffic:
+        traffic["substeps_per_call"] = 16
+    if traffic.get("frames_per_call", 1) > 3:
+        traffic["frames_per_call"] = 3
+    return conf, traffic
+
+
 class Program:
     """The system under test, built as its users build it."""
 
@@ -145,6 +166,27 @@ class Program:
         if self.bodies == 1:
             out = {k: v[None] for k, v in out.items()}
         return out
+
+    def with_leaves(self, state, **leaves):
+        """``state`` with the given leaves (as ``leaves`` gives them, a
+        body axis first) in place."""
+        if self.bodies == 1:
+            leaves = {k: v[0] for k, v in leaves.items()}
+        return state.replace(**leaves)
+
+
+def approx_program(conf: Dict, traffic: Dict, positions: np.ndarray,
+                   device) -> Program:
+    """The program with its own ``approx_math`` path on (rsqrt and the
+    approximate reciprocal in the kernel's passes): float32 rounded
+    otherwise, a witness of how far rounding alone moves a call's
+    answers, not a control."""
+    prog = Program(conf, traffic, positions, device)
+    n_sub, with_ext = call_shape(conf, traffic)
+    prog._step = lattice_cuda.make_cuda_substep_runner(
+        prog.spec, prog.cfg, conf["frame_s"] / conf["solver"]["substeps"],
+        n_sub, with_ext=with_ext, approx_math=True, n_bodies=prog.bodies)
+    return prog
 
 
 class Reference:

@@ -5,7 +5,6 @@ and nothing it loads is JAX or the JAX package."""
 
 import json
 import os
-import shutil
 import subprocess
 import sys
 
@@ -13,7 +12,7 @@ import pytest
 import torch
 
 from portbench import harness
-from portbench.tests import tiny
+from portbench.tests import added, tiny
 
 ROOT = harness.ROOT
 
@@ -30,40 +29,11 @@ def test_each_cell_runs_and_is_correct_on_the_cpu(cell):
     assert all(v["value"] > 0 for v in out["metrics"].values())
 
 
-def _bench_with(config, cell, traffic, metric):
-    """The benchmark's JSON with a configuration, a cell and an end-to-end
-    metric added (entries only)."""
-    bench = json.loads(json.dumps(tiny.BENCH))
-    bench["configs"].append({"name": config[0], "source": "test",
-                             "file": config[1], "reduced": [],
-                             "why": "test"})
-    bench["workloads"].append({"name": cell, "config": config[0],
-                               "traffic": traffic, "chips": 1,
-                               "why": "test"})
-    bench["end_to_end"].append({"name": metric, "unit": "calls",
-                                "better": "higher", "bound": 0.01,
-                                "source": "host_clock",
-                                "workloads": [cell]})
-    return bench
-
-
-def _new_tree(tmp_path):
-    """A copy of the benchmark's data and code directories to add files
-    to; the files already there are left as they are."""
-    here = tmp_path / "portbench"
-    for kind in ("traffic", "limits", "metrics", "systems"):
-        shutil.copytree(harness.HERE / kind, here / kind,
-                        ignore=shutil.ignore_patterns("__pycache__"))
-    (here / "metrics" / "calls_completed.py").write_text(
-        "def read(run):\n    return float(len(run.call_s))\n")
-    return here
-
-
 def test_a_cell_added_as_files_alone_is_found_by_name(tmp_path,
                                                       monkeypatch):
     """A new configuration, traffic mix, limits and metric, each a file of
     its own, with entries in the benchmark's JSON: no code edited."""
-    here = _new_tree(tmp_path)
+    here = added.new_tree(tmp_path)
     conf = json.loads((ROOT / "portbench/configs/lattice64k.json")
                       .read_text())
     conf["body"]["res"] = 3
@@ -74,9 +44,9 @@ def test_a_cell_added_as_files_alone_is_found_by_name(tmp_path,
         json.dumps(traffic))
     (here / "limits" / "small.eight_substeps.json").write_text(
         json.dumps(limits))
-    bench = _bench_with(("small", str(tmp_path / "small.json")),
-                        "small.eight_substeps", "eight_substeps",
-                        "calls_completed")
+    bench = added.bench_with(("small", str(tmp_path / "small.json")),
+                             "small.eight_substeps", "eight_substeps",
+                             "calls_completed")
     monkeypatch.setattr(harness, "HERE", here)
     out = harness.run_cell(bench, "small.eight_substeps", 5, 0.2, False,
                            "cpu", 0.0)
@@ -86,99 +56,14 @@ def test_a_cell_added_as_files_alone_is_found_by_name(tmp_path,
     assert "calls_completed" not in tiny.run("lattice64k.rollout")["metrics"]
 
 
-SHEET = '''"""A flat sheet drifting over the floor under damping: a system
-that is no lattice, with its own inputs and health gate."""
-import numpy as np
-import torch
-
-from portbench import generate
-
-LEAVES = ("positions", "velocities")
-
-
-def call_shape(conf, traffic):
-    return traffic["substeps_per_call"], False
-
-
-def particles(conf):
-    return conf["side"] ** 2
-
-
-def initial_positions(conf, seed):
-    n, h = conf["side"], conf["spacing_m"]
-    i, k = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
-    p = np.zeros((1, n * n, 3), np.float32)
-    p[0, :, 0] = i.ravel() * h + generate.rng(seed, generate.POSE).uniform()
-    p[0, :, 2] = k.ravel() * h
-    return p
-
-
-def unhealthy(leaves):
-    return (~torch.isfinite(leaves["positions"]).all()).to(torch.int32)
-
-
-def advance(x, v, dt, substeps):
-    for _ in range(substeps):
-        v = v * 0.99
-        x = x + dt * v
-    return {"positions": x, "velocities": v}
-
-
-def start(positions, device, dtype=torch.float32):
-    x = torch.as_tensor(positions, device=device).to(dtype)
-    v = torch.zeros_like(x)
-    v[..., 0] = 0.5
-    return {"positions": x, "velocities": v}
-
-
-class Program:
-    def __init__(self, conf, traffic, positions, device):
-        self.state = start(positions, device)
-        self.dt, self.n = conf["dt_s"], traffic["substeps_per_call"]
-
-    def step(self, state):
-        return advance(state["positions"], state["velocities"], self.dt,
-                       self.n)
-
-    def leaves(self, state):
-        return dict(state)
-
-
-class Reference:
-    def __init__(self, conf, traffic, device, dtype=torch.float32):
-        self.device, self.dtype = device, dtype
-        self.dt, self.n = conf["dt_s"], traffic["substeps_per_call"]
-
-    def start(self, positions):
-        return start(positions, self.device, self.dtype)
-
-    def call(self, leaves):
-        return advance(leaves["positions"], leaves["velocities"], self.dt,
-                       self.n)
-'''
-
-
 def test_a_system_added_as_files_alone_runs(tmp_path, monkeypatch):
-    """A system that is no lattice (a cloth lying flat, which the
-    lattice's height gate would refuse) with its configuration, traffic
+    """A system that is no lattice (sheets lying flat, which the
+    lattice's height gate would refuse, with a leaf the lattice lacks and
+    no lattice key in its configuration) with its configuration, traffic
     mix, limits and a metric, each a new file: its own inputs and health
     gate, no existing file edited."""
-    here = _new_tree(tmp_path)
-    (here / "systems" / "flat_sheet.py").write_text(SHEET)
-    conf = {"system": "flat_sheet", "side": 8, "spacing_m": 0.05,
-            "dt_s": 0.002}
-    (tmp_path / "sheet.json").write_text(json.dumps(conf))
-    traffic = {"entry": "advance", "substeps_per_call": 10,
-               "warmup_calls": 1, "check": {"calls": 2,
-                                            "drawn_from_first": 4},
-               "trace": {"first_call": 1, "calls": 2}}
-    (here / "traffic" / "drift.json").write_text(json.dumps(traffic))
-    limits = {"numbers": {"dx": {"leaf": "positions", "measure": "max_abs",
-                                 "limit": 0.0}}}
-    (here / "limits" / "sheet.drift.json").write_text(json.dumps(limits))
-    bench = _bench_with(("sheet", str(tmp_path / "sheet.json")),
-                        "sheet.drift", "drift", "calls_completed")
-    monkeypatch.setattr(harness, "HERE", here)
+    bench = added.add_sheet(tmp_path, monkeypatch)
+    conf = added.SHEET_CONF
     out = harness.run_cell(bench, "sheet.drift", 2 ** 33 + 5, 0.2, False,
                            "cpu", 0.0)
     assert out["correct"] and out["failed"] == 0, out

@@ -1,13 +1,18 @@
 """The benchmark's arithmetic on the CPU: the work count of the roofline
 worked out by hand, the rate on synthetic timings, the idle share from
-the union of device intervals, and the readers found by name."""
+the union of device intervals, the program's spans kept apart from the
+benchmark's and the runner's idle share read from them, and the readers
+found by name."""
 
 import json
 
 import pytest
+import torch
+from softbodysimulation_tpu_torch.diag import profiling
 
-from portbench import harness
-from portbench.trace import Trace, complement, union
+from portbench import harness, trace
+from portbench.trace import (SPAN_PREFIX, WINDOW, Trace, complement,
+                             from_profiler, union)
 
 ROOT = harness.ROOT
 
@@ -103,3 +108,71 @@ def test_roofline_reads_nothing_without_its_kernel():
     want = harness.load_reader("lattice_roofline_pct").__globals__[
         "bound_s"](conf("lattice64k"), 8, True) / 0.5 * 100
     assert reader("lattice_roofline_pct")(r) == pytest.approx(want)
+
+
+def test_the_program_span_prefix_is_the_ports():
+    """The benchmark keeps the port's span prefix as a literal and imports
+    nothing of the program for it."""
+    assert trace.PROGRAM_SPAN_PREFIX == profiling.SPAN_PREFIX == "sbs."
+    assert "softbodysimulation_tpu" not in (harness.HERE / "trace.py"
+                                            ).read_text()
+
+
+def test_the_trace_keeps_the_programs_spans_apart():
+    """The port's ``sbs.`` spans land in ``program_spans``; the benchmark's
+    spans, the device's operations and the idle gaps read as they do with
+    no program span."""
+
+    def traced(with_spans):
+        x = torch.arange(64.0)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            with torch.profiler.record_function(WINDOW):
+                with torch.profiler.record_function(SPAN_PREFIX
+                                                    + "dispatch"):
+                    if with_spans:
+                        with profiling.span("lattice.call"):
+                            with profiling.span("lattice.layout"):
+                                x = x * 2.0
+                            x = x.sum()
+                    else:
+                        x = (x * 2.0).sum()
+        return from_profiler(prof, 1)
+
+    plain, spanned = traced(False), traced(True)
+    assert [n for n, _, _ in spanned.program_spans] == [
+        "lattice.call", "lattice.layout"]
+    assert all(spanned.window[0] <= s <= e <= spanned.window[1]
+               for _, s, e in spanned.program_spans)
+    assert plain.program_spans == []
+    assert [n for n, _, _ in spanned.spans] == ["dispatch"]
+    assert [n for n, _, _ in spanned.device_ops] == [
+        n for n, _, _ in plain.device_ops]
+    assert sorted(n for n, _ in spanned.idle_gaps()) == sorted(
+        n for n, _ in plain.idle_gaps())
+
+
+def test_runner_idle_share_by_hand():
+    """Idle time inside the union of ``<runner>.call`` spans, nested or
+    disjoint, over the slice; idle time outside them, and spans of other
+    names, do not count."""
+    ops = [("k", 1.0, 3.0), ("k", 5.0, 6.0), ("k", 8.0, 9.0)]
+    program = [("lattice.call", 0.5, 4.0),     # idle 0.5-1, 3-4: 1.5
+               ("lattice.layout", 0.5, 1.0),   # inside the call
+               ("lattice.call", 3.5, 4.5),     # overlaps: adds 4-4.5
+               ("mesh.call", 6.5, 7.5),        # disjoint, all idle: 1.0
+               ("lattice.launch", 9.0, 10.0)]  # no call: not counted
+    tr = Trace(window=(0.0, 10.0), calls=2, device_ops=ops,
+               spans=[("dispatch", 0.0, 9.5)], program_spans=program)
+    r = run_record([], 1.0, trace=tr)
+    assert reader("runner_idle_pct")(r) == pytest.approx(
+        100.0 * (1.5 + 0.5 + 1.0) / 10.0)
+    # the idle share of the whole slice counts the gaps outside the calls
+    assert reader("device_idle_pct.rollout")(r) == pytest.approx(60.0)
+    no_call = Trace(window=(0.0, 10.0), calls=2, device_ops=ops,
+                    spans=[], program_spans=program[1:2] + program[4:])
+    assert reader("runner_idle_pct")(run_record([], 1.0,
+                                                trace=no_call)) is None
+    assert reader("runner_idle_pct")(run_record([], 1.0)) is None
+    # a Trace built positionally, as before, holds no program span
+    assert Trace((0.0, 1.0), 1, [], []).program_spans == []

@@ -1,7 +1,8 @@
 """Reduction of a profiler trace to what the per-layer readers read: the
 traced window, the device's busy time as the union of its operations,
-the idle gaps by the host span that was open, and the device operations
-by name.  Times are seconds on the profiler's clock."""
+the idle gaps by the host span that was open, the device operations by
+name, and the program's own host spans.  Times are seconds on the
+profiler's clock."""
 
 from __future__ import annotations
 
@@ -12,6 +13,10 @@ Interval = Tuple[float, float]
 # the benchmark's own host spans (torch.profiler.record_function names)
 SPAN_PREFIX = "portbench."
 WINDOW = SPAN_PREFIX + "window"
+# the program's own host spans (the port's ``diag.profiling.SPAN_PREFIX``,
+# kept here as a literal: the benchmark's modules import nothing of the
+# program)
+PROGRAM_SPAN_PREFIX = "sbs."
 
 
 @dataclasses.dataclass
@@ -19,12 +24,16 @@ class Trace:
     """One traced slice of the window: ``calls`` whole calls between
     ``window[0]`` and ``window[1]``; ``device_ops`` every operation that
     ran on the device (name, start, end); ``spans`` the benchmark's host
-    spans inside the slice (name without the prefix, start, end)."""
+    spans inside the slice (name without the prefix, start, end);
+    ``program_spans`` the program's host spans there, the same way
+    (``PROGRAM_SPAN_PREFIX`` taken off).  Only ``spans`` name idle gaps."""
 
     window: Interval
     calls: int
     device_ops: List[Tuple[str, float, float]]
     spans: List[Tuple[str, float, float]]
+    program_spans: List[Tuple[str, float, float]] = dataclasses.field(
+        default_factory=list)
 
     @property
     def window_s(self) -> float:
@@ -110,10 +119,11 @@ def from_profiler(prof, calls: int) -> Trace:
     """The ``Trace`` of a ``torch.profiler.profile`` over ``calls`` calls
     inside a ``WINDOW`` span.  The device's operations are every event the
     profiler puts on the device, but the benchmark's own spans (which it
-    mirrors there as annotations)."""
+    mirrors there as annotations); the program's spans are host events
+    (CPU-op ranges, not mirrored)."""
     from torch.autograd import DeviceType
 
-    ops, spans, window = [], [], None
+    ops, spans, program_spans, window = [], [], [], None
     for e in prof.events():
         s, t = e.time_range.start * 1e-6, e.time_range.end * 1e-6
         if e.device_type == DeviceType.CUDA:
@@ -123,6 +133,8 @@ def from_profiler(prof, calls: int) -> Trace:
             window = (s, t)
         elif e.name.startswith(SPAN_PREFIX):
             spans.append((e.name[len(SPAN_PREFIX):], s, t))
+        elif e.name.startswith(PROGRAM_SPAN_PREFIX):
+            program_spans.append((e.name[len(PROGRAM_SPAN_PREFIX):], s, t))
     if window is None:
         raise RuntimeError("portbench: the trace holds no window span")
-    return Trace(window, calls, ops, spans)
+    return Trace(window, calls, ops, spans, program_spans)
