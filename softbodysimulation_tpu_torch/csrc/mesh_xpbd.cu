@@ -1445,16 +1445,16 @@ int mesh_xpbd_run(const MeshParams* hp, const MeshBuffers* hb,
     r.s0 = s0;
     r.i1 = i1;
     r.s1 = s1;
-    cudaError_t e;
-    if (kind == BARRIER_BLOCK) {
-      mesh_persistent_kernel<BARRIER_BLOCK><<<grid, MX_THREADS, 0,
-                                              stream>>>(p, b, r);
-      e = cudaGetLastError();
-    } else {
-      void* args[] = {(void*)&p, (void*)&b, (void*)&r};
-      e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(MX_THREADS),
-                                      args, 0, stream);
-    }
+    // each launch's own status: cudaGetLastError() after <<<>>> would
+    // also report an error an earlier call left on this thread (a refused
+    // cooperative launch), and fail this launch for it
+    void* args[] = {(void*)&p, (void*)&b, (void*)&r};
+    const cudaError_t e =
+        kind == BARRIER_BLOCK
+            ? cudaLaunchKernel(fn, dim3(grid), dim3(MX_THREADS), args, 0,
+                               stream)
+            : cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(MX_THREADS),
+                                          args, 0, stream);
     if (e == cudaSuccess) ++launched;
     return (int)e;
   };
@@ -1505,6 +1505,11 @@ int mesh_xpbd_run_per_pass(const MeshParams* hp, const MeshBuffers* hb,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (bad_params(p, b, cp, cb)) return (int)cudaErrorInvalidValue;
+  // MX_CHECK reads each launch's status with cudaGetLastError(), which
+  // would also report an error an earlier call left on this thread (a
+  // refused cooperative launch): clear it first, so that each check sees
+  // its own launch alone
+  (void)cudaGetLastError();
 
 #define MX_CHECK()            \
   do {                        \

@@ -81,7 +81,9 @@ ground), read by every launch; each launch takes its collider counts from
 that world (``launch_params``).
 
 ``launches`` counts the CUDA kernels this module has launched (the B-4
-pass's aside); callers may reset it to 0 to count one run.
+pass's aside); callers may reset it to 0 to count one run.  Under a
+profiler ``diag.profiling`` names the runner's spans
+(``run_substeps_cuda``).
 """
 
 from __future__ import annotations
@@ -97,6 +99,7 @@ import torch
 from ..core.colliders import check_kin
 from ..core.config import FloorMode, LambdaMode, SolveMode, SolverConfig
 from ..core.state import SimState, Topology, body_contract, check_bodies
+from ..diag import profiling
 from ..ops import collision as _collision
 from ..ops import incidence as _incidence
 from ..ops import integrate as _integrate
@@ -216,8 +219,8 @@ def _check_supported(cfg: SolverConfig, topo: Topology,
             and cfg.self_collision_backend != "dense"):
         raise NotImplementedError(
             f"mesh kernel: ensembles take dense self-collision only, not "
-            f"the {cfg.self_collision_backend!r} backend (ROADMAP B-3 item "
-            f"5)")
+            f"the {cfg.self_collision_backend!r} backend, as the JAX mesh "
+            f"kernel refuses it (mesh_pallas.py:106-111)")
     n_sph, n_box = ((len(cfg.sphere_colliders), len(cfg.box_colliders))
                     if kin_colliders is None else kin_colliders)
     if n_sph > MAX_SPHERES or n_box > MAX_BOXES:
@@ -668,111 +671,129 @@ def run_substeps_cuda(state: SimState, topo: Topology, cfg: SolverConfig,
     launch a pass; ``schedule`` (a ``Schedule`` for this shape) another
     plan than the shape's; ``contact_design="serial"`` B-4's yardstick
     (``kernels.contact_cuda``) in the blocked contact passes: each for the
-    card tests and ``chip_smoke.py``, never a route.  No host sync."""
+    card tests and ``chip_smoke.py``, never a route.  No host sync.  Under
+    a profiler the call is the span ``sbs.mesh.call``, its phases
+    ``sbs.mesh.layout`` (checks, leaves to planes, scratch, the device
+    tables and constants), ``sbs.mesh.launch`` (the library, the B-4
+    pass's tables, the schedule, the launches) and ``sbs.mesh.unlayout``
+    (planes to leaves)."""
+    with profiling.span("mesh.call"):
+        return _run_substeps_cuda(state, topo, cfg, dt_sub, n_substeps,
+                                  with_ext, materials, batched,
+                                  per_body_mass, approx_math,
+                                  contact_design, design, schedule)
+
+
+def _run_substeps_cuda(state, topo, cfg, dt_sub, n_substeps, with_ext,
+                       materials, batched, per_body_mass, approx_math,
+                       contact_design, design, schedule):
     global launches
     _general.check_state(state)
     dev = state.device
-    world = _collision.RigidWorld.of(cfg, state.colliders, dev)
-    _check_supported(cfg, topo, batched=batched,
-                     kin_colliders=(world.n_spheres, world.n_boxes))
-    check_cuda(cfg, topo)
-    _general.check_tet_windows(cfg, topo, state)
-    if batched:
-        _general.check_volume_leaf(cfg, topo, state)
-    if dev.type != "cuda":
-        raise ValueError(f"mesh kernel: state on {dev}, not CUDA")
-    n, e, h = topo.n_particles, topo.n_edges, topo.n_hinges
-    b = state.positions.shape[0] if batched else 1
-    lead = (b,) if batched else ()
-    tables = _device_tables(topo, cfg, dt_sub, str(dev))
-    params = launch_params(tables, world)
-    params.n_bodies = b
-    params.w_stride = n if per_body_mass else 0
-    params.approx_math = int(approx_math)
-    if state.lambda_tet is None and topo.n_tets:
-        # no multipliers, no tet sweep (general._substep's has_tets)
-        params.n_tets = params.tets_on = 0
+    with profiling.span("mesh.layout"):
+        world = _collision.RigidWorld.of(cfg, state.colliders, dev)
+        _check_supported(cfg, topo, batched=batched,
+                         kin_colliders=(world.n_spheres, world.n_boxes))
+        check_cuda(cfg, topo)
+        _general.check_tet_windows(cfg, topo, state)
+        if batched:
+            _general.check_volume_leaf(cfg, topo, state)
+        if dev.type != "cuda":
+            raise ValueError(f"mesh kernel: state on {dev}, not CUDA")
+        n, e, h = topo.n_particles, topo.n_edges, topo.n_hinges
+        b = state.positions.shape[0] if batched else 1
+        lead = (b,) if batched else ()
+        tables = _device_tables(topo, cfg, dt_sub, str(dev))
+        params = launch_params(tables, world)
+        params.n_bodies = b
+        params.w_stride = n if per_body_mass else 0
+        params.approx_math = int(approx_math)
+        if state.lambda_tet is None and topo.n_tets:
+            # no multipliers, no tet sweep (general._substep's has_tets)
+            params.n_tets = params.tets_on = 0
 
-    def f32(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
+        def f32(*shape):
+            return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    def planes(name, t):
-        """(B, N, 3) leaves -> (B, 3, N) structure of arrays, once per
-        call."""
-        return _checked(name, t, lead + (n, 3), dev).reshape(
-            b, n, 3).permute(0, 2, 1).contiguous()
+        def planes(name, t):
+            """(B, N, 3) leaves -> (B, 3, N) structure of arrays, once per
+            call."""
+            return _checked(name, t, lead + (n, 3), dev).reshape(
+                b, n, 3).permute(0, 2, 1).contiguous()
 
-    def owned(name, t, k):
-        return _checked(name, t, lead + (k,), dev).clone(
-            memory_format=torch.contiguous_format)
+        def owned(name, t, k):
+            return _checked(name, t, lead + (k,), dev).clone(
+                memory_format=torch.contiguous_format)
 
-    x = planes("positions", state.positions)
-    v = planes("velocities", state.velocities)
-    w = _checked("inv_mass", state.inv_mass,
-                 lead + (n,) if per_body_mass else (n,), dev).contiguous()
-    f = planes("ext_force", state.ext_force)
-    lam = owned("lambda_dist", state.lambda_dist, e)
-    blam = owned("lambda_bend", state.lambda_bend, h)
-    plane = f32(3, b, 3, n)
-    work = dict(x=x, v=v, w=w, f=f, pred=plane[0], cur=plane[1],
-                prev=plane[2], lam=lam, blam=blam, contrib=f32(b, 2 * e, 3),
-                bcontrib=f32(b, max(4 * h, 1), 3),
-                colliders=world.table,
-                **tables.tensors)
-    if materials is not None:
-        work["rest"], work["alpha"] = material_constants(materials, cfg,
-                                                         dt_sub, e, dev,
-                                                         lead)
-        params.mat_stride = e if work["rest"].ndim == 2 else 0
-    if params.n_tets:
-        t = topo.n_tets
-        work.update(tlam=owned("lambda_tet", state.lambda_tet, t),
-                    tcontrib=f32(b, 4 * t, 3))
-    if params.n_tris:
-        t = params.n_tris
-        work.update(vlam=_checked("lambda_volume", state.lambda_volume, lead,
-                                  dev).reshape(b).clone(),
-                    vdl=f32(b), vterm=f32(b, t), vcontrib=f32(b, 3 * t, 3),
-                    vgrad=f32(b, 3, n), vwg=f32(b, n))
-    if params.sc_mode == 1:
-        work.update(sc_corr=f32(b, 3, n))
-    bufs = MeshBuffers(**{k: ctypes.c_void_p(work[k].data_ptr())
-                          for k in _BUFFERS if k in work})
-    lib = _library()
-    cp = cb = None
-    if params.sc_mode == 2:
-        # the B-4 pass over the pred plane (element (i, c) at c * n + i)
-        cp = _contact.make_params(n, cfg, 1, n, contact_design)
-        ct = _contact.scratch(lib, n, cfg, dev, contact_design)
-        ct.update(pred=work["pred"], w=w)
-        cb = _contact.buffers(ct)
-    count, ccount = ctypes.c_longlong(0), ctypes.c_longlong(0)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    head = (ctypes.byref(params), ctypes.byref(bufs),
-            None if cp is None else ctypes.byref(cp),
-            None if cb is None else ctypes.byref(cb), dev.index, n_substeps,
-            int(with_ext))
-    if design == "per_pass":
-        rc = lib.mesh_xpbd_run_per_pass(*head, tables.om,
-                                        ctypes.byref(count),
-                                        ctypes.byref(ccount), stream)
-    elif design == "persistent":
-        counts = tile_counts(params)
-        sched = schedule or schedule_for(counts, b, dev)
-        if (sched.counts, sched.n_bodies) != (counts, b):
-            raise ValueError("mesh kernel: the schedule is for another "
-                             "shape")
-        # the counting barrier's word, zeroed by the library before each
-        # launch
-        counter = torch.empty(1, dtype=torch.int64, device=dev)
-        chunks = (ctypes.c_int * len(TILE_KINDS))(*sched.chunks)
-        rc = lib.mesh_xpbd_run(
-            *head, ctypes.c_void_p(tables.om_dev.data_ptr()),
-            BARRIERS[sched.barrier], sched.grid, chunks,
-            ctypes.c_void_p(counter.data_ptr()), ctypes.byref(count),
-            ctypes.byref(ccount), stream)
-    else:
-        raise ValueError(f"mesh kernel: no design {design!r}")
+        x = planes("positions", state.positions)
+        v = planes("velocities", state.velocities)
+        w = _checked("inv_mass", state.inv_mass,
+                     lead + (n,) if per_body_mass else (n,), dev).contiguous()
+        f = planes("ext_force", state.ext_force)
+        lam = owned("lambda_dist", state.lambda_dist, e)
+        blam = owned("lambda_bend", state.lambda_bend, h)
+        plane = f32(3, b, 3, n)
+        work = dict(x=x, v=v, w=w, f=f, pred=plane[0], cur=plane[1],
+                    prev=plane[2], lam=lam, blam=blam,
+                    contrib=f32(b, 2 * e, 3),
+                    bcontrib=f32(b, max(4 * h, 1), 3),
+                    colliders=world.table,
+                    **tables.tensors)
+        if materials is not None:
+            work["rest"], work["alpha"] = material_constants(
+                materials, cfg, dt_sub, e, dev, lead)
+            params.mat_stride = e if work["rest"].ndim == 2 else 0
+        if params.n_tets:
+            t = topo.n_tets
+            work.update(tlam=owned("lambda_tet", state.lambda_tet, t),
+                        tcontrib=f32(b, 4 * t, 3))
+        if params.n_tris:
+            t = params.n_tris
+            work.update(vlam=_checked("lambda_volume", state.lambda_volume,
+                                      lead, dev).reshape(b).clone(),
+                        vdl=f32(b), vterm=f32(b, t),
+                        vcontrib=f32(b, 3 * t, 3),
+                        vgrad=f32(b, 3, n), vwg=f32(b, n))
+        if params.sc_mode == 1:
+            work.update(sc_corr=f32(b, 3, n))
+        bufs = MeshBuffers(**{k: ctypes.c_void_p(work[k].data_ptr())
+                              for k in _BUFFERS if k in work})
+    with profiling.span("mesh.launch"):
+        lib = _library()
+        cp = cb = None
+        if params.sc_mode == 2:
+            # the B-4 pass over the pred plane (element (i, c) at c * n + i)
+            cp = _contact.make_params(n, cfg, 1, n, contact_design)
+            ct = _contact.scratch(lib, n, cfg, dev, contact_design)
+            ct.update(pred=work["pred"], w=w)
+            cb = _contact.buffers(ct)
+        count, ccount = ctypes.c_longlong(0), ctypes.c_longlong(0)
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        head = (ctypes.byref(params), ctypes.byref(bufs),
+                None if cp is None else ctypes.byref(cp),
+                None if cb is None else ctypes.byref(cb), dev.index,
+                n_substeps, int(with_ext))
+        if design == "per_pass":
+            rc = lib.mesh_xpbd_run_per_pass(*head, tables.om,
+                                            ctypes.byref(count),
+                                            ctypes.byref(ccount), stream)
+        elif design == "persistent":
+            counts = tile_counts(params)
+            sched = schedule or schedule_for(counts, b, dev)
+            if (sched.counts, sched.n_bodies) != (counts, b):
+                raise ValueError("mesh kernel: the schedule is for another "
+                                 "shape")
+            # the counting barrier's word, zeroed by the library before each
+            # launch
+            counter = torch.empty(1, dtype=torch.int64, device=dev)
+            chunks = (ctypes.c_int * len(TILE_KINDS))(*sched.chunks)
+            rc = lib.mesh_xpbd_run(
+                *head, ctypes.c_void_p(tables.om_dev.data_ptr()),
+                BARRIERS[sched.barrier], sched.grid, chunks,
+                ctypes.c_void_p(counter.data_ptr()), ctypes.byref(count),
+                ctypes.byref(ccount), stream)
+        else:
+            raise ValueError(f"mesh kernel: no design {design!r}")
     launches += count.value
     _contact.launches += ccount.value
     if rc != 0:
@@ -782,16 +803,17 @@ def run_substeps_cuda(state: SimState, topo: Topology, cfg: SolverConfig,
     def body(t):
         return t if batched else t[0]
 
-    out = state.replace(
-        positions=body(x.permute(0, 2, 1).contiguous()),
-        velocities=body(v.permute(0, 2, 1).contiguous()),
-        lambda_dist=lam, lambda_bend=blam)
-    if params.n_tets:
-        out = out.replace(lambda_tet=work["tlam"])
-    if params.n_tris:
-        out = out.replace(lambda_volume=work["vlam"].reshape(lead))
-    if with_ext:
-        out = out.replace(ext_force=torch.zeros_like(state.ext_force))
+    with profiling.span("mesh.unlayout"):
+        out = state.replace(
+            positions=body(x.permute(0, 2, 1).contiguous()),
+            velocities=body(v.permute(0, 2, 1).contiguous()),
+            lambda_dist=lam, lambda_bend=blam)
+        if params.n_tets:
+            out = out.replace(lambda_tet=work["tlam"])
+        if params.n_tris:
+            out = out.replace(lambda_volume=work["vlam"].reshape(lead))
+        if with_ext:
+            out = out.replace(ext_force=torch.zeros_like(state.ext_force))
     return out
 
 

@@ -276,7 +276,7 @@ def test_ensemble_refusals_at_build(what):
         _volume_ensemble_matches_vmapped_jax()
         return
     kw = dict(n_bodies=2)
-    match = "B-3 item 5"
+    match = "dense self-collision only.*mesh_pallas.py:106-111"
     cfg = cfg.replace(self_collision_backend=what)
     with pytest.raises(NotImplementedError, match=match):
         mc.make_mesh_cuda_substep_runner(ptopo, cfg, cases.DT, 2, **kw)

@@ -85,7 +85,10 @@ force, COLORED with tets, a ColliderSet, ``fast_math`` and
 the per-pass loop and (exact) to the plain engine to the bit, twice, one
 shared-memory launch a call (``lattice_cuda.resident_launches``); a tile
 beyond the block's shared memory refused with ``ValueError`` before any
-launch.
+launch.  The mesh library after a refused cooperative launch: the next
+block-barrier launch and per-pass run not failed for it (C-1); the mesh
+runner's spans on the host's timeline alone, through the benchmark farm's
+ensemble step.
 """
 
 import pytest
@@ -1615,6 +1618,103 @@ def scenes_cloth(cuda):
     from softbodysimulation_tpu_torch.core import scenes
 
     return scenes.cloth(res=24, device=cuda)
+
+
+def _pressurized_farm(cuda, subdivisions, bodies):
+    """(topology, config, state) of ``bodies`` pressurized
+    ``icosphere(subdivisions, 0.5)`` bodies in the benchmark farm's
+    config (``portbench/configs/farm32_pressurized.json``), side by side
+    above the floor."""
+    import numpy as np
+
+    from softbodysimulation_tpu_torch import SolveMode, SolverConfig
+    from softbodysimulation_tpu_torch import state_from_topology
+    from softbodysimulation_tpu_torch.parallel import batch
+    from softbodysimulation_tpu_torch.topology import build, mesh
+
+    pos, topo = build.topology_from_mesh(mesh.icosphere(subdivisions, 0.5),
+                                         compliance=1e-6, windowed=True)
+    cfg = SolverConfig(substeps=4, iterations=4, damping=0.02,
+                       solve_mode=SolveMode.JACOBI,
+                       gravity_is_acceleration=True, ground_height=0.0,
+                       friction=0.3, enable_volume=True, pressure=1.15,
+                       volume_compliance=0.0)
+    st = batch.replicate_state(state_from_topology(topo, pos, device=cuda),
+                               bodies)
+    off = torch.tensor([[1.5 * i, 1.0, 0.0] for i in range(bodies)],
+                       device=cuda)
+    return topo, cfg, st.replace(positions=st.positions + off[:, None, :])
+
+
+@pytest.mark.gpu
+def test_b3_refusal_is_that_calls_alone_on_card(cuda):
+    """After a refused cooperative launch of the mesh library, the next
+    whole-bodies-a-block launch of the persistent kernel and the next
+    per-pass run are not failed for the refusal: each launch reads its
+    own status."""
+    import dataclasses
+
+    st, _, info = scenes_cloth(cuda)
+    topo, cfg = info["topology"], info["config"]
+    counts = mc.tile_counts(mc.make_params(topo, cfg, 1 / 240))
+    sms, per_sm = mc.device_occupancy(torch.cuda.current_device(), "counter")
+    big = dataclasses.replace(mc.schedule_for(counts, 1, cuda, "counter"),
+                              grid=sms * per_sm + 1)
+    ftopo, fcfg, farm = _pressurized_farm(cuda, 1, 3)
+    p = mc.make_params(ftopo, fcfg, 1 / 240)
+    assert mc.schedule_for(mc.tile_counts(p), 3, cuda).kind == "block"
+    for design in mc.DESIGNS:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            mc.run_substeps_cuda(st, topo, cfg, 1 / 240, 4, schedule=big)
+        before = mc.launches
+        out = mc.run_substeps_cuda(farm, ftopo, fcfg, 1 / 240, 4,
+                                   with_ext=True, batched=True,
+                                   per_body_mass=True, design=design)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out.positions).all())
+        assert mc.launches > before
+
+
+@pytest.mark.gpu
+def test_profiled_mesh_calls_carry_the_runners_spans_on_card(cuda):
+    """Under the profiler a mesh runner call is the host span
+    ``sbs.mesh.call``, its phases ``layout``, ``launch`` and ``unlayout``
+    nested in it, none of them on the device's timeline, one persistent
+    launch a call, through the ensemble step the benchmark's farm takes
+    (``icosphere(3)`` bodies across the grid, ``icosphere(1)`` bodies whole
+    in blocks)."""
+    from torch.autograd import DeviceType
+
+    from softbodysimulation_tpu_torch.diag import profiling
+
+    runs = []
+    for subdivisions, kind in ((3, "grid"), (1, "block")):
+        topo, cfg, st = _pressurized_farm(cuda, subdivisions, 4)
+        counts = mc.tile_counts(mc.make_params(topo, cfg, 1 / 240))
+        assert mc.schedule_for(counts, 4, cuda).kind == kind
+        step = pgeneral.make_batched_step(topo, cfg, 1 / 60, 2)
+        step(st)
+        runs.append((step, st))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for step, st in runs:
+            before = mc.launches
+            out = step(st)
+            assert mc.launches == before + 1
+            assert float(out.lambda_volume.abs().min()) > 0.0
+        torch.cuda.synchronize()
+    events = sorted(prof.events(), key=lambda e: e.time_range.start)
+    dev = [e.name for e in events if e.device_type == DeviceType.CUDA]
+    assert not any(n.startswith(profiling.SPAN_PREFIX) for n in dev)
+    host = [e for e in events if e.device_type == DeviceType.CPU
+            and e.name.startswith(profiling.SPAN_PREFIX + "mesh.")]
+    whole = [e for e in host if e.name == "sbs.mesh.call"]
+    assert len(whole) == 2
+    for part in ("layout", "launch", "unlayout"):
+        parts = [e for e in host if e.name == f"sbs.mesh.{part}"]
+        assert [e.cpu_parent for e in parts] == whole
 
 
 # ---- the counted twin of the persistent lattice kernel (diag/profiling) --
